@@ -1,22 +1,37 @@
-"""Command line of the port. This slice has the ``serve`` subcommand:
+"""Command line of the port: ``serve`` and ``train``.
 
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
         --index features.pickle
+    python -m soft_contrastive_learning_torch.cli train --toy_city --loss wms
 
-Flags follow ``scl-tpu serve`` (``soft_contrastive_learning_tpu/cli.py``),
-without ``--quant_scales`` (the int8 path is a later slice) and with
+Flags follow ``scl-tpu`` (``soft_contrastive_learning_tpu/cli.py``) with the
+same names and defaults, limited to what the port runs so far, plus
 ``--device`` (default ``cuda``). ``--checkpoint`` takes a flagship-layout
-npz; it defaults to the committed trained artifact.
+npz: for ``serve`` it defaults to the committed trained artifact; for
+``train`` it is the warm start (default: a fresh init from ``--seed``).
+``train`` runs on the synthetic toy city (``--toy_city``); the filesystem
+source comes with the eval slice, and ``--loss`` keeps its default
+``wrd``, which raises until the loss-zoo slice, so pass ``--loss wms``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional, Sequence
 
 import numpy as np
+
+
+def _bool_flag(s: str) -> bool:
+    v = s.strip().lower()
+    if v in ("true", "1", "yes"):
+        return True
+    if v in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
 def cmd_serve(args) -> int:
@@ -40,6 +55,106 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def config_from_args(args):
+    from soft_contrastive_learning_torch.core.config import (
+        LossConfig, ModelConfig, TrainConfig, TupleConfig)
+
+    model = ModelConfig(vlad_cores=args.vlad_cores, reduction=args.reduction,
+                        image_height=args.image_height, image_width=args.image_width,
+                        compute_dtype=args.compute_dtype, use_kernels=args.use_pallas)
+    tuples = TupleConfig(
+        positives_per_tuple=args.positives_per_tuple,
+        negatives_per_tuple=args.negatives_per_tuple,
+        hard_positives_per_tuple=args.hard_positives_per_tuple,
+        hard_negatives_per_tuple=args.hard_negatives_per_tuple,
+        mutually_exclusive_negs=args.mutually_exclusive_negs,
+        max_pos_radius=args.max_pos_radius, min_neg_radius=args.min_neg_radius)
+    loss = LossConfig(name=args.loss, alpha=args.alpha, beta=args.beta,
+                      wfunction=args.wfunction, sumfunction=args.sumfunction)
+    return TrainConfig(
+        model=model, tuples=tuples, loss=loss, checkpoint=args.checkpoint,
+        tuples_per_batch=args.tuples_per_batch, max_epoch=args.max_epoch,
+        base_lr=args.base_lr, minimal_lr=args.minimal_lr,
+        lr_down_factor=args.lr_down_factor, lr_down_frequency=args.lr_down_frequency,
+        momentum=args.momentum, optimizer=args.optimizer,
+        mining_step=args.mining_step, mining_cache_size=args.mining_cache_size,
+        eval_step=args.eval_step, save_step=args.save_step, train_ref_r=args.train_ref_r,
+        local_ref_set=args.local_ref_set, seed=args.seed,
+        device_image_pool=args.device_image_pool,
+        device_pool_max_bytes=args.device_pool_max_bytes)
+
+
+def cmd_train(args) -> int:
+    from soft_contrastive_learning_torch.core.config import unique_out_dir
+    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+    from soft_contrastive_learning_torch.train.trainer import Trainer
+
+    cfg = config_from_args(args)
+    if not args.toy_city:
+        raise NotImplementedError(
+            "training from the prep pipeline's files (FilesystemSource) comes with the "
+            "eval slice of the port; pass --toy_city")
+    out_folder = args.out_folder or cfg.encode_name()
+    out_dir = (os.path.join(args.out_root, out_folder) if args.out_folder
+               else unique_out_dir(args.out_root, out_folder))
+    source = ToyCitySource(num_points=120, radius=150.0,
+                           img_h=args.image_height, img_w=args.image_width)
+    params = load_trained_params(args.checkpoint, cfg.model) if args.checkpoint else None
+    trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params)
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    return 0
+
+
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint", default="",
+                   help="flagship-layout params npz to start from (default: fresh init)")
+    p.add_argument("--out_root", default="runs")
+    p.add_argument("--out_folder", default="")
+    p.add_argument("--toy_city", action="store_true", help="train on the synthetic toy city")
+    p.add_argument("--positives_per_tuple", type=int, default=12)
+    p.add_argument("--negatives_per_tuple", type=int, default=12)
+    p.add_argument("--hard_positives_per_tuple", type=int, default=6)
+    p.add_argument("--hard_negatives_per_tuple", type=int, default=6)
+    p.add_argument("--mutually_exclusive_negs", type=_bool_flag, default=True)
+    p.add_argument("--loss", default="wrd")
+    p.add_argument("--alpha", type=float, default=0.8)
+    p.add_argument("--beta", type=float, default=15.0)
+    p.add_argument("--wfunction", default="exp", choices=["exp", "lin", "tanh"])
+    p.add_argument("--sumfunction", default="ms", choices=["ms", "plain"])
+    p.add_argument("--max_pos_radius", type=float, default=15.0)
+    p.add_argument("--min_neg_radius", type=float, default=15.0)
+    p.add_argument("--tuples_per_batch", type=int, default=2)
+    p.add_argument("--max_epoch", type=int, default=5)
+    p.add_argument("--base_lr", type=float, default=5e-6)
+    p.add_argument("--minimal_lr", type=float, default=5e-12)
+    p.add_argument("--lr_down_factor", type=float, default=0.5)
+    p.add_argument("--lr_down_frequency", type=float, default=1.0)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--optimizer", default="adam", choices=["adam", "momentum"])
+    p.add_argument("--reduction", default="none",
+                   choices=["none", "1fc", "2fc", "3fc", "pca", "spp"])
+    p.add_argument("--vlad_cores", type=int, default=64)
+    p.add_argument("--mining_step", type=int, default=250)
+    p.add_argument("--mining_cache_size", type=int, default=1000)
+    p.add_argument("--eval_step", type=int, default=100)
+    p.add_argument("--save_step", type=int, default=500)
+    p.add_argument("--train_ref_r", type=int, default=1)
+    p.add_argument("--local_ref_set", default="train_ref")
+    p.add_argument("--image_height", type=int, default=180)
+    p.add_argument("--image_width", type=int, default=240)
+    p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--use_pallas", type=_bool_flag, default=True,
+                   help="the hand-written kernels' path (K1 here), as the JAX flag "
+                        "selects its Pallas kernels")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device_image_pool", type=_bool_flag, default=True)
+    p.add_argument("--device_pool_max_bytes", type=int, default=4_000_000_000)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="soft_contrastive_learning_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -55,6 +170,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8377)
     p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("train", help="train the embedding network")
+    _add_train_flags(p)
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_train)
     return parser
 
 

@@ -11,19 +11,10 @@ import numpy as np
 import torch
 
 from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_device
+from soft_contrastive_learning_torch.data.pipeline import pad_to_multiple
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
 from soft_contrastive_learning_torch.train.step import build_embed_step
 from soft_contrastive_learning_torch.utils.cv import normalize_geometry
-
-
-def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
-    """Pad with repeats of row 0 so shape[axis] % multiple == 0, so every
-    call runs at the one batch shape."""
-    rem = (-x.shape[axis]) % multiple
-    if rem == 0:
-        return x
-    pad = np.take(x, np.zeros(rem, dtype=int), axis=axis)
-    return np.concatenate([x, pad], axis=axis)
 
 
 class DescriptorExtractor:

@@ -6,7 +6,8 @@ conv in the compute dtype, softmax over clusters, ``cluster_centers``
 holding the *negated* centers (added), intra-normalization with the eps
 inside the sqrt, a d-major flatten and a final L2 norm. ``vlad_aggregate``
 is the plain PyTorch formula; with ``use_kernels`` the aggregation goes
-through K1 (``ops/kernels/netvlad.py``) on a CUDA device.
+through ``VladAggregateFn``: K1 (``ops/kernels/netvlad.py``) forward on a
+CUDA device, autograd of the plain formula backward.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from soft_contrastive_learning_torch.ops.kernels.netvlad import (
-    netvlad_aggregate_cuda,
+    VladAggregateFn,
     vlad_aggregate,
 )
 
@@ -44,5 +45,5 @@ class NetVLAD(nn.Module):
         weight = self.assignment.weight.to(self.compute_dtype).reshape(-1, d)
         logits = x.to(self.compute_dtype) @ weight.T  # (B, N, K)
         if self.use_kernels:
-            return netvlad_aggregate_cuda(x, logits, self.cluster_centers)
+            return VladAggregateFn.apply(x, logits, self.cluster_centers)
         return vlad_aggregate(x, logits, self.cluster_centers)

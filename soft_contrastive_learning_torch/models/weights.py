@@ -63,7 +63,7 @@ def params_from_flax(
         arr = np.asarray(flat[key])
         if arr.shape != shape:
             raise ValueError(f"shape mismatch at {key}: {arr.shape} vs {shape}")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(arr))  # a writable copy
         parts = key.split("/")
         if parts[-1] == "kernel":
             t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW

@@ -1,8 +1,8 @@
 """Build the hand-written CUDA kernels under ``csrc/`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``soft_contrastive_learning_torch/_build/<name>-<hash>.so``. The hash
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+-cudart shared`` into ``soft_contrastive_learning_torch/_build/<name>-<hash>.so``. The hash
 covers every source under ``csrc/`` and the flags, so an edited source
 rebuilds at first use and an unchanged one is reused. All missing libraries
 build in parallel, one ``nvcc`` per source. ``ptxas -v`` output (registers,
@@ -29,6 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # link the CUDA runtime PyTorch has loaded instead of a static copy, so
+    # the process holds one runtime
+    "-cudart", "shared",
 )
 
 _lock = threading.Lock()
@@ -121,3 +124,4 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {err} ({fn(err).decode()}) at launch")
+

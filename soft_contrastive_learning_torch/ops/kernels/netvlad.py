@@ -7,8 +7,10 @@ the features from device memory; its source note gives the bound and the
 design. ``vlad_aggregate`` below is its plain PyTorch version: the CPU path
 of the wrapper, and what ``chip_smoke.py`` holds the kernel against.
 
-Forward only: the ``autograd.Function`` whose backward is autograd of the
-plain formula comes with the training path.
+``VladAggregateFn`` keeps the JAX split (``vlad_aggregate_fused``, a
+custom_vjp): K1 runs the forward, and the backward is autograd of the plain
+formula, recomputed from the saved inputs. The bare wrapper records no
+graph and refuses a call that would need one.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import torch
 
 from soft_contrastive_learning_torch.ops.kernels import _build
+from soft_contrastive_learning_torch.ops.kernels._autograd import plain_backward, refuse_graph
 
 _EPS = 1e-12
 _SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use
@@ -60,7 +63,10 @@ def netvlad_aggregate_cuda(
 ) -> torch.Tensor:
     """``vlad_aggregate`` through K1 for CUDA tensors; the plain version for
     CPU tensors. Takes x fp32, logits fp32 or bf16, centers fp32; raises on
-    anything the kernel does not take."""
+    anything the kernel does not take, and on an input that requires grad
+    while grad mode is on (use ``VladAggregateFn`` there)."""
+    refuse_graph("netvlad_aggregate_cuda", "VladAggregateFn", features, assign_logits,
+                 neg_centers)
     if features.device.type == "cpu":
         return vlad_aggregate(features, assign_logits, neg_centers)
     if features.device.type != "cuda":
@@ -99,3 +105,19 @@ def netvlad_aggregate_cuda(
 
 
 netvlad_aggregate_cuda.launches = 0
+
+
+class VladAggregateFn(torch.autograd.Function):
+    """K1 forward (the plain version on CPU tensors); backward = autograd of
+    the plain ``vlad_aggregate`` recomputed from the saved inputs. The
+    logits' gradient comes back in the logits' dtype (bf16 on the main
+    path), as the cast in the plain formula gives it."""
+
+    @staticmethod
+    def forward(ctx, features, assign_logits, neg_centers):
+        ctx.save_for_backward(features, assign_logits, neg_centers)
+        return netvlad_aggregate_cuda(features, assign_logits, neg_centers)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_backward(vlad_aggregate, ctx.saved_tensors, ctx.needs_input_grad, grad)

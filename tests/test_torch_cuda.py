@@ -6,6 +6,9 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +17,14 @@ from soft_contrastive_learning_torch import serving
 from soft_contrastive_learning_torch.core.config import ModelConfig
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
 from soft_contrastive_learning_torch.models.weights import load_trained_params
+from soft_contrastive_learning_torch.losses.ms import wms_loss
 from soft_contrastive_learning_torch.ops.kernels.netvlad import (
+    VladAggregateFn,
     netvlad_aggregate_cuda,
     vlad_aggregate,
 )
 from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda, topk_l2_stream_plain
+from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda, wms_loss_fused
 from soft_contrastive_learning_torch.ops.topk import topk_l2_streamed
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +141,78 @@ def test_service_streams_through_k2(cuda, monkeypatch):
     assert netvlad_aggregate_cuda.launches > before[0]
     assert topk_l2_cuda.launches == before[1] + 1
     assert ids[:, 0].tolist() == [0, 1, 2]
+
+
+def test_k1_refuses_a_bare_call_that_would_cut_the_graph(cuda):
+    x, logits, centers = _vlad_inputs(cuda, 2, 20, 36, 8, torch.float32)
+    x.requires_grad_()
+    with pytest.raises(RuntimeError, match="VladAggregateFn"):
+        netvlad_aggregate_cuda(x, logits, centers)
+    with torch.no_grad():
+        netvlad_aggregate_cuda(x, logits, centers)
+
+
+def test_k1_function_gradients_are_plain_autograd(cuda):
+    """The backward is the plain formula's autograd on the same inputs, so
+    the gradients agree to rounding of the recomputation (1e-6); the forward
+    is K1."""
+    x, logits, centers = _vlad_inputs(cuda, 4, 165, 512, 64, torch.bfloat16)
+    ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
+    ref = [t.clone().requires_grad_() for t in (x, logits, centers)]
+    g = torch.randn((4, 512 * 64), device=cuda)
+    before = netvlad_aggregate_cuda.launches
+    got = torch.autograd.grad(VladAggregateFn.apply(*ins), ins, g)
+    assert netvlad_aggregate_cuda.launches == before + 1
+    want = torch.autograd.grad(vlad_aggregate(*ref), ref, g)
+    assert got[1].dtype == torch.bfloat16
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6, rtol=0)
+
+
+def _wms_inputs(device, b, d, seed):
+    """``chip_smoke.py``'s K3 inputs: places on a line and rows whose
+    similarity falls with distance, so that MS mining moves the loss
+    (``test_torch_wms.py`` checks that on the CPU)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.wms_inputs(torch, np, b, d, seed, device=device)
+
+
+@pytest.mark.parametrize("mining", [True, False])
+@pytest.mark.parametrize("b,d", [(50, 32768), (100, 2048), (1024, 512), (7, 33)])
+def test_k3_matches_plain(cuda, b, d, mining):
+    """fp32 FMA Gram against cuBLAS fp32 (TF32 off): the loss agrees to
+    1e-5 relative, the bound chip_smoke.py holds it to. Mining moves the
+    plain loss by at least 100x that bound on these inputs, so a kernel that
+    ignored the flag could not pass."""
+    geo, emb = _wms_inputs(cuda, b, d, b + d)
+    before = wms_loss_cuda.launches
+    got = wms_loss_cuda(geo, emb, 0.8, 15.0, ms_mining=mining)
+    torch.cuda.synchronize()
+    assert wms_loss_cuda.launches == before + 1
+    want = wms_loss(geo, emb, 0.8, 15.0, ms_mining=mining)
+    other = wms_loss(geo, emb, 0.8, 15.0, ms_mining=not mining)
+    assert abs(other.item() - want.item()) >= 1e-3 * max(1.0, abs(want.item()))
+    assert abs(got.item() - want.item()) <= 1e-5 * max(1.0, abs(want.item()))
+    again = wms_loss_cuda(geo, emb, 0.8, 15.0, ms_mining=mining)
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+
+
+def test_k3_function_gradient_is_plain_autograd(cuda):
+    geo, emb = _wms_inputs(cuda, 50, 32768, 5)
+    e1, e2 = emb.clone().requires_grad_(), emb.clone().requires_grad_()
+    (g1,) = torch.autograd.grad(wms_loss_fused(geo, e1, 0.8, 15.0), e1)
+    (g2,) = torch.autograd.grad(wms_loss(geo, e2, 0.8, 15.0), e2)
+    torch.testing.assert_close(g1, g2, atol=1e-6, rtol=0)
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    geo, emb = _wms_inputs(cuda, 4, 8, 0)
+    with pytest.raises(TypeError):
+        wms_loss_cuda(geo, emb.double(), 0.8, 15.0)
+    with pytest.raises(ValueError, match="shape"):
+        wms_loss_cuda(geo[:3], emb, 0.8, 15.0)
+    with pytest.raises(RuntimeError, match="WmsLossFn"):
+        wms_loss_cuda(geo, emb.requires_grad_(), 0.8, 15.0)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it, or chip_smoke.py, pulls in no
-JAX and nothing of soft_contrastive_learning_tpu; its kernels build only
-from its own CUDA sources."""
+JAX and nothing of soft_contrastive_learning_tpu, and no scikit-learn or
+OpenCV (not dependencies of the port: a GPU host need not have them); its
+kernels build only from its own CUDA sources."""
 
 import ast
 import subprocess
@@ -14,6 +15,9 @@ from soft_contrastive_learning_torch.ops.kernels import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "soft_contrastive_learning_torch"
 FORBIDDEN = ("jax", "flax", "optax", "soft_contrastive_learning_tpu")
+# not dependencies of the port: importing it must not load them (cv2
+# is imported inside the few functions that decode or resize an image)
+NOT_DEPENDENCIES = ("sklearn", "cv2")
 
 
 def _port_sources():
@@ -29,7 +33,8 @@ def test_importing_the_port_pulls_in_no_jax():
         "import importlib, sys\n"
         f"for m in {modules + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + NOT_DEPENDENCIES!r})\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -53,10 +58,11 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 
 def test_every_kernel_source_exports_its_c_entry_points():
     names = _build.kernel_names()
-    assert names == ["netvlad", "topk"]
+    assert names == ["netvlad", "topk", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
     assert "int scl_topk_l2(" in text["topk"] and "scl_topk_chunk_rows" in text["topk"]
+    assert "int scl_wms_loss(" in text["wms"] and "atomicAdd" not in text["wms"]
     assert all("scl_cuda_error_string" in t for t in text.values())
 
 

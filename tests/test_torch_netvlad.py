@@ -1,10 +1,13 @@
 """K1 (NetVLAD aggregation) in the PyTorch port against the JAX package.
 
 The port's plain version is held to JAX's ``vlad_aggregate`` and to the
-Pallas kernel in interpret mode on the same numpy inputs. The kernel itself
-is held to the plain version in ``test_torch_cuda.py``, on a CUDA card.
+Pallas kernel in interpret mode on the same numpy inputs, and
+``VladAggregateFn``'s gradients to ``jax.vjp`` of ``vlad_aggregate_fused``.
+The kernel itself is held to the plain version in ``test_torch_cuda.py``, on
+a CUDA card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,9 +15,15 @@ import torch
 
 from soft_contrastive_learning_tpu.models.netvlad import NetVLAD as JaxNetVLAD
 from soft_contrastive_learning_tpu.models.netvlad import vlad_aggregate as jax_vlad_aggregate
-from soft_contrastive_learning_tpu.ops.pallas.netvlad_kernel import vlad_aggregate_pallas
+from soft_contrastive_learning_tpu.ops.pallas.netvlad_kernel import (
+    vlad_aggregate_fused,
+    vlad_aggregate_pallas,
+)
 from soft_contrastive_learning_torch.models.netvlad import NetVLAD, vlad_aggregate
-from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
+from soft_contrastive_learning_torch.ops.kernels.netvlad import (
+    VladAggregateFn,
+    netvlad_aggregate_cuda,
+)
 
 torch.set_num_threads(1)  # tier-1 runs several workers on one host
 
@@ -88,3 +97,63 @@ def test_module_matches_flax_netvlad():
         got = mod(torch.from_numpy(fmap)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=0)
 
+
+
+@pytest.mark.parametrize("logit_dtype", ["float32", "bfloat16"])
+def test_function_gradients_match_jax_fused_vjp(logit_dtype):
+    """``VladAggregateFn`` against ``jax.vjp`` of ``vlad_aggregate_fused``
+    (the Pallas forward in interpret mode, the XLA formulation's VJP): the
+    same split on both sides. fp32 gradients agree to 1e-5 of their largest
+    entry (summation order through two normalizations); a bf16 logits
+    gradient is the fp32 one rounded to bf16 on each side, so entries may
+    differ by one bf16 ulp (2^-8 relative), held to 2^-7."""
+    x, logits, centers = _inputs(4, 2, 12, 64, 8)
+    g = np.random.default_rng(5).standard_normal((2, 64 * 8)).astype(np.float32)
+    jl = jnp.asarray(logits).astype(logit_dtype)
+    _, vjp = jax.vjp(vlad_aggregate_fused, jnp.asarray(x), jl, jnp.asarray(centers))
+    want = [np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(g))]
+    ins = [torch.from_numpy(x).requires_grad_(),
+           torch.from_numpy(logits).to(getattr(torch, logit_dtype)).requires_grad_(),
+           torch.from_numpy(centers).requires_grad_()]
+    got = torch.autograd.grad(VladAggregateFn.apply(*ins), ins, torch.from_numpy(g))
+    assert got[1].dtype == ins[1].dtype
+    for name, a, w in zip(("features", "logits", "centers"), got, want):
+        a = a.float().numpy()
+        if name == "logits" and logit_dtype == "bfloat16":
+            np.testing.assert_allclose(a, w, rtol=2**-7, atol=1e-6 * np.abs(w).max())
+        else:
+            np.testing.assert_allclose(a, w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+def test_module_backward_goes_through_the_function():
+    """With use_kernels the module's graph runs VladAggregateFn's backward
+    and gives the plain module's gradients."""
+    rng = np.random.default_rng(6)
+    fmap = torch.from_numpy(rng.standard_normal((2, 3, 4, 512)).astype(np.float32))
+    grads, state = [], None
+    for use_kernels in (True, False):
+        mod = NetVLAD(num_clusters=8, compute_dtype=torch.float32, use_kernels=use_kernels)
+        state = state or mod.state_dict()
+        mod.load_state_dict(state)
+        out = mod(fmap)
+        assert out.grad_fn is not None
+        if use_kernels:
+            assert "VladAggregateFn" in type(out.grad_fn).__name__
+        grads.append(torch.autograd.grad(out.square().sum() + out.sum(),
+                                         [mod.assignment.weight, mod.cluster_centers]))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_bare_wrapper_refuses_to_cut_the_graph():
+    """The check's logic on the CPU: with grad mode on and an input that
+    requires grad, the bare wrapper raises; under no_grad, or inside the
+    Function's forward (where autograd turns grad mode off), it runs."""
+    x, logits, centers = (torch.from_numpy(a) for a in _inputs(7, 1, 4, 8, 4))
+    c = centers.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="VladAggregateFn"):
+        netvlad_aggregate_cuda(x, logits, c)
+    with torch.no_grad():
+        netvlad_aggregate_cuda(x, logits, c)
+    VladAggregateFn.apply(x, logits, c).sum().backward()
+    assert c.grad is not None
