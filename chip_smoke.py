@@ -24,26 +24,52 @@ failure:
    autograd's within 1e-6;
 6. K1's backward: VladAggregateFn's gradients against plain autograd at
    B=50, N=165, D=512, K=64 with bf16 logits, within 1e-6;
-7. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
+7. K4 (fused Winograd F(2x2,3x3) conv) against its plain version at every
+   Winograd layer shape of the flagship (conv2_2 to conv5_3 at 180x240) at
+   the serving batch, B=64, and the training batch, B=50, where conv3 and
+   conv4 end in a ragged block of tiles, and at B=2 odd shapes (11x15, 9x9,
+   F=64), ReLU on and off: fp32 output within 1e-4 of the largest output;
+   bf16 output within one bf16 step on >= 99.9% of the elements and two
+   everywhere (where the bf16 grid is finer than the fp32 gate, that
+   gate); the same bits twice; and within
+   0.02 relative of the fp32 cuDNN conv (TF32 off). Timed at both batches
+   beside cuDNN's bf16 conv (+ ReLU) on the same shapes;
+8. K4's backward: WinogradConvFn's gradients against autograd of the direct
+   bf16 conv at B=50 (conv4_2 with the fused ReLU, conv2_2 without), within
+   0.05 of each gradient's largest entry (the cotangent comes from the
+   Winograd forward), and forward + backward timed against plain autograd;
+9. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
    DescriptorService (batch 64): embed 512 index images, pad the index with
    seeded random unit vectors to 66,048 x 32,768 fp32 so that search takes
    the streamed K2 path, search 64 queries of which 16 are index images
    (each must come back at rank 0), and check that both kernels were
    launched on that path; then hold the served descriptors against an fp32
    plain-PyTorch model and the served search against K2's plain version;
-8. train: one toy-city epoch (120 poses, 180x240) of the flagship through
+10. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
+   K1 launch per batch, descriptors at cosine >= 0.999 to the standard
+   configuration's and >= 0.99 to the fp32 plain model's, and the model's
+   time per batch beside the standard configuration's, in turns;
+11. train: one toy-city epoch (120 poses, 180x240) of the flagship through
    Trainer.train() from the trained weights: 2 tuples of 1+12+12 (B=50),
    Adam at 5e-6, hard mining 6+6, fused wms (K3), mining every 20 steps
-   over a cache of 100, after the city is rendered into the card's image
-   pool (set-up, timed apart). 60 steps, 6 refreshes; K1 and K3 must launch on
-   it, every loss be finite and the weights move. Then, on the epoch's first
-   batch from the same weights, one step with the kernels and one without
-   must give the same loss (1e-5 relative at fp32, 1e-4 at bf16), and the
-   step is timed with K1 and K3, with K1 only, and with no kernel;
-9. print the serve, train and kernel JSON lines, then the result line.
+   over a cache of 100, the eval hooks once (before the first step: the
+   held-out city's loss over 4 anchors, localization of 4 queries against
+   12 reference poses in both cities), after the city is rendered into the
+   card's image pool (set-up, timed apart). 60 steps, 6 refreshes; K1 and K3
+   must launch on it as often as the path calls them, every loss and eval
+   scalar be finite and the weights move. Then, on the epoch's first batch
+   from the same weights, one step with the kernels and one without must
+   give the same loss (1e-5 relative at fp32, 1e-4 at bf16), and the step
+   is timed with K1 and K3, with K1 only, and with no kernel;
+12. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
+   (10 per forward: steps, mining embeds, evals), the same checks, the
+   standard epoch's first batch within 1e-2 relative of the standard
+   configuration's loss, and the step timed against it in turns;
+13. print the serve, train and kernel JSON lines, then the result line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
-H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 3.35 TB/s).
+H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16 on
+them, 3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -57,6 +83,7 @@ import time
 
 SEED = 0
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -65,8 +92,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -188,16 +215,41 @@ def phase_k2(torch, report):
     torch.cuda.empty_cache()
 
 
+class LaunchCounts:
+    """The four kernel wrappers' launch counters around one path: set to 0
+    on entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
+
+    def __init__(self, report, path):
+        from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
+        from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda
+        from soft_contrastive_learning_torch.ops.kernels.winograd import winograd_conv_cuda
+        from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda
+
+        self.report, self.path = report, path
+        self.wrappers = {"K1": netvlad_aggregate_cuda, "K2": topk_l2_cuda, "K3": wms_loss_cuda,
+                         "K4": winograd_conv_cuda}
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self, expect):
+        """The counts since entry; fails unless they are ``expect``."""
+        counts = {kid: fn.launches for kid, fn in self.wrappers.items()}
+        if counts != expect:
+            fail(f"{self.path}: kernel launches {counts}, expected {expect}")
+        for kid, count in counts.items():
+            self.report[kid].setdefault("launches_by_path", {})[self.path] = count
+        return counts
+
+
 def blocky_images(rng, n: int):
     """Seeded 180x240 uint8 images of 15x15-pixel random blocks."""
     return rng.integers(0, 256, (n, 12, 16, 3), dtype="uint8").repeat(15, 1).repeat(15, 2)
 
 
-def phase_serve(torch, np, report):
+def phase_serve(torch, np, report, shared):
     from soft_contrastive_learning_torch.core.config import ModelConfig
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
     from soft_contrastive_learning_torch.models.weights import load_trained_params
-    from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
     from soft_contrastive_learning_torch.ops.kernels.topk import (
         topk_l2_cuda, topk_l2_stream_plain)
     from soft_contrastive_learning_torch.serving import STREAM_MIN_ROWS, DescriptorService
@@ -210,8 +262,7 @@ def phase_serve(torch, np, report):
     n_rows, dim, k = 66048, cfg.descriptor_dim, 5
     assert n_rows > STREAM_MIN_ROWS
 
-    netvlad_aggregate_cuda.launches = 0
-    topk_l2_cuda.launches = 0
+    counts = LaunchCounts(report, "serve")
     t0 = time.perf_counter()
     embedder = DescriptorService(cfg, params, batch_size=64)
     descs = embedder.embed(index_imgs)
@@ -225,13 +276,10 @@ def phase_serve(torch, np, report):
     service = DescriptorService(cfg, params, batch_size=64, index=index)
     dists, ids = service.search(query_imgs, k=k)
     torch.cuda.synchronize()
-    launches = {"K1": netvlad_aggregate_cuda.launches, "K2": topk_l2_cuda.launches}
+    # 8 batches of index images and one of queries through K1, one streamed search
+    launches = counts.read({"K1": 9, "K2": 1, "K3": 0, "K4": 0})
     print(f"serve: embedded {len(descs)} + searched {len(query_imgs)} images over "
           f"{n_rows} x {dim} in {time.perf_counter() - t0:.1f} s; launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"{name} was not launched on the serving path")
-        report[name]["launches_by_path"] = {"serve": count}
 
     if descs.shape != (512, dim) or not np.isfinite(descs).all():
         fail(f"descriptors: shape {descs.shape} or non-finite values")
@@ -276,6 +324,8 @@ def phase_serve(torch, np, report):
         ref = ref_model(x)[1]
         via_k1 = k1_model(x)[1]
     served = torch.from_numpy(descs[:8]).cuda()
+    shared.update(params=params, index_imgs=index_imgs, descs=descs, fp32_ref=ref.cpu().numpy(),
+                  service=service)
     cos_bf16 = (served * ref).sum(1).min().item()
     cos_k1 = (via_k1 * ref).sum(1).min().item()
     print(f"serve: cosine to the fp32 plain model: served bf16 {cos_bf16:.6f}, "
@@ -294,6 +344,50 @@ def phase_serve(torch, np, report):
                            model_ms_per_batch64=embed_ms)
     print(f"serve: embed {512 / e2e_s:.1f} img/s end to end (service.embed, 512 images), "
           f"model alone {64e3 / embed_ms:.1f} img/s ({embed_ms:.3f} ms per batch of 64)")
+
+
+def phase_serve_winograd(torch, np, report, shared):
+    """The flagship with ``winograd=True`` through DescriptorService.embed
+    on the standard phase's 512 images: K4 on 10 of the 13 convs."""
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.serving import DescriptorService
+
+    cfg = ModelConfig(winograd=True)
+    imgs, standard = shared["index_imgs"], shared["service"]
+    counts = LaunchCounts(report, "serve_winograd")
+    service = DescriptorService(cfg, shared["params"], batch_size=64)
+    t0 = time.perf_counter()
+    descs = service.embed(imgs)
+    e2e_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    batches = len(imgs) // 64
+    launches = counts.read({"K1": batches, "K2": 0, "K3": 0, "K4": 10 * batches})
+    if descs.shape != shared["descs"].shape or not np.isfinite(descs).all():
+        fail(f"serve_winograd: descriptors of shape {descs.shape} or non-finite")
+    cos_std = (descs * shared["descs"]).sum(1).min()
+    cos_fp32 = (descs[:8] * shared["fp32_ref"]).sum(1).min()
+    print(f"serve_winograd: {len(imgs)} images, launches {launches}; cosine to the standard bf16 "
+          f"model {cos_std:.6f}, to the fp32 plain model {cos_fp32:.6f}")
+    if cos_std < 0.999 or cos_fp32 < 0.99:
+        fail(f"serve_winograd: descriptors part from the standard configuration's "
+             f"({cos_std}, {cos_fp32})")
+    # model alone at batch 64, the two configurations in turns
+    batch = torch.from_numpy(imgs[:64]).cuda()
+    turns = {"winograd": [], "standard": []}
+    runs = {"winograd": service, "standard": standard}
+    for name in ("winograd", "standard", "standard", "winograd"):
+        turns[name].append(time_ms(torch, lambda: runs[name].extractor._embed(batch), 10))
+    ms = {name: statistics.mean(t) for name, t in turns.items()}
+    report["serve_winograd"] = dict(
+        embed_img_s=len(imgs) / e2e_s, model_img_s=64e3 / ms["winograd"],
+        model_ms_per_batch64=ms["winograd"], standard_model_ms_per_batch64=ms["standard"],
+        standard_model_img_s=64e3 / ms["standard"], cos_to_standard=float(cos_std),
+        cos_to_fp32=float(cos_fp32))
+    print(f"serve_winograd: embed {len(imgs) / e2e_s:.1f} img/s end to end; model alone "
+          f"{64e3 / ms['winograd']:.1f} img/s ({ms['winograd']:.3f} ms per batch of 64) against "
+          f"the standard configuration's {64e3 / ms['standard']:.1f} img/s "
+          f"({ms['standard']:.3f} ms) in the same turns")
+    del shared["service"]
 
 
 def wms_inputs(torch, np, b, d, seed, device="cuda"):
@@ -395,27 +489,208 @@ def phase_k1_backward(torch, report):
                                  plain_fwd_bwd_ms=plain_ms)
 
 
-def phase_train(torch, np, report):
-    from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
-    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
-    from soft_contrastive_learning_torch.losses.registry import build_loss
-    from soft_contrastive_learning_torch.models.model import EmbeddingNet
-    from soft_contrastive_learning_torch.models.weights import load_trained_params
-    from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
-    from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda
-    from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda
-    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
-    from soft_contrastive_learning_torch.train.trainer import Trainer
+# The flagship's Winograd layers at 180x240: (layers, H, W, C, F, fused ReLU
+# of the first of them); conv3_3, conv4_3 and conv5_3 have the shapes of
+# conv3_2, conv4_2 and conv5_1 without the ReLU.
+K4_LAYERS = (
+    (("conv2_2",), 90, 120, 128, 128, False),
+    (("conv3_1",), 45, 60, 128, 256, True),
+    (("conv3_2", "conv3_3"), 45, 60, 256, 256, True),
+    (("conv4_1",), 22, 30, 256, 512, True),
+    (("conv4_2", "conv4_3"), 22, 30, 512, 512, True),
+    (("conv5_1", "conv5_2", "conv5_3"), 11, 15, 512, 512, True),
+)
+K4_ODD = ((2, 11, 15, 256, 128), (2, 9, 9, 128, 64), (2, 45, 60, 128, 64))
 
-    cfg = TrainConfig(loss=LossConfig(fused_wms=True), mining_step=20, mining_cache_size=100,
-                      max_epoch=1)  # flagship model, B = 2 x (1+12+12), Adam at 5e-6
-    params = load_trained_params(cfg=cfg.model)
-    source = ToyCitySource(num_points=120, radius=150.0, img_h=180, img_w=240)
-    b = cfg.images_per_batch
+
+def k4_inputs(torch, b, h, w, c, f, seed):
+    """Seeded NHWC bf16 activations, an OIHW fp32 weight at lecun scale and
+    an fp32 bias, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, h, w, c), generator=gen, device="cuda").bfloat16()
+    weight = torch.randn((f, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn((f,), generator=gen, device="cuda")
+    return x, weight, bias
+
+
+def bf16_steps_ok(torch, got, want, floor):
+    """The share of elements within one bf16 step of ``want``, and whether
+    all are within two.
+    Where the bf16 grid is finer than ``floor`` (the fp32 gate: the two
+    versions' fp32 sums differ by that much before the cast) the floor is
+    the tolerance."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs().clamp_min(1e-30))
+    step = torch.ldexp(torch.ones_like(w), e - 8)  # bf16 spacing at |want|
+    diff = (g - w).abs()
+    one = (diff <= torch.maximum(step, floor)).sum().item() / diff.numel()
+    two = (diff <= torch.maximum(2 * step, floor)).all().item()
+    return one, two
+
+
+def phase_k4(torch, report):
+    import torch.nn.functional as F
+
+    from soft_contrastive_learning_torch.ops.kernels.winograd import (
+        weight_transform_cuda, winograd_conv_cuda)
+    from soft_contrastive_learning_torch.ops.winograd import weight_transform, winograd_conv_plain
+
+    def check(label, x, weight, bias):
+        """K4 against its plain version (ReLU on and off, fp32 and bf16
+        output), twice for the same bits, and against fp32 cuDNN (TF32 off);
+        its weight transform against the plain one, bit for bit."""
+        if not torch.equal(weight_transform_cuda(weight), weight_transform(weight).bfloat16()):
+            fail(f"K4 {label}: the transformed filter differs from the plain version's")
+        worst = 0.0
+        for relu in (False, True):
+            want = winograd_conv_plain(x, weight, bias, relu=relu, out_dtype=torch.float32)
+            got = winograd_conv_cuda(x, weight, bias, relu=relu, out_dtype=torch.float32)
+            again = winograd_conv_cuda(x, weight, bias, relu=relu, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            e = (got - want).abs().max().item()
+            if got.shape != want.shape or not torch.isfinite(got).all() or e > 1e-4 * scale:
+                fail(f"K4 {label} relu={relu} fp32: max-abs {e} vs plain (scale {scale})")
+            if not torch.equal(got, again):
+                fail(f"K4 {label} relu={relu}: two runs differ")
+            direct = F.conv2d(x.float().permute(0, 3, 1, 2), weight, bias, padding=1)
+            direct = (F.relu(direct) if relu else direct).permute(0, 2, 3, 1)
+            rel = (got - direct).abs().max().item() / direct.abs().max().item()
+            if rel >= 0.02:
+                fail(f"K4 {label} relu={relu}: {rel} relative to the fp32 direct conv")
+            want16 = winograd_conv_plain(x, weight, bias, relu=relu)
+            got16 = winograd_conv_cuda(x, weight, bias, relu=relu)
+            floor = torch.tensor(1e-4 * scale, device="cuda")
+            one, two = bf16_steps_ok(torch, got16, want16, floor)
+            if got16.dtype != torch.bfloat16 or one < 0.999 or not two:
+                fail(f"K4 {label} relu={relu} bf16: {one:.6f} within one step, all within "
+                     f"two: {two}")
+            print(f"K4 {label} relu={relu}: fp32 max-abs {e:.3g} (scale {scale:.3g}), vs fp32 "
+                  f"cuDNN rel {rel:.3g}; bf16 within one step {one:.6f}, all within two; "
+                  "same bits twice")
+            worst = max(worst, e)
+        return worst
+
+    err = 0.0
+    for seed, (b, h, w, c, f) in enumerate(K4_ODD):
+        err = max(err, check(f"B={b} {h}x{w} {c}->{f}", *k4_inputs(torch, b, h, w, c, f, seed)))
+
+    per_shape = []
+    for seed, (names, h, w, c, f, relu) in enumerate(K4_LAYERS):
+        row = dict(layers=list(names), h=h, w=w, c=c, f=f)
+        for b in (64, 50):  # serving and training batch
+            x, weight, bias = k4_inputs(torch, b, h, w, c, f, 100 + seed)
+            # at B = 50 conv3 (34,500 tiles) and conv4 (8,250) end in a ragged block
+            err = max(err, check(f"B={b} {names[0]} {h}x{w} {c}->{f}", x, weight, bias))
+            x_nchw, w16, b16 = x.permute(0, 3, 1, 2), weight.bfloat16(), bias.bfloat16()
+
+            def library():
+                y = F.conv2d(x_nchw, w16, b16, padding=1)
+                return F.relu(y) if relu else y
+
+            ms = time_ms(torch, lambda: winograd_conv_cuda(x, weight, bias, relu=relu), 20)
+            library_ms = time_ms(torch, library, 20)
+            plain_ms = time_ms(torch, lambda: winograd_conv_plain(x, weight, bias, relu=relu), 3)
+            # the wrapper's first launch, inside ms: U = bf16(G w G^T)
+            transform_ms = time_ms(torch, lambda: weight_transform_cuda(weight), 20)
+            tiles = b * -(-h // 2) * -(-w // 2)
+            bound_ms, bound_by = bound(2 * 16 * tiles * c * f,
+                                       2 * (b * h * w * c + b * h * w * f) + 2 * 16 * c * f,
+                                       BF16_FLOPS)
+            row[f"B{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, transform_ms=transform_ms)
+            print(f"K4 B={b} {'/'.join(names)} {h}x{w} {c}->{f}: kernel {ms:.4f} ms (of which "
+                  f"the weight transform {transform_ms:.4f}), cuDNN {library_ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            del x, weight, bias, x_nchw
+            torch.cuda.empty_cache()
+        per_shape.append(row)
+
+    def forward_sum(b, key):  # over the 10 launches of one forward
+        return sum(len(r["layers"]) * r[f"B{b}"][key] for r in per_shape)
+
+    ops_ms = sum(len(r["layers"]) * r["B64"]["bound_ms"] for r in per_shape
+                 if r["B64"]["bound_by"] == "operations")
+    for b in (64, 50):
+        print(f"K4 forward of 10 launches at B={b}: kernel {forward_sum(b, 'ms'):.3f} ms (weight "
+              f"transforms {forward_sum(b, 'transform_ms'):.3f}), cuDNN "
+              f"{forward_sum(b, 'library_ms'):.3f} ms, plain {forward_sum(b, 'plain_ms'):.2f} ms, "
+              f"bound {forward_sum(b, 'bound_ms'):.3f} ms")
+    report["K4"] = dict(
+        name="winograd_conv", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/winograd.cu",
+        replaces="soft_contrastive_learning_tpu/ops/pallas/winograd_kernel.py:46",
+        max_abs_err=err, ms=forward_sum(64, "ms"), plain_ms=forward_sum(64, "plain_ms"),
+        bound_ms=forward_sum(64, "bound_ms"),
+        bound_by="operations" if 2 * ops_ms >= forward_sum(64, "bound_ms") else "bytes",
+        library_ms=forward_sum(64, "library_ms"), per_shape=per_shape,
+        forward_B50=dict(ms=forward_sum(50, "ms"), plain_ms=forward_sum(50, "plain_ms"),
+                         bound_ms=forward_sum(50, "bound_ms"),
+                         library_ms=forward_sum(50, "library_ms")))
+
+
+def phase_k4_backward(torch, report):
+    from soft_contrastive_learning_torch.ops.kernels.winograd import WinogradConvFn, direct_conv
+
+    out = {}
+    for name, h, w, c, f, relu in (("conv4_2", 22, 30, 512, 512, True),
+                                   ("conv2_2", 90, 120, 128, 128, False)):
+        b = 50
+        x, weight, bias = k4_inputs(torch, b, h, w, c, f, 200 + h)
+
+        def grads(fn):
+            ins = [t.clone().requires_grad_() for t in (x, weight, bias)]
+            return torch.autograd.grad((fn(*ins, relu).float() ** 2).sum(), ins)
+
+        got, want = grads(WinogradConvFn.apply), grads(direct_conv)
+        torch.cuda.synchronize()
+        rels = [(a.float() - r.float()).abs().max().item() / max(r.float().abs().max().item(), 1e-3)
+                for a, r in zip(got, want)]
+        print(f"K4 backward B={b} {name} relu={relu}: grad rel max-abs x {rels[0]:.3g}, "
+              f"weight {rels[1]:.3g}, bias {rels[2]:.3g} vs autograd of the direct bf16 conv")
+        # the cotangent 2y comes from the Winograd forward, a little off the
+        # direct conv's: 0.05 of each gradient's largest entry
+        if [g.dtype for g in got] != [torch.bfloat16, torch.float32, torch.float32] \
+                or max(rels) >= 0.05:
+            fail(f"WinogradConvFn gradients disagree with the direct conv's at {name}: {rels}")
+        fn_ms = time_ms(torch, lambda: grads(WinogradConvFn.apply), 10)
+        plain_ms = time_ms(torch, lambda: grads(direct_conv), 10)
+        print(f"K4 forward+backward B={b} {name}: through WinogradConvFn {fn_ms:.4f} ms, plain "
+              f"autograd of the cuDNN conv {plain_ms:.4f} ms")
+        out[name] = dict(max_rel_err=max(rels), fwd_bwd_ms=fn_ms, plain_fwd_bwd_ms=plain_ms)
+    report["K4_backward"] = out
+
+
+def toy_city():
+    """The CLI's toy city at the flagship's size (120 poses on a 150 m loop,
+    180x240) with rendered images kept, so that the two training phases
+    and their evals render each pose once."""
+    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
+
+    class KeptToyCity(ToyCitySource):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self._kept = {}
+
+        def load_image(self, key):
+            if key not in self._kept:
+                self._kept[key] = super().load_image(key)
+            return self._kept[key]
+
+    return KeptToyCity(num_points=120, radius=150.0, img_h=180, img_w=240)
+
+
+def train_epoch(torch, np, report, path, cfg, params, source, expect):
+    """One epoch through Trainer.train() from ``params``, every step timed
+    on the device; fails unless the kernels launched ``expect`` times on it.
+    Returns the trainer, per-step losses and ms, the epoch's
+    wall seconds and how many of them the eval hooks took (they render the
+    held-out city's images on the host), the pool set-up seconds, each
+    kernel's launches on this path, the eval scalars and the first batch."""
+    from soft_contrastive_learning_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as out_dir:
         tr = Trainer(cfg, source, out_dir=out_dir, device="cuda", params=params)
-        # time each step on the device, and keep the epoch's first batch
         step, events, first = tr.train_step_pooled, [], {}
 
         def timed_step(state, batch, pool):
@@ -430,40 +705,95 @@ def phase_train(torch, np, report):
             return out
 
         tr.train_step_pooled = timed_step
+        run_eval, eval_s = tr._run_eval, [0.0]
+
+        def timed_eval(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_eval(*args)
+            torch.cuda.synchronize()
+            eval_s[0] += time.perf_counter() - t
+
+        tr._run_eval = timed_eval
         t0 = time.perf_counter()  # set-up: render the city into the card's image pool
         tr._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))
         pool_s = time.perf_counter() - t0
-        netvlad_aggregate_cuda.launches = topk_l2_cuda.launches = wms_loss_cuda.launches = 0
+        counts = LaunchCounts(report, path)
         t0 = time.perf_counter()
         tr.train()
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
-        launches = {"K1": netvlad_aggregate_cuda.launches, "K2": topk_l2_cuda.launches,
-                    "K3": wms_loss_cuda.launches}
-        losses = [r["value"] for r in tr.writer.read_all() if r["tag"] == "loss"]
+        launches = counts.read(expect)
+        losses = [r["value"] for r in tr.writers["local"].read_all() if r["tag"] == "loss"]
+        evals = {f"{role}/{r['tag']}@{r['step']}": r["value"] for role in ("other", "local")
+                 for r in tr.writers[role].read_all()
+                 if r["tag"] not in ("learning_rate",) and (role, r["tag"]) != ("local", "loss")}
         tr.close()
     step_ms = [s.elapsed_time(e) for s, e in events]
-    print(f"train: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes in "
-          f"{epoch_s:.2f} s after {pool_s:.2f} s of pool set-up; launches {launches}; "
-          f"first/last loss {losses[0]:.6f}/{losses[-1]:.6f}")
+    return tr, losses, step_ms, (epoch_s, eval_s[0]), pool_s, launches, evals, first
+
+
+def check_epoch(torch, np, label, tr, params, losses, evals):
+    """60 steps, 6 refreshes, finite losses, moved weights, and the eval
+    hooks' scalars finite."""
     if tr.global_step != 60 or tr.mining.refresh_count != 6 or len(losses) != 60:
-        fail(f"train: {tr.global_step} steps, {tr.mining.refresh_count} refreshes, "
+        fail(f"{label}: {tr.global_step} steps, {tr.mining.refresh_count} refreshes, "
              f"{len(losses)} losses; expected 60, 6, 60")
-    # one K3 launch per step; K1 per step and per embedded chunk of 50 (3 a refresh)
-    if launches["K3"] != 60 or launches["K1"] != 60 + 6 * 3:
-        fail(f"train: kernels not launched on the training path as expected: {launches}")
     if not np.isfinite(losses).all():
-        fail(f"train: non-finite losses {losses}")
+        fail(f"{label}: non-finite losses {losses}")
     unmoved = [k for k, v in tr.state.model.state_dict().items()
                if torch.equal(v.cpu(), params[k])]
     if unmoved:
-        fail(f"train: parameters did not move: {unmoved[:5]}")
-    for name, count in launches.items():
-        report[name].setdefault("launches_by_path", {})["train"] = count
+        fail(f"{label}: parameters did not move: {unmoved[:5]}")
+    held_out = [v for k, v in evals.items() if k.startswith("other/loss@")]
+    if len(held_out) != 1 or len(evals) != 13 or not np.isfinite(list(evals.values())).all():
+        fail(f"{label}: eval hooks wrote {evals}; expected one held-out loss and 6 "
+             "localization scalars for each region, all finite")
+    print(f"{label}: eval hooks at step 0: held-out loss {held_out[0]:.6f}; " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(evals.items()) if "Top1" in k))
+
+
+def train_config(winograd=False):
+    """The flagship's training configuration (B = 2 x (1+12+12), Adam at
+    5e-6, fused wms) at the toy city's cadence: mining every 20 anchors over
+    a cache of 100; the eval hooks once, before the first step, over 4
+    queries and every 10th reference pose."""
+    from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
+
+    return TrainConfig(model=ModelConfig(winograd=winograd), loss=LossConfig(fused_wms=True),
+                       mining_step=20, mining_cache_size=100, max_epoch=1, eval_step=1000,
+                       num_eval_queries=4, eval_ref_r=10)
+
+
+# kernel launches of one epoch: 60 steps; 6 refreshes embedding 120 images in 3
+# chunks of 50; one eval: 2 held-out loss batches, and 4 embeds (12 refs and 4
+# queries pad to one chunk each, for the two regions)
+EPOCH_FORWARDS = 60 + 6 * 3 + 2 + 4
+
+
+def phase_train(torch, np, report, shared):
+    from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+
+    cfg = train_config()
+    params = load_trained_params(cfg=cfg.model)
+    source = toy_city()
+    b = cfg.images_per_batch
+    # K1 in every forward, K3 per step and per held-out loss batch
+    tr, losses, step_ms, (epoch_s, eval_s), pool_s, launches, evals, first = train_epoch(
+        torch, np, report, "train", cfg, params, source,
+        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 0})
+    print(f"train: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes in "
+          f"{epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s, after {pool_s:.2f} s of "
+          f"pool set-up; launches {launches}; first/last loss {losses[0]:.6f}/{losses[-1]:.6f}")
+    check_epoch(torch, np, "train", tr, params, losses, evals)
 
     # the first batch from the trained weights: kernels on and off, fp32 and bf16
     batch, pool = first, tr._image_pool.array
-    rel = {}
+    rel, bf16_loss = {}, None
     for dtype in ("float32", "bfloat16"):
         got = []
         for kernels in (True, False):
@@ -476,6 +806,7 @@ def phase_train(torch, np, report):
                                    image_pool=True)
             got.append(one(state, dict(batch), pool)[1]["loss"].item())
         rel[dtype] = abs(got[0] - got[1]) / abs(got[1])
+        bf16_loss = got[0]
         print(f"train parity {dtype}: first-batch loss with kernels {got[0]:.8f}, "
               f"without {got[1]:.8f} (rel {rel[dtype]:.3g})")
     if rel["float32"] > 1e-5 or rel["bfloat16"] > 1e-4:
@@ -499,15 +830,71 @@ def phase_train(torch, np, report):
     step_ms_by = {name: statistics.mean(t) for name, t in turns.items()}
     med = statistics.median(step_ms[1:])
     print(f"train: median {med:.3f} ms per step after the first ({1e3 * b / med:.1f} img/s at "
-          f"B={b}); epoch end to end {60 * b / epoch_s:.1f} img/s; step with K1 and K3 "
+          f"B={b}); epoch end to end, eval hooks apart, {60 * b / (epoch_s - eval_s):.1f} img/s; "
+          "step with K1 and K3 "
           f"{step_ms_by['K1+K3']:.3f} ms, with K1 and the plain wms {step_ms_by['K1']:.3f} ms, "
           f"with no kernel {step_ms_by['none']:.3f} ms")
     report["train"] = dict(steps=tr.global_step, refreshes=tr.mining.refresh_count,
                            images_per_step=b, median_step_ms=med, img_s=1e3 * b / med,
                            first_step_ms=step_ms[0], pool_setup_s=pool_s, epoch_s=epoch_s,
-                           epoch_img_s=60 * b / epoch_s, step_ms_by_kernels=step_ms_by,
-                           parity_rel=rel,
-                           first_loss=losses[0], last_loss=losses[-1])
+                           eval_s=eval_s, epoch_img_s=60 * b / (epoch_s - eval_s),
+                           step_ms_by_kernels=step_ms_by,
+                           parity_rel=rel, first_loss=losses[0], last_loss=losses[-1],
+                           evals=evals)
+    shared.update(train_params=params, source=source, first_batch=batch, pool=pool,
+                  first_batch_bf16_loss=bf16_loss)
+
+
+def phase_train_winograd(torch, np, report, shared):
+    """The same epoch with ``winograd=True``: K4 forward and WinogradConvFn's
+    backward on 10 of the 13 convs, in the steps, the mining embeds and the
+    eval hooks."""
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+
+    cfg = train_config(winograd=True)
+    params, b = shared["train_params"], cfg.images_per_batch
+    tr, losses, step_ms, (epoch_s, eval_s), pool_s, launches, evals, _ = train_epoch(
+        torch, np, report, "train_winograd", cfg, params, shared["source"],
+        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 10 * EPOCH_FORWARDS})
+    print(f"train_winograd: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes "
+          f"in {epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s, after {pool_s:.2f} s of "
+          f"pool set-up; launches {launches}; first/last loss {losses[0]:.6f}/{losses[-1]:.6f}")
+    check_epoch(torch, np, "train_winograd", tr, params, losses, evals)
+
+    # the standard epoch's first batch from the trained weights, in turns
+    batch, pool = shared["first_batch"], shared["pool"]
+    runs = {}
+    for name, c in (("winograd", cfg), ("standard", train_config())):
+        model = EmbeddingNet(c.model)
+        model.load_state_dict(params)
+        runs[name] = (init_train_state(c, model.cuda()),
+                      build_train_step(c, build_loss(c.loss, c.tuples, c.tuples_per_batch),
+                                       image_pool=True))
+    state, one = runs["winograd"]
+    loss = one(state, dict(batch), pool)[1]["loss"].item()
+    rel = abs(loss - shared["first_batch_bf16_loss"]) / abs(shared["first_batch_bf16_loss"])
+    print(f"train_winograd parity: first-batch loss {loss:.8f}, the standard configuration's "
+          f"{shared['first_batch_bf16_loss']:.8f} (rel {rel:.3g})")
+    if not rel <= 1e-2:
+        fail(f"train_winograd: first-batch loss {rel} relative off the standard configuration's")
+    turns = {name: [] for name in runs}
+    for name in ("winograd", "standard", "standard", "winograd"):
+        state, one = runs[name]
+        turns[name].append(time_ms(torch, lambda: one(state, dict(batch), pool), 10))
+    step_ms_by = {name: statistics.mean(t) for name, t in turns.items()}
+    med = statistics.median(step_ms[1:])
+    print(f"train_winograd: median {med:.3f} ms per step after the first "
+          f"({1e3 * b / med:.1f} img/s at B={b}); epoch end to end, eval hooks apart, "
+          f"{60 * b / (epoch_s - eval_s):.1f} img/s; step on one batch "
+          f"{step_ms_by['winograd']:.3f} ms against the standard configuration's "
+          f"{step_ms_by['standard']:.3f} ms in the same turns")
+    report["train_winograd"] = dict(
+        steps=tr.global_step, refreshes=tr.mining.refresh_count, images_per_step=b,
+        median_step_ms=med, img_s=1e3 * b / med, epoch_s=epoch_s, eval_s=eval_s,
+        epoch_img_s=60 * b / (epoch_s - eval_s), step_ms_by_config=step_ms_by,
+        first_batch_rel_to_standard=rel, first_loss=losses[0], last_loss=losses[-1], evals=evals)
 
 
 def main() -> int:
@@ -544,20 +931,33 @@ def main() -> int:
     phase_k2(torch, report)
     phase_k3(torch, np, report)
     phase_k1_backward(torch, report)
-    phase_serve(torch, np, report)
-    phase_train(torch, np, report)
+    phase_k4(torch, report)
+    phase_k4_backward(torch, report)
+    shared: dict = {}  # what a later phase takes from an earlier one
+    phase_serve(torch, np, report, shared)
+    phase_serve_winograd(torch, np, report, shared)
+    phase_train(torch, np, report, shared)
+    phase_train_winograd(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (train for
-    # K1 and K3, serve for K2); launches_by_path: each path's own count
-    for kid in ("K1", "K2", "K3"):
+    # launches: the count on the newest path that runs the kernel (the
+    # Winograd training epoch for K1, K3 and K4, serve for K2);
+    # launches_by_path: each path's own count, set to 0 just before it
+    paths = ("train_winograd", "train", "serve_winograd", "serve")
+    for kid in ("K1", "K2", "K3", "K4"):
         by_path = report[kid]["launches_by_path"]
-        report[kid]["launches"] = by_path["train"] or by_path.get("serve", 0)
+        report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
+        if report[kid]["launches"] <= 0:
+            fail(f"{kid} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"serve": report["serve"]}))
-    print(json.dumps({"train": report["train"], "K1_backward": report["K1_backward"]}))
+    print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))
+    print(json.dumps({"train": report["train"], "train_winograd": report["train_winograd"],
+                      "K1_backward": report["K1_backward"],
+                      "K4_backward": report["K4_backward"]}))
+    print(json.dumps({"K4_per_shape": report["K4"]["per_shape"],
+                      "K4_forward_B50": report["K4"]["forward_B50"]}))
     print(json.dumps({"kernels": [{key: report[kid][key] for key in keys}
-                                  for kid in ("K1", "K2", "K3")]}))
+                                  for kid in ("K1", "K2", "K3", "K4")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's embed goes, on one CUDA card.
 
-    python3 scripts/torch_embed_profile.py   (from the repository root)
+    python3 scripts/torch_embed_profile.py [--winograd]   (from the repository root)
 
 Embeds 512 seeded 180x240 uint8 images through
 ``soft_contrastive_learning_torch.serving.DescriptorService`` (flagship
 config, committed trained weights, batch 64) and prints: the end-to-end
 seconds, the pieces of one batch timed alone (stack, copy in, model, copy
 out), the card's busy share over one profiled embed, and the operations that
-took the most device time. Imports no JAX.
+took the most device time. ``--winograd`` profiles the Winograd
+configuration (``ModelConfig(winograd=True)``, K4 on 10 of the 13 convs) and
+says whether the profile recorded K4's launches: read ``winograd_kernel``'s
+time from the table only if it did. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -22,6 +26,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--winograd", action="store_true",
+                        help="profile ModelConfig(winograd=True)")
+    args = parser.parse_args()
+
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -36,7 +45,7 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
-    cfg = ModelConfig()
+    cfg = ModelConfig(winograd=args.winograd)
     service = DescriptorService(cfg, load_trained_params(cfg=cfg), batch_size=64)
     imgs = np.random.default_rng(0).integers(0, 256, (512, 180, 240, 3), dtype=np.uint8)
     service.embed(imgs)  # warm-up: cuDNN algorithm choice, kernel build
@@ -72,6 +81,11 @@ def main() -> int:
     print(f"profiled embed: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
           f"({100 * device_ms / wall_ms:.1f}%)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=15, max_name_column_width=60))
+    if args.winograd:
+        rows = [e for e in events if "winograd_kernel" in e.key]
+        print(f"winograd_kernel rows in the profile: {sum(e.count for e in rows)} launches, "
+              f"{sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms (80 launches run; "
+              "0 means the profiler did not record them and their time is in no row)")
     return 0
 
 

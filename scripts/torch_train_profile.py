@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's training goes, on one CUDA card.
 
-    python3 scripts/torch_train_profile.py   (from the repository root)
+    python3 scripts/torch_train_profile.py [--winograd]   (from the repository root)
 
 The flagship as ``chip_smoke.py`` trains it: VGG16 + NetVLAD-64 at 180x240
 (bf16 convs) from the committed trained weights, 2 tuples of 1+12+12
@@ -12,12 +12,19 @@ refreshes, 60 steps), (b) 10 train steps on one fixed batch, and (c) 20
 calls of K3 at B=50, D=32,768, and prints for each the wall time, the
 card's busy share, and the operations that took the most device time. For
 (a) it also splits the host's wall time: the sampler, the mining refreshes,
-and the train-step calls (the host enqueueing each step's work). Imports no
+and the train-step calls (the host enqueueing each step's work). The eval
+hooks fire once in the warm-up epoch, before its first step, over 4 queries
+and 12 reference poses (they render the held-out city on the host); the
+profiled epoch is training alone. ``--winograd`` profiles the Winograd configuration
+(``ModelConfig(winograd=True)``: K4 forward and ``WinogradConvFn``'s backward
+on 10 of the 13 convs) and says whether the profile recorded K4's launches:
+read ``winograd_kernel``'s time from the tables only if it did. Imports no
 JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -28,11 +35,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--winograd", action="store_true",
+                        help="profile ModelConfig(winograd=True)")
+    args = parser.parse_args()
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from soft_contrastive_learning_torch.core.config import LossConfig, TrainConfig
+    from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
     from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
     from soft_contrastive_learning_torch.models.weights import load_trained_params
     from soft_contrastive_learning_torch.train.trainer import Trainer
@@ -44,8 +56,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
-    cfg = TrainConfig(loss=LossConfig(fused_wms=True), mining_step=20, mining_cache_size=100,
-                      max_epoch=1)
+    cfg = TrainConfig(model=ModelConfig(winograd=args.winograd),
+                      loss=LossConfig(fused_wms=True), mining_step=20, mining_cache_size=100,
+                      max_epoch=1, eval_step=1000, num_eval_queries=4, eval_ref_r=10)
     source = ToyCitySource(num_points=120, radius=150.0, img_h=180, img_w=240)
 
     def report(label, prof, wall_ms, rows=15):
@@ -58,6 +71,11 @@ def main() -> int:
               f"({100 * device_ms / wall_ms:.1f}%)")
         print(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                            max_name_column_width=60))
+        if args.winograd:
+            k4 = [e for e in events if "winograd_kernel" in e.key]
+            print(f"{label}: winograd_kernel rows: {sum(e.count for e in k4)} launches, "
+                  f"{sum(e.self_device_time_total for e in k4) / 1e3:.2f} ms (0 means the "
+                  "profiler did not record them and their time is in no row)")
 
     with tempfile.TemporaryDirectory() as out_dir:
         tr = Trainer(cfg, source, out_dir=out_dir, device="cuda",
@@ -93,6 +111,7 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"warm-up epoch (pool build included): {time.perf_counter() - t0:.2f} s")
 
+        tr._run_eval = lambda *a: None  # the hooks ran in the warm-up epoch
         tr._sampler_for = timed_sampler
         tr.mining.refresh = timed("refresh", tr.mining.refresh)
         tr.train_step_pooled = timed("step", keep_first)

@@ -11,8 +11,10 @@ same names and defaults, limited to what the port runs so far, plus
 npz: for ``serve`` it defaults to the committed trained artifact; for
 ``train`` it is the warm start (default: a fresh init from ``--seed``).
 ``train`` runs on the synthetic toy city (``--toy_city``); the filesystem
-source comes with the eval slice, and ``--loss`` keeps its default
-``wrd``, which raises until the loss-zoo slice, so pass ``--loss wms``.
+source comes with a later slice, and ``--loss`` keeps its default
+``wrd``, which raises until the loss-zoo slice, so pass ``--loss wms``. The
+Winograd configuration has no flag, as in ``scl-tpu``: pass
+``ModelConfig(winograd=True)`` to ``DescriptorService`` or ``Trainer``.
 """
 
 from __future__ import annotations
@@ -78,8 +80,11 @@ def config_from_args(args):
         lr_down_factor=args.lr_down_factor, lr_down_frequency=args.lr_down_frequency,
         momentum=args.momentum, optimizer=args.optimizer,
         mining_step=args.mining_step, mining_cache_size=args.mining_cache_size,
-        eval_step=args.eval_step, save_step=args.save_step, train_ref_r=args.train_ref_r,
-        local_ref_set=args.local_ref_set, seed=args.seed,
+        eval_step=args.eval_step, save_step=args.save_step,
+        num_eval_queries=args.num_eval_queries, eval_ref_r=args.eval_ref_r,
+        train_ref_r=args.train_ref_r, local_ref_set=args.local_ref_set,
+        local_query_set=args.local_query_set, other_ref_set=args.other_ref_set,
+        other_query_set=args.other_query_set, seed=args.seed,
         device_image_pool=args.device_image_pool,
         device_pool_max_bytes=args.device_pool_max_bytes)
 
@@ -93,15 +98,16 @@ def cmd_train(args) -> int:
     cfg = config_from_args(args)
     if not args.toy_city:
         raise NotImplementedError(
-            "training from the prep pipeline's files (FilesystemSource) comes with the "
-            "eval slice of the port; pass --toy_city")
+            "training from the prep pipeline's files (FilesystemSource) comes with a "
+            "later slice of the port; pass --toy_city")
     out_folder = args.out_folder or cfg.encode_name()
     out_dir = (os.path.join(args.out_root, out_folder) if args.out_folder
                else unique_out_dir(args.out_root, out_folder))
     source = ToyCitySource(num_points=120, radius=150.0,
                            img_h=args.image_height, img_w=args.image_width)
     params = load_trained_params(args.checkpoint, cfg.model) if args.checkpoint else None
-    trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params)
+    trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params,
+                      save_plots=args.save_plots)
     try:
         trainer.train()
     finally:
@@ -142,8 +148,13 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mining_cache_size", type=int, default=1000)
     p.add_argument("--eval_step", type=int, default=100)
     p.add_argument("--save_step", type=int, default=500)
+    p.add_argument("--num_eval_queries", type=int, default=50)
+    p.add_argument("--eval_ref_r", type=int, default=5)
     p.add_argument("--train_ref_r", type=int, default=1)
     p.add_argument("--local_ref_set", default="train_ref")
+    p.add_argument("--local_query_set", default="train_query")
+    p.add_argument("--other_ref_set", default="test_ref")
+    p.add_argument("--other_query_set", default="test_query")
     p.add_argument("--image_height", type=int, default=180)
     p.add_argument("--image_width", type=int, default=240)
     p.add_argument("--compute_dtype", default="bfloat16")
@@ -151,6 +162,8 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="the hand-written kernels' path (K1 here), as the JAX flag "
                         "selects its Pallas kernels")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--save_plots", action="store_true",
+                   help="the evals also write curve PDFs and triptych PNGs")
     p.add_argument("--device_image_pool", type=_bool_flag, default=True)
     p.add_argument("--device_pool_max_bytes", type=int, default=4_000_000_000)
 

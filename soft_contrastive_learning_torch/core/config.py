@@ -8,6 +8,7 @@ are the flagship: VGG16 + NetVLAD-64 at 180x240, bf16 convs, raw 32,768-D
 descriptor, wms loss over 2 tuples of 1+12+12 with Adam at 5e-6.
 ``use_kernels`` is the counterpart of ``use_pallas``: the NetVLAD
 aggregation goes through the hand-written CUDA kernel on a CUDA device.
+``winograd`` has the JAX field's meaning; ``packed_stem`` is not ported.
 
 What later slices bring raises ``NotImplementedError`` at construction,
 naming the slice: other reductions and losses (model/loss zoo), async
@@ -37,6 +38,13 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # activations dtype for the conv stack
     param_dtype: str = "float32"
     use_kernels: bool = True  # NetVLAD aggregation through K1 on CUDA
+    # The convs whose INPUT channel count is a multiple of 128 (conv2_2 to
+    # conv5_3, 10 of the 13) go through the fused Winograd F(2x2,3x3) kernel
+    # K4 (ops/kernels/winograd.py): bf16 operands and a bf16 input transform
+    # whatever the compute dtype. The JAX field's rule, kept so that both
+    # packages send the same layers through that arithmetic. Same parameter
+    # tree, so one set of weights serves both configurations.
+    winograd: bool = False
 
     def __post_init__(self):
         if self.reduction != "none":
@@ -106,8 +114,8 @@ class LossConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training-run configuration: the JAX fields (names and defaults) that
-    the port reads so far. The data roots, eval sets and counts, PCA,
-    dropout and mesh fields come with the slices that read them."""
+    the port reads so far. The data roots, PCA, dropout and mesh fields come
+    with the slices that read them."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     tuples: TupleConfig = field(default_factory=TupleConfig)
@@ -130,8 +138,14 @@ class TrainConfig:
     async_mining: bool = False
     eval_step: int = 100
     save_step: int = 500
+    num_eval_queries: int = 50
+    eval_ref_r: int = 5
     train_ref_r: int = 1
+
     local_ref_set: str = "train_ref"
+    local_query_set: str = "train_query"
+    other_ref_set: str = "test_ref"
+    other_query_set: str = "test_query"
 
     device_image_pool: bool = True
     device_pool_max_bytes: int = 4_000_000_000

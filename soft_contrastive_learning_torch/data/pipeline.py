@@ -1,9 +1,9 @@
 """Host data pipeline: the toy-city source, image loading and batch
 assembly. Own copy of ``soft_contrastive_learning_tpu/data/pipeline.py``
-(``ToyCitySource`` without the eval slice's ``cluster_meta``,
-``load_images_standard``, ``assemble_batch``; loading runs on the calling
-thread) and of ``parallel/mesh.py::pad_to_multiple``. ``FilesystemSource``
-(the prep pipeline's CSV/PNG layout) comes with the eval slice.
+(``ToyCitySource``, ``load_images_standard``, ``assemble_batch``; loading
+runs on the calling thread) and of ``parallel/mesh.py::pad_to_multiple``.
+``FilesystemSource`` (the prep pipeline's CSV/PNG layout) comes with a
+later slice.
 
 A city rendered at the model's (height, width) needs no resize, so no
 OpenCV; ``utils/cv.py`` raises where a resize would need it.
@@ -77,6 +77,14 @@ class ToyCitySource:
                 if orig in selected]
         rng = np.random.default_rng(self.seed + 7 * epoch)
         return rng.permutation(np.asarray(rows, dtype=int))
+
+    def cluster_meta(self, set_name: str, r: int) -> Dict[str, List[str]]:
+        """Every ``r``-th pose of the set's city, in loop order: the
+        localization eval's reference set."""
+        city = self._city(set_name)
+        meta = city.meta()
+        keep = list(range(0, len(city), max(int(r), 1)))
+        return {k: [v[i] for i in keep] for k, v in meta.items()}
 
 
 def load_images_standard(source, keys: Sequence[ImageKey], cfg: TrainConfig) -> np.ndarray:

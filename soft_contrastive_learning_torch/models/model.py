@@ -29,7 +29,8 @@ class EmbeddingNet(nn.Module):
         self.config = config
         compute_dtype = torch_dtype(config.compute_dtype)
         param_dtype = torch_dtype(config.param_dtype)
-        self.vgg16 = VGG16(compute_dtype=compute_dtype, param_dtype=param_dtype)
+        self.vgg16 = VGG16(compute_dtype=compute_dtype, param_dtype=param_dtype,
+                           winograd=config.winograd)
         self.netvlad = NetVLAD(
             num_clusters=config.vlad_cores, dim=512, compute_dtype=compute_dtype,
             param_dtype=param_dtype, use_kernels=config.use_kernels)

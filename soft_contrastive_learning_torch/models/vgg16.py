@@ -9,7 +9,10 @@
   with ``tf.nn.l2_normalize`` semantics (eps inside ``max``).
 
 The convs run through cuDNN in ``channels_last``, parameters are kept in
-``param_dtype`` and cast to the compute dtype per call, as flax does.
+``param_dtype`` and cast to the compute dtype per call, as flax does. With
+``winograd=True`` the convs whose input channel count is a multiple of 128
+go through ``WinogradConvFn`` (K4 on a CUDA device) with the block spec's
+ReLU fused; the parameters are the same ``Conv2d`` ones either way.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from soft_contrastive_learning_torch.ops.kernels.winograd import WinogradConvFn
 
 # (name, out_channels, relu_after) per conv; pool after each block's last conv.
 VGG_BLOCKS = (
@@ -41,9 +46,10 @@ class VGG16(nn.Module):
     fp32 conv5_3 map and its pre-normalization activation."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32):
+                 param_dtype: torch.dtype = torch.float32, winograd: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.winograd = winograd
         self.average_rgb = nn.Parameter(torch.zeros(3, dtype=param_dtype))
         cin = 3
         for bi, specs in enumerate(VGG_BLOCKS):
@@ -69,6 +75,11 @@ class VGG16(nn.Module):
             block = getattr(self, f"block{bi + 1}")
             for name, _, relu in specs:
                 conv = block[name]
+                if self.winograd and conv.in_channels % 128 == 0:
+                    # K4 takes and returns NHWC memory: both permutes are views
+                    x = WinogradConvFn.apply(x.permute(0, 2, 3, 1), conv.weight, conv.bias,
+                                             relu).permute(0, 3, 1, 2)
+                    continue
                 x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
                 if relu:
                     x = F.relu(x)

@@ -11,14 +11,21 @@ sample stream matches the JAX trainer's. Steps stride by
 ``tuples_per_batch`` over the anchors.
 
 Within a segment nothing waits for the card: the host samples batch i+1
-while the card runs step i, and the segment's losses are fetched in one
-transfer at its end and written as JSONL (``metrics_local.jsonl``, the
-records of ``core/logging.py::MetricsWriter``) with ``global_step`` counted
-from 1.
+while the card runs step i, and the losses are fetched in one transfer at
+the segment's end, or before an eval so that the records stay in order, and
+written as JSONL (``metrics_local.jsonl``, the records of
+``core/logging.py::MetricsWriter``) with ``global_step`` counted from 1.
 
-Not in this slice: the eval hooks and checkpoints. Where the JAX loop runs
-them (every ``eval_step``/``save_step`` step and at each epoch's end), the
-port logs one line naming the slice that brings them.
+Every ``eval_step`` anchors (step 0 included) the eval hooks run
+(``train/eval_hooks.py``): the held-out region's loss, then localization on
+the held-out and the training region, written to ``metrics_other.jsonl``
+and ``metrics_local.jsonl``. They draw from ``eval_rng``, a stream of its
+own, so the training draws are the same with or without them. As in the
+JAX loop there is no eval at an epoch's end.
+
+Not in this slice: checkpoints. Where the JAX loop writes them (the rolling
+one inside each eval, a part every ``save_step`` and one at each epoch's
+end), the port logs one line naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -40,16 +47,16 @@ from soft_contrastive_learning_torch.data.pipeline import (
 from soft_contrastive_learning_torch.losses.registry import build_loss
 from soft_contrastive_learning_torch.models.model import EmbeddingNet, init_params
 from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
+from soft_contrastive_learning_torch.train.eval_hooks import EvalHooks
 from soft_contrastive_learning_torch.train.mining_manager import MiningManager
 from soft_contrastive_learning_torch.train.step import (
     build_embed_step,
+    build_eval_loss_step,
     build_train_step,
     init_train_state,
 )
 from soft_contrastive_learning_torch.utils.meta import get_xy, get_yaw, image_keys
 
-EVAL_LATER = ("eval hooks (train/eval_hooks.py: held-out loss, localization) come with "
-              "the next slice of the port; skipped at step {}")
 SAVE_LATER = ("checkpoints (checkpoints/manager.py) come with a later slice of the "
               "port; no '{}' checkpoint at step {}")
 
@@ -57,19 +64,23 @@ SAVE_LATER = ("checkpoints (checkpoints/manager.py) come with a later slice of t
 class Trainer:
     """``params``: an initial ``EmbeddingNet`` state_dict (for example
     ``models/weights.py::load_trained_params``); default: a fresh
-    ``init_params`` draw from ``cfg.seed``."""
+    ``init_params`` draw from ``cfg.seed``. ``save_plots``: the evals also
+    write tolerance-curve PDFs (matplotlib) and triptych PNGs (OpenCV)."""
 
     def __init__(self, cfg: TrainConfig, source, out_dir: Optional[str] = None,
                  device: str | torch.device = "cuda",
-                 params: Optional[Mapping[str, torch.Tensor]] = None):
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 save_plots: bool = False):
         self.cfg = cfg
         self.source = source
+        self.save_plots = save_plots
         self.device = resolve_device(device)
         self.out_dir = out_dir or cfg.out_dir or "."
         os.makedirs(self.out_dir, exist_ok=True)
         cfg.save(os.path.join(self.out_dir, "config.json"))
         self.log = RunLogger(self.out_dir)
-        self.writer = MetricsWriter(self.out_dir, "local")
+        self.writers = {"local": MetricsWriter(self.out_dir, "local"),
+                        "other": MetricsWriter(self.out_dir, "other")}
 
         model = EmbeddingNet(cfg.model)
         model.load_state_dict(params if params is not None else init_params(cfg.model, cfg.seed))
@@ -77,6 +88,7 @@ class Trainer:
         loss_fn = build_loss(cfg.loss, cfg.tuples, cfg.tuples_per_batch)
         self.train_step = build_train_step(cfg, loss_fn)
         self.train_step_pooled = build_train_step(cfg, loss_fn, image_pool=True)
+        self.eval_loss_step = build_eval_loss_step(cfg, model, loss_fn)
         self.embed_step = build_embed_step(model)
         # None until built; False = unavailable (over the byte budget)
         self._image_pool = None
@@ -84,7 +96,11 @@ class Trainer:
 
         self.mining = MiningManager(self)
         self.mining_cache = self.mining.cache
+        self.evals = EvalHooks(self)
         self.rng = np.random.default_rng(cfg.seed)
+        # the eval paths draw from a stream of their own, so a run's training
+        # draws do not depend on whether or when they fire
+        self.eval_rng = np.random.default_rng(cfg.seed + 1)
         self.global_step = 0
         self.used_images: set = set()
 
@@ -177,7 +193,8 @@ class Trainer:
         records = []  # (global_step, device loss, lr)
         for s in map(int, seg_steps):
             if s % cfg.eval_step == 0:
-                self.log(EVAL_LATER.format(s))
+                self._write_train_metrics(records)
+                self._run_eval(epoch, s // max(cfg.eval_step, 1))
             if s % cfg.save_step == 0:
                 self.log(SAVE_LATER.format("part", self.global_step))
             anchors = anchor_indices[s : s + cfg.tuples_per_batch]
@@ -199,11 +216,30 @@ class Trainer:
             self.used_images.update(sample.used_indices)
             self.global_step += 1
             records.append((self.global_step, metrics["loss"], metrics["learning_rate"]))
-        if records:  # one device-to-host transfer per segment
-            losses = torch.stack([loss for _, loss, _ in records]).tolist()
-            for (step, _, lr), loss in zip(records, losses):
-                self.log(f"Train batch loss: {loss}")
-                self.writer.scalars({"loss": loss, "learning_rate": lr}, step)
+        self._write_train_metrics(records)
+
+    def _write_train_metrics(self, records: list) -> None:
+        """Fetch the pending steps' losses in one device-to-host transfer,
+        log and write them, and empty ``records``."""
+        if not records:
+            return
+        losses = torch.stack([loss for _, loss, _ in records]).tolist()
+        for (step, _, lr), loss in zip(records, losses):
+            self.log(f"Train batch loss: {loss}")
+            self.writers["local"].scalars({"loss": loss, "learning_rate": lr}, step)
+        records.clear()
+
+    def _run_eval(self, epoch: int, eval_ordinal: int) -> None:
+        """``eval_ordinal`` counts eval firings (``abs_step // eval_step``)
+        and indexes the rolling windows of eval queries."""
+        self.log("EVALUATING")
+        gs = self.global_step
+        self.log(SAVE_LATER.format("rolling", gs))
+        self.evals.loss_other(epoch, gs, eval_ordinal)
+        self.evals.localization(epoch, gs, self.cfg.other_ref_set, self.cfg.other_query_set,
+                                "other", eval_ordinal)
+        self.evals.localization(epoch, gs, self.cfg.local_ref_set, self.cfg.local_query_set,
+                                "local", eval_ordinal)
 
     def close(self) -> None:
         self.log.close()

@@ -1,14 +1,16 @@
 """Image geometry that defines the network's input distribution.
 
-Own copy of ``soft_contrastive_learning_tpu/utils/cv.py:27-63``
-(``resize_img``, ``standard_size``, ``normalize_geometry``). OpenCV is
-imported only when an image actually needs resizing; where it is missing,
-that raises rather than passing an image of the wrong size on.
+Own copy of ``soft_contrastive_learning_tpu/utils/cv.py``
+(``resize_img``, ``standard_size``, ``normalize_geometry``, and the eval
+plots' ``put_text`` and ``merge_images``). OpenCV is imported only when an
+image actually needs resizing or drawing; where it is missing, that raises
+rather than passing an image of the wrong size on.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 
@@ -18,8 +20,8 @@ def _cv2():
         import cv2
     except ImportError as e:
         raise RuntimeError(
-            "resizing an image needs OpenCV (cv2), which is not installed; "
-            "pass images already at the model's (height, width)") from e
+            "resizing or drawing on an image needs OpenCV (cv2), which is not "
+            "installed; pass images already at the model's (height, width)") from e
     return cv2
 
 
@@ -56,3 +58,17 @@ def normalize_geometry(
     if (img.shape[0], img.shape[1]) != (h, w):
         img = standard_size(img, h=h, w=w)
     return img
+
+
+def put_text(text: str, image: np.ndarray, scale: float = 1,
+             color: Tuple[int, int, int] = (0, 255, 0)) -> np.ndarray:
+    """Overlay a label in the top-left corner."""
+    cv2 = _cv2()
+    return cv2.putText(image, text, (10, 35), cv2.FONT_HERSHEY_SIMPLEX, scale, color, 2)
+
+
+def merge_images(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """Side-by-side merge, the right image rescaled to the left's height."""
+    right = _cv2().resize(
+        right, (right.shape[1] * left.shape[0] // right.shape[0], left.shape[0]))
+    return np.concatenate((left, right), axis=1)

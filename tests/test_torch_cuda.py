@@ -24,8 +24,15 @@ from soft_contrastive_learning_torch.ops.kernels.netvlad import (
     vlad_aggregate,
 )
 from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda, topk_l2_stream_plain
+from soft_contrastive_learning_torch.ops.kernels.winograd import (
+    WinogradConvFn,
+    direct_conv,
+    weight_transform_cuda,
+    winograd_conv_cuda,
+)
 from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda, wms_loss_fused
 from soft_contrastive_learning_torch.ops.topk import topk_l2_streamed
+from soft_contrastive_learning_torch.ops.winograd import weight_transform, winograd_conv_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +223,116 @@ def test_k3_refuses_what_it_does_not_take(cuda):
         wms_loss_cuda(geo[:3], emb, 0.8, 15.0)
     with pytest.raises(RuntimeError, match="WmsLossFn"):
         wms_loss_cuda(geo, emb.requires_grad_(), 0.8, 15.0)
+
+
+def _conv_inputs(device, b, h, w, c, f, dtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(b + h + w + c + f)
+    x = torch.randn((b, h, w, c), generator=gen, device=device).to(dtype)
+    weight = torch.randn((f, c, 3, 3), generator=gen, device=device) / (9 * c) ** 0.5
+    bias = 0.1 * torch.randn((f,), generator=gen, device=device)
+    return x, weight, bias
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (2, 8, 8, 128, 128),  # even, whole tiles
+    (2, 11, 15, 256, 128),  # odd H and W: ragged last tile row and column
+    (3, 9, 9, 128, 64),  # 75 tiles: a ragged last block of 32
+    (4, 22, 30, 512, 512),  # the flagship's conv4_2, 16 channel chunks
+    (50, 45, 60, 128, 256),  # conv3_1 at the training batch: 34,500 tiles, ragged last block
+    (50, 22, 30, 512, 512),  # conv4_2 at the training batch: 8,250 tiles, ragged last block
+])
+def test_k4_matches_plain(cuda, b, h, w, c, f, relu):
+    """Same roundings, another order of the fp32 sums: fp32 output within
+    1e-4 of the largest output, the bound chip_smoke.py holds it to; bf16
+    output equal after that tolerance; the same bits twice (no atomics)."""
+    x, weight, bias = _conv_inputs(cuda, b, h, w, c, f)
+    before = winograd_conv_cuda.launches
+    got = winograd_conv_cuda(x, weight, bias, relu=relu, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert winograd_conv_cuda.launches == before + 1
+    want = winograd_conv_plain(x, weight, bias, relu=relu, out_dtype=torch.float32)
+    tol = 1e-4 * want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    assert torch.equal(got, winograd_conv_cuda(x, weight, bias, relu=relu,
+                                               out_dtype=torch.float32))
+    got16 = winograd_conv_cuda(x, weight, bias, relu=relu)
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want, atol=tol, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("c,f", [(128, 64), (512, 512), (5, 3)])
+def test_k4_weight_transform_gives_the_plain_version_s_bits(cuda, c, f):
+    """The same fp32 sums in the same order, rounded to bf16 once."""
+    _, weight, _ = _conv_inputs(cuda, 1, 2, 2, c, f)
+    got = weight_transform_cuda(weight)
+    assert got.shape == (16, c, f) and got.dtype == torch.bfloat16
+    assert torch.equal(got, weight_transform(weight).bfloat16())
+    assert torch.equal(got, weight_transform(weight.cpu()).bfloat16().to(cuda))
+
+
+def test_k4_takes_fp32_activations(cuda):
+    """fp32 in, fp32 out, x rounded to bf16 on the way in, as the fp32
+    compute type runs it."""
+    x, weight, bias = _conv_inputs(cuda, 2, 11, 15, 128, 64, dtype=torch.float32)
+    got = winograd_conv_cuda(x, weight, bias, relu=True)
+    want = winograd_conv_plain(x, weight, bias, relu=True)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4 * want.abs().max().item(), rtol=0)
+    assert torch.equal(got, winograd_conv_cuda(x.bfloat16(), weight, bias, relu=True,
+                                               out_dtype=torch.float32))
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    x, weight, bias = _conv_inputs(cuda, 2, 8, 8, 128, 64)
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        winograd_conv_cuda(x.permute(0, 2, 1, 3), weight, bias)
+    with pytest.raises(ValueError, match="C % 32"):
+        winograd_conv_cuda(x[..., :24].contiguous(), weight[:, :24].contiguous(), bias)
+    with pytest.raises(ValueError, match="F % 64"):
+        winograd_conv_cuda(x, weight[:48].contiguous(), bias[:48].contiguous())
+    with pytest.raises(TypeError):
+        winograd_conv_cuda(x.half(), weight, bias)
+    with pytest.raises(ValueError, match="bias on"):
+        winograd_conv_cuda(x, weight, bias.cpu())
+    with pytest.raises(RuntimeError, match="WinogradConvFn"):
+        winograd_conv_cuda(x, weight.requires_grad_(), bias)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_k4_function_gradients_are_the_direct_conv_s(cuda, relu):
+    """K4 forward; for one cotangent the backward is cuDNN's for the direct
+    bf16 conv at the saved inputs: one bf16 step (2^-7) of each gradient's
+    largest entry, since cuDNN may pick another algorithm for the same
+    call."""
+    x, weight, bias = _conv_inputs(cuda, 4, 22, 30, 256, 128)
+    g = torch.randn((4, 22, 30, 128), device=cuda).bfloat16()
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, weight, bias)]
+        return torch.autograd.grad(fn(*ins, relu), ins, g)
+
+    before = winograd_conv_cuda.launches
+    got = grads(WinogradConvFn.apply)
+    assert winograd_conv_cuda.launches == before + 1
+    want = grads(direct_conv)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.float32]
+    for a, r in zip(got, want):
+        assert (a.float() - r.float()).abs().max() <= 2.0 ** -7 * r.float().abs().max()
+
+
+def test_model_winograd_configuration_runs_k4(cuda):
+    """Trained weights at 64x80: 10 K4 launches a forward, descriptors at
+    cosine >= 0.999 to the standard bf16 model's."""
+    imgs = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (4, 64, 80, 3), dtype=np.uint8)).to(cuda)
+    outs = []
+    before = winograd_conv_cuda.launches
+    for on in (True, False):
+        cfg = ModelConfig(image_height=64, image_width=80, winograd=on)
+        model = EmbeddingNet(cfg)
+        model.load_state_dict(load_trained_params(cfg=cfg))
+        with torch.inference_mode():
+            outs.append(model.to(cuda).eval()(imgs)[1])
+    assert winograd_conv_cuda.launches == before + 10
+    assert ((outs[0] * outs[1]).sum(1) >= 0.999).all()

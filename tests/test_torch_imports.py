@@ -58,11 +58,17 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 
 def test_every_kernel_source_exports_its_c_entry_points():
     names = _build.kernel_names()
-    assert names == ["netvlad", "topk", "wms"]
+    assert names == ["netvlad", "topk", "winograd", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
     assert "int scl_topk_l2(" in text["topk"] and "scl_topk_chunk_rows" in text["topk"]
     assert "int scl_wms_loss(" in text["wms"] and "atomicAdd" not in text["wms"]
+    assert "int scl_winograd_conv(" in text["winograd"] and "atomicAdd" not in text["winograd"]
+    assert "int scl_winograd_weight_transform(" in text["winograd"]
+    # K4's 16 products are its own: tensor-core mma in the kernel body, and
+    # its input transform rounds in bf16 at every add
+    assert "mma_sync" in text["winograd"] and "__hsub2" in text["winograd"]
+    assert not any(lib in text["winograd"] for lib in ("cublas", "cudnn", "cutlass"))
     assert all("scl_cuda_error_string" in t for t in text.values())
 
 

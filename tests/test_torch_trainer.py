@@ -32,7 +32,8 @@ torch.set_num_threads(1)  # tier-1 runs several workers on one host
 # the frameworks' rounding until the mining order, and with it the tuples,
 # part ways after the second refresh
 TRAIN = dict(tuples_per_batch=1, max_epoch=1, base_lr=5e-6, mining_step=6,
-             mining_cache_size=10, eval_step=8, save_step=8, seed=0)
+             mining_cache_size=10, eval_step=8, save_step=8, num_eval_queries=4, eval_ref_r=4,
+             seed=0)
 TUPLES = dict(positives_per_tuple=3, negatives_per_tuple=3, hard_positives_per_tuple=1,
               hard_negatives_per_tuple=1)
 SOURCE = dict(num_points=24, radius=30.0, img_h=64, img_w=80, seed=3)
@@ -112,7 +113,7 @@ def test_epoch_geometry(port_run):
 
 def test_losses_are_finite_and_params_moved(port_run):
     tr, init, _ = port_run
-    losses = _losses(tr.writer.read_all())
+    losses = _losses(tr.writers["local"].read_all())
     assert losses.shape == (24,) and np.isfinite(losses).all()
     state = tr.state.model.state_dict()
     moved = {k: (state[k] - init[k]).abs().max().item() for k in init}
@@ -121,8 +122,8 @@ def test_losses_are_finite_and_params_moved(port_run):
 
 def test_jsonl_records(port_run):
     """The JAX MetricsWriter's records: one loss and one learning_rate per
-    step, steps counted from 1."""
-    recs = port_run[0].writer.read_all()
+    step, steps counted from 1 (the evals' scalars share the file)."""
+    recs = port_run[0].writers["local"].read_all()
     assert {tuple(sorted(r)) for r in recs} == {("step", "t", "tag", "value")}
     assert [r["step"] for r in recs if r["tag"] == "loss"] == list(range(1, 25))
     lrs = [r["value"] for r in recs if r["tag"] == "learning_rate"]
@@ -138,7 +139,7 @@ def test_loss_sequence_matches_the_jax_trainer(jax_run, port_run):
     gradient's size, so the weights drift apart a little more each step. A
     different tuple would move a loss by ~1e-2."""
     _, want, jax_steps = jax_run
-    got = _losses(port_run[0].writer.read_all())
+    got = _losses(port_run[0].writers["local"].read_all())
     assert jax_steps == port_run[0].global_step == 24
     np.testing.assert_allclose(got[:6], want[:6], rtol=1e-6, atol=0)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
@@ -171,7 +172,8 @@ def test_cli_train_runs_a_toy_city_epoch_on_the_cpu(tmp_path):
             "--vlad_cores", "8", "--compute_dtype", "float32", "--positives_per_tuple", "1",
             "--negatives_per_tuple", "1", "--hard_positives_per_tuple", "1",
             "--hard_negatives_per_tuple", "1", "--max_epoch", "1", "--mining_step", "4",
-            "--mining_cache_size", "8", "--train_ref_r", "40",
+            "--mining_cache_size", "8", "--train_ref_r", "40", "--num_eval_queries", "2",
+            "--eval_ref_r", "20",
             "--device_image_pool", "false"]  # the host-fed step and embed
     assert main(argv) == 0
     recs = MetricsWriter(str(tmp_path / "run"), "local").read_all()
@@ -179,3 +181,6 @@ def test_cli_train_runs_a_toy_city_epoch_on_the_cpu(tmp_path):
     # one anchor per 40 m of the 120-pose loop: 24 anchors, 2 tuples a step
     assert len(losses) == 12 and np.isfinite(losses).all()
     assert (tmp_path / "run" / "config.json").exists()
+    # the eval hooks fired before the first step: held-out loss and localization
+    other = MetricsWriter(str(tmp_path / "run"), "other").read_all()
+    assert {r["step"] for r in other} == {0} and "loss" in {r["tag"] for r in other}
