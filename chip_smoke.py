@@ -38,18 +38,34 @@ failure:
    bf16 conv at B=50 (conv4_2 with the fused ReLU, conv2_2 without), within
    0.05 of each gradient's largest entry (the cotangent comes from the
    Winograd forward), and forward + backward timed against plain autograd;
-9. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
+9. the probes' product kernel (probe_gemm) against its plain version:
+   bit-equal on operands whose sums are exact (multiples of 1/8; int8) at
+   every problem the probe scripts launch (the resident and blocked shapes
+   of perf/mxu_probe.py, (8192, 4096) @ (4096, 8192), the eight of
+   perf/matmul_probe.py batched, unrolled and single, where 240 and 360 rows
+   end in a ragged tile), with the chosen and with every dividing tile
+   shape, for bf16 -> fp32, bf16 -> bf16 and int8 -> int32; within a stated
+   tolerance on normals; then its times per tile shape beside torch.matmul /
+   torch._int_mm and the bound, and at the eight shapes of matmul_probe.py;
+10. K4 cut short at each stage (dma, transform, matmul, full) against
+   winograd_stage_plain at conv2_2 and conv4_2 (B=64), conv4_2 at B=50 (a
+   ragged block) and conv2_2 at B=256; the full stage bit-equal to K4's
+   wrapper; then the four stage times at the six layer shapes at B=64;
+11. the five probe scripts (soft_contrastive_learning_torch/perf) through
+   their main(), at their own problems: each must launch its kernel once
+   per row and call, warm-up included, and no other;
+12. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
    DescriptorService (batch 64): embed 512 index images, pad the index with
    seeded random unit vectors to 66,048 x 32,768 fp32 so that search takes
    the streamed K2 path, search 64 queries of which 16 are index images
    (each must come back at rank 0), and check that both kernels were
    launched on that path; then hold the served descriptors against an fp32
    plain-PyTorch model and the served search against K2's plain version;
-10. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
+13. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
    K1 launch per batch, descriptors at cosine >= 0.999 to the standard
    configuration's and >= 0.99 to the fp32 plain model's, and the model's
    time per batch beside the standard configuration's, in turns;
-11. train: one toy-city epoch (120 poses, 180x240) of the flagship through
+14. train: one toy-city epoch (120 poses, 180x240) of the flagship through
    Trainer.train() from the trained weights: 2 tuples of 1+12+12 (B=50),
    Adam at 5e-6, hard mining 6+6, fused wms (K3), mining every 20 steps
    over a cache of 100, the eval hooks once (before the first step: the
@@ -60,54 +76,42 @@ failure:
    scalar be finite and the weights move. Then, on the epoch's first batch
    from the same weights, one step with the kernels and one without must
    give the same loss (1e-5 relative at fp32, 1e-4 at bf16), and the step
-   is timed with K1 and K3, with K1 only, and with no kernel;
-12. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
+   is timed with K1 and K3, with K1 only, and with no kernel. The epoch
+   leaves a part checkpoint at step 30; a second Trainer, a fresh object
+   with only that file, resumes from it and finishes the epoch, and the
+   epoch is run whole a second time for the run-to-run floor: the resumed
+   run must draw the same batches and end within 10x the floor (at least
+   1e-6) of the uninterrupted run's last loss and parameters;
+15. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
    (10 per forward: steps, mining embeds, evals), the same checks, the
    standard epoch's first batch within 1e-2 relative of the standard
    configuration's loss, and the step timed against it in turns;
-13. print the serve, train and kernel JSON lines, then the result line.
+16. print the serve, train, probe and kernel JSON lines, then the result
+   line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
-H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16 on
-them, 3.35 TB/s).
+H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16 and
+1,979 TOP/s int8 on them, 3.35 TB/s).
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 SEED = 0
-FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
-HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def eighths(torch, gen, shape, out=None, rows_per_chunk=2048):
@@ -122,6 +126,7 @@ def eighths(torch, gen, shape, out=None, rows_per_chunk=2048):
 
 
 def phase_k1(torch, report):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.netvlad import (
         netvlad_aggregate_cuda, vlad_aggregate)
 
@@ -142,10 +147,10 @@ def phase_k1(torch, report):
             fail(f"K1 disagrees with its plain version ({logits.dtype}): max-abs {e}")
         err = max(err, e)
     logits = logits32.bfloat16()  # the main path's logits dtype
-    ms = time_ms(torch, lambda: netvlad_aggregate_cuda(x, logits, centers), 50)
-    plain_ms = time_ms(torch, lambda: vlad_aggregate(x, logits, centers), 50)
+    ms = common.time_ms(lambda: netvlad_aggregate_cuda(x, logits, centers), 50)
+    plain_ms = common.time_ms(lambda: vlad_aggregate(x, logits, centers), 50)
     nbytes = 4 * b * n * d + 2 * b * n * k + 4 * d * k + 4 * b * d * k
-    bound_ms, bound_by = bound(2 * b * n * k * d, nbytes)
+    bound_ms, bound_by = common.bound_ms(2 * b * n * k * d, nbytes)
     print(f"K1 B={b} N={n} D={d} K={k} bf16 logits: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
     report["K1"] = dict(
@@ -157,6 +162,7 @@ def phase_k1(torch, report):
 
 
 def phase_k2(torch, report):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.topk import (
         topk_l2_cuda, topk_l2_stream_plain)
 
@@ -198,11 +204,11 @@ def phase_k2(torch, report):
     err = max(err, compare("R=100 < k=128 D=512", q[:, :512].contiguous(), base[:100], 128)[1])
 
     k = 5
-    ms = time_ms(torch, lambda: topk_l2_cuda(q, r, k), 5)
-    plain_ms = time_ms(torch, lambda: topk_l2_stream_plain(q, r, k), 5)
-    ms128 = time_ms(torch, lambda: topk_l2_cuda(q, r, 128), 5)
+    ms = common.time_ms(lambda: topk_l2_cuda(q, r, k), 5)
+    plain_ms = common.time_ms(lambda: topk_l2_stream_plain(q, r, k), 5)
+    ms128 = common.time_ms(lambda: topk_l2_cuda(q, r, 128), 5)
     flops = 2 * nq * n_refs * d + 2 * n_refs * d
-    bound_ms, bound_by = bound(flops, 4 * (n_refs * d + nq * d) + 12 * nq * k)
+    bound_ms, bound_by = common.bound_ms(flops, 4 * (n_refs * d + nq * d) + 12 * nq * k)
     print(f"K2 Q={nq} R={n_refs} D={d}: kernel k=5 {ms:.3f} ms, k=128 {ms128:.3f} ms, "
           f"plain k=5 {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     report["K2"] = dict(
@@ -215,26 +221,33 @@ def phase_k2(torch, report):
     torch.cuda.empty_cache()
 
 
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "P_gemm", "P6_stages")
+
+
 class LaunchCounts:
-    """The four kernel wrappers' launch counters around one path: set to 0
-    on entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
+    """The kernel wrappers' launch counters around one path: set to 0 on
+    entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
 
     def __init__(self, report, path):
         from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
+        from soft_contrastive_learning_torch.ops.kernels.probe_gemm import probe_gemm
         from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda
-        from soft_contrastive_learning_torch.ops.kernels.winograd import winograd_conv_cuda
+        from soft_contrastive_learning_torch.ops.kernels.winograd import (
+            winograd_conv_cuda, winograd_stage)
         from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda
 
         self.report, self.path = report, path
-        self.wrappers = {"K1": netvlad_aggregate_cuda, "K2": topk_l2_cuda, "K3": wms_loss_cuda,
-                         "K4": winograd_conv_cuda}
+        self.wrappers = dict(zip(KERNEL_IDS, (
+            netvlad_aggregate_cuda, topk_l2_cuda, wms_loss_cuda, winograd_conv_cuda, probe_gemm,
+            winograd_stage)))
         for fn in self.wrappers.values():
             fn.launches = 0
 
     def read(self, expect):
-        """The counts since entry; fails unless they are ``expect``."""
+        """The counts since entry; fails unless they are ``expect`` (0 for a
+        kernel it does not name)."""
         counts = {kid: fn.launches for kid, fn in self.wrappers.items()}
-        if counts != expect:
+        if any(count != expect.get(kid, 0) for kid, count in counts.items()):
             fail(f"{self.path}: kernel launches {counts}, expected {expect}")
         for kid, count in counts.items():
             self.report[kid].setdefault("launches_by_path", {})[self.path] = count
@@ -247,6 +260,7 @@ def blocky_images(rng, n: int):
 
 
 def phase_serve(torch, np, report, shared):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.core.config import ModelConfig
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
     from soft_contrastive_learning_torch.models.weights import load_trained_params
@@ -336,7 +350,7 @@ def phase_serve(torch, np, report, shared):
     # embed throughput at batch 64: end to end through the service, and the
     # model alone on the card
     batch = torch.from_numpy(index_imgs[:64]).cuda()
-    embed_ms = time_ms(torch, lambda: service.extractor._embed(batch), 20)
+    embed_ms = common.time_ms(lambda: service.extractor._embed(batch), 20)
     t0 = time.perf_counter()
     service.embed(index_imgs)
     e2e_s = time.perf_counter() - t0
@@ -349,6 +363,7 @@ def phase_serve(torch, np, report, shared):
 def phase_serve_winograd(torch, np, report, shared):
     """The flagship with ``winograd=True`` through DescriptorService.embed
     on the standard phase's 512 images: K4 on 10 of the 13 convs."""
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.core.config import ModelConfig
     from soft_contrastive_learning_torch.serving import DescriptorService
 
@@ -376,7 +391,7 @@ def phase_serve_winograd(torch, np, report, shared):
     turns = {"winograd": [], "standard": []}
     runs = {"winograd": service, "standard": standard}
     for name in ("winograd", "standard", "standard", "winograd"):
-        turns[name].append(time_ms(torch, lambda: runs[name].extractor._embed(batch), 10))
+        turns[name].append(common.time_ms(lambda: runs[name].extractor._embed(batch), 10))
     ms = {name: statistics.mean(t) for name, t in turns.items()}
     report["serve_winograd"] = dict(
         embed_img_s=len(imgs) / e2e_s, model_img_s=64e3 / ms["winograd"],
@@ -409,6 +424,7 @@ def wms_inputs(torch, np, b, d, seed, device="cuda"):
 
 
 def phase_k3(torch, np, report):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.losses.ms import wms_loss
     from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda, wms_loss_fused
 
@@ -443,11 +459,11 @@ def phase_k3(torch, np, report):
             fail(f"K3 inputs at B={b} beta={beta}: mining does not move the loss {losses}")
     b, d = 50, 32768
     geo, emb = wms_inputs(torch, np, b, d, SEED + b)
-    ms = time_ms(torch, lambda: wms_loss_cuda(geo, emb, 0.8, 15.0), 200)
-    plain_ms = time_ms(torch, lambda: wms_loss(geo, emb, 0.8, 15.0), 200)
+    ms = common.time_ms(lambda: wms_loss_cuda(geo, emb, 0.8, 15.0), 200)
+    plain_ms = common.time_ms(lambda: wms_loss(geo, emb, 0.8, 15.0), 200)
     # the Gram is symmetric: B (B + 1) / 2 dot products of D; emb and geo
     # read once, one float written
-    bound_ms, bound_by = bound(b * (b + 1) * d, 4 * (b * d + b * b) + 4)
+    bound_ms, bound_by = common.bound_ms(b * (b + 1) * d, 4 * (b * d + b * b) + 4)
     print(f"K3 B={b} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
     report["K3"] = dict(
@@ -459,6 +475,7 @@ def phase_k3(torch, np, report):
 
 
 def phase_k1_backward(torch, report):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.netvlad import (
         VladAggregateFn, vlad_aggregate)
 
@@ -481,8 +498,8 @@ def phase_k1_backward(torch, report):
           f"x {errs[0]:.3g}, logits {errs[1]:.3g}, centers {errs[2]:.3g} vs plain autograd")
     if got[1].dtype != torch.bfloat16 or max(errs) > 1e-6:
         fail(f"VladAggregateFn gradients disagree with plain autograd: {errs}")
-    fwd_bwd_ms = time_ms(torch, lambda: grads(VladAggregateFn.apply), 20)
-    plain_ms = time_ms(torch, lambda: grads(vlad_aggregate), 20)
+    fwd_bwd_ms = common.time_ms(lambda: grads(VladAggregateFn.apply), 20)
+    plain_ms = common.time_ms(lambda: grads(vlad_aggregate), 20)
     print(f"K1 forward+backward B={b}: through VladAggregateFn {fwd_bwd_ms:.4f} ms, "
           f"plain autograd {plain_ms:.4f} ms")
     report["K1_backward"] = dict(max_abs_err=max(errs), fwd_bwd_ms=fwd_bwd_ms,
@@ -531,6 +548,7 @@ def bf16_steps_ok(torch, got, want, floor):
 def phase_k4(torch, report):
     import torch.nn.functional as F
 
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.winograd import (
         weight_transform_cuda, winograd_conv_cuda)
     from soft_contrastive_learning_torch.ops.winograd import weight_transform, winograd_conv_plain
@@ -588,15 +606,15 @@ def phase_k4(torch, report):
                 y = F.conv2d(x_nchw, w16, b16, padding=1)
                 return F.relu(y) if relu else y
 
-            ms = time_ms(torch, lambda: winograd_conv_cuda(x, weight, bias, relu=relu), 20)
-            library_ms = time_ms(torch, library, 20)
-            plain_ms = time_ms(torch, lambda: winograd_conv_plain(x, weight, bias, relu=relu), 3)
+            ms = common.time_ms(lambda: winograd_conv_cuda(x, weight, bias, relu=relu), 20)
+            library_ms = common.time_ms(library, 20)
+            plain_ms = common.time_ms(lambda: winograd_conv_plain(x, weight, bias, relu=relu), 3)
             # the wrapper's first launch, inside ms: U = bf16(G w G^T)
-            transform_ms = time_ms(torch, lambda: weight_transform_cuda(weight), 20)
+            transform_ms = common.time_ms(lambda: weight_transform_cuda(weight), 20)
             tiles = b * -(-h // 2) * -(-w // 2)
-            bound_ms, bound_by = bound(2 * 16 * tiles * c * f,
-                                       2 * (b * h * w * c + b * h * w * f) + 2 * 16 * c * f,
-                                       BF16_FLOPS)
+            bound_ms, bound_by = common.bound_ms(
+                2 * 16 * tiles * c * f, 2 * (b * h * w * c + b * h * w * f) + 2 * 16 * c * f,
+                common.BF16_FLOPS)
             row[f"B{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                 bound_ms=bound_ms, bound_by=bound_by, transform_ms=transform_ms)
             print(f"K4 B={b} {'/'.join(names)} {h}x{w} {c}->{f}: kernel {ms:.4f} ms (of which "
@@ -630,6 +648,7 @@ def phase_k4(torch, report):
 
 
 def phase_k4_backward(torch, report):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.winograd import WinogradConvFn, direct_conv
 
     out = {}
@@ -653,12 +672,262 @@ def phase_k4_backward(torch, report):
         if [g.dtype for g in got] != [torch.bfloat16, torch.float32, torch.float32] \
                 or max(rels) >= 0.05:
             fail(f"WinogradConvFn gradients disagree with the direct conv's at {name}: {rels}")
-        fn_ms = time_ms(torch, lambda: grads(WinogradConvFn.apply), 10)
-        plain_ms = time_ms(torch, lambda: grads(direct_conv), 10)
+        fn_ms = common.time_ms(lambda: grads(WinogradConvFn.apply), 10)
+        plain_ms = common.time_ms(lambda: grads(direct_conv), 10)
         print(f"K4 forward+backward B={b} {name}: through WinogradConvFn {fn_ms:.4f} ms, plain "
               f"autograd of the cuDNN conv {plain_ms:.4f} ms")
         out[name] = dict(max_rel_err=max(rels), fwd_bwd_ms=fn_ms, plain_fwd_bwd_ms=plain_ms)
     report["K4_backward"] = out
+
+
+def phase_probe_gemm(torch, report):
+    """The probes' product kernel against ``probe_gemm_plain``, then its
+    times beside ``torch.matmul`` / ``torch._int_mm`` and the bound.
+
+    Exact gate, at every problem the probe scripts launch (the resident
+    shapes and the blocked problem of perf/mxu_probe.py, the large problem of
+    perf/mxu_probe2.py and mxu_probe4.py, the eight of perf/matmul_probe.py,
+    batched, unrolled and single; 240 and 360 rows end in a ragged tile),
+    with the tile shape the wrapper chooses and with every tile shape that
+    divides the problem, for bf16 -> fp32, bf16 -> bf16 and int8 -> int32:
+    operands that are multiples of 1/8 in [-1, 1] (bf16) or any int8 values
+    make every product and every partial sum exact, so kernel and plain
+    version must agree to the last bit whatever the order of the K loop.
+    Tolerance gate on seeded normals: fp32 results within 1e-3 sqrt(K)
+    max|a| max|b| (two fp32 summation orders), bf16 results within one bf16
+    step of the plain version's (or, where the bf16 grid is finer than that,
+    within twice the measured difference of the two fp32 results, of which
+    they are the roundings)."""
+    from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
+        CONFIGS, probe_gemm, probe_gemm_plain)
+    from soft_contrastive_learning_torch.perf import common, matmul_probe, mxu_probe, mxu_probe2
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def exact_operands(shape_a, shape_b, dtype):
+        if dtype == torch.int8:
+            return common.operands(shape_a, shape_b, dtype, torch.device("cuda"), SEED + 11)
+        return tuple((torch.randint(-8, 9, sh, generator=gen, device="cuda").float() / 8)
+                     .bfloat16() for sh in (shape_a, shape_b))
+
+    def shapes(z, m, k, n):
+        return ((m, k), (k, n)) if z == 1 else ((z, m, k), (z, k, n))
+
+    m, k, n = mxu_probe2.M, mxu_probe2.K, mxu_probe2.N
+    # (batch, M, K, N, one launch per batch entry), each once
+    problems = list(dict.fromkeys(
+        [(1, rm, rk, rn, False) for rm, rk, rn, _ in mxu_probe.RESIDENT]
+        + [(1, *mxu_probe.BLOCKED, False), (1, m, k, n, False)]
+        + [(pz, pm, pk, pn, mode == "unrolled") for mode, pz, pm, pk, pn in matmul_probe.SHAPES]))
+    checks = 0
+    for z, pm, pk, pn, unrolled in problems:
+        configs = [None] + [c for c in range(len(CONFIGS))
+                            if pn % CONFIGS[c][1] == 0 and pk % CONFIGS[c][2] == 0]
+        for in_dtype, out_dtypes in ((torch.bfloat16, (torch.float32, torch.bfloat16)),
+                                     (torch.int8, (torch.int32,))):
+            a, b = exact_operands(*shapes(z, pm, pk, pn), in_dtype)
+            for out_dtype in out_dtypes:
+                want = probe_gemm_plain(a, b, out_dtype)
+                for config in configs:
+                    if unrolled:
+                        got = torch.stack([probe_gemm(a[i], b[i], out_dtype, config)
+                                           for i in range(z)])
+                    else:
+                        got = probe_gemm(a, b, out_dtype, config)
+                    torch.cuda.synchronize()
+                    if got.dtype != out_dtype or not torch.equal(got, want):
+                        fail(f"probe_gemm {in_dtype}->{out_dtype} config {config} batch {z}"
+                             f"{' unrolled' if unrolled else ''} ({pm},{pk})@({pk},{pn}): "
+                             f"{(got != want).sum().item()} elements differ from the plain "
+                             "version")
+                    checks += 1
+                del want, got
+            del a, b
+    print(f"P_gemm exact inputs: {checks} comparisons bit-equal to the plain version at the "
+          f"{len(problems)} problems of the probe scripts (chosen and every dividing tile shape; "
+          "bf16->fp32, bf16->bf16, int8->int32; ragged rows, batch 16 and unrolled included)")
+
+    err = 0.0
+    for z, pm, pk, pn in [(1, m, k, n)] + [s[1:] for s in matmul_probe.SHAPES
+                                           if s[0] == "batched"]:
+        a, b = common.operands(*shapes(z, pm, pk, pn), torch.bfloat16, torch.device("cuda"),
+                               SEED + 12)
+        tol = 1e-3 * pk ** 0.5 * a.float().abs().max().item() * b.float().abs().max().item()
+        want = probe_gemm_plain(a, b, torch.float32)
+        got = probe_gemm(a, b, torch.float32)
+        e = (got - want).abs().max().item()
+        if not (e <= tol and torch.isfinite(got).all()):
+            fail(f"probe_gemm bf16->fp32 on normals, batch {z} ({pm},{pk})@({pk},{pn}): "
+                 f"max-abs {e} > {tol}")
+        one, two = bf16_steps_ok(torch, probe_gemm(a, b, torch.bfloat16),
+                                 probe_gemm_plain(a, b, torch.bfloat16),
+                                 torch.tensor(2 * e, device="cuda"))
+        if one < 1.0:
+            fail(f"probe_gemm bf16->bf16 on normals, batch {z} ({pm},{pk})@({pk},{pn}): only "
+                 f"{one:.6f} of the elements within one bf16 step")
+        print(f"P_gemm normals batch {z} ({pm},{pk})@({pk},{pn}): fp32 max-abs {e:.3g} (gate "
+              f"{tol:.3g}); bf16 all within one step")
+        err = max(err, e)
+        del a, b, want, got
+
+    # times: the large problem per tile shape in bf16 and int8, each beside
+    # its control, then the eight Winograd product shapes
+    args = SimpleNamespace(device=torch.device("cuda"), reps=5, seed=SEED)
+    rows = {}
+    for in_dtype, out_dtype, key in ((torch.bfloat16, torch.bfloat16, "bf16"),
+                                     (torch.int8, torch.int32, "int8")):
+        a, b = common.operands((m, k), (k, n), in_dtype, args.device, SEED)
+        control_ms = common.control_gemm_ms(a, b, args.reps)
+        rows[key] = [common.gemm_row(args, f"P_gemm {key} ({m},{k})@({k},{n})", a, b, out_dtype,
+                                     config, control_ms) for config in range(len(CONFIGS))]
+        if key == "bf16":
+            plain_ms = common.time_ms(lambda: probe_gemm_plain(a, b, out_dtype), 2)
+        del a, b
+    args.reps = 50
+    rows["products"] = []
+    for mode, z, pm, pk, pn in matmul_probe.SHAPES:
+        a, b = common.operands(*shapes(1 if mode == "single" else z, pm, pk, pn), torch.bfloat16,
+                               args.device, SEED)
+        rows["products"].append(common.gemm_row(
+            args, f"P_gemm {mode}{z if z > 1 else ''} ({pm},{pk})@({pk},{pn})", a, b,
+            torch.float32, None, common.control_gemm_ms(a, b, args.reps),
+            unrolled=mode == "unrolled"))
+    best = min(rows["bf16"], key=lambda r: r["ms"])
+    print(f"P_gemm ({m},{k})@({k},{n}) bf16: best tile {best['label']} {best['ms']:.4f} ms = "
+          f"{best['rate']:.1f} TFLOP/s, torch.matmul {best['control_ms']:.4f} ms, plain (fp32 "
+          f"matmul + cast) {plain_ms:.3f} ms, bound {best['bound_ms']:.4f} ms")
+    report["P_gemm"] = dict(
+        name="probe_gemm", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/probe_gemm.cu",
+        replaces="perf/mxu_probe.py:58 perf/mxu_probe.py:90 perf/mxu_probe2.py:60 "
+                 "perf/mxu_probe3.py:37 perf/mxu_probe4.py:42 perf/matmul_probe.py:66",
+        max_abs_err=err, ms=best["ms"], plain_ms=plain_ms, bound_ms=best["bound_ms"],
+        bound_by=best["bound_by"], library_ms=best["control_ms"], rows=rows)
+    torch.cuda.empty_cache()
+
+
+def phase_winograd_ablate(torch, report):
+    """K4 cut short at each stage against ``winograd_stage_plain``: conv2_2
+    and conv4_2 at B=64, conv4_2 at B=50 (8,250 tiles: a ragged last block)
+    and the ablation's own problem, conv2_2 at B=256. The checksums of
+    ``dma`` and ``transform`` are integer sums and must be equal; ``matmul``
+    within 1e-4 of the largest entry on normals (two fp32 summation orders)
+    and bit-equal on inputs whose sums are exact; ``full`` through the stage
+    entry bit-equal to ``winograd_conv_cuda`` and within K4's gate of the
+    plain version. Then the four stage times at the six layer shapes of the
+    flagship at B=64."""
+    from soft_contrastive_learning_torch.ops.kernels.winograd import (
+        winograd_conv_cuda, winograd_stage)
+    from soft_contrastive_learning_torch.ops.winograd import STAGES, winograd_stage_plain
+    from soft_contrastive_learning_torch.perf import common, winograd_ablate
+
+    layers = winograd_ablate.FLAGSHIP_LAYERS
+    err = 0.0
+    for seed, (name, b) in enumerate((("conv2_2", 64), ("conv4_2", 64), ("conv4_2", 50),
+                                      ("conv2_2", 256))):
+        h, w, c, f = layers[name]
+        x, weight, bias = k4_inputs(torch, b, h, w, c, f, 300 + seed)
+        for stage in (0, 1):
+            got = winograd_stage(stage, x, weight)
+            want = winograd_stage_plain(stage, x, weight)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail(f"P6 {STAGES[stage]} B={b} {name}: {(got != want).sum().item()} of "
+                     f"{want.numel()} block checksums differ from the plain version")
+        got, want = winograd_stage(2, x, weight), winograd_stage_plain(2, x, weight)
+        scale = want.abs().max().item()
+        e = (got - want).abs().max().item()
+        if got.shape != want.shape or not e <= 1e-4 * scale:
+            fail(f"P6 matmul B={b} {name}: max-abs {e} vs plain (scale {scale})")
+        # exact sums: activations in eighths, weights in halves (U in eighths)
+        gen = torch.Generator(device="cuda").manual_seed(400 + seed)
+        xe = (torch.randint(-8, 9, x.shape, generator=gen, device="cuda").float() / 8).bfloat16()
+        we = torch.randint(-2, 3, weight.shape, generator=gen, device="cuda").float() / 2
+        if not torch.equal(winograd_stage(2, xe, we), winograd_stage_plain(2, xe, we)):
+            fail(f"P6 matmul B={b} {name}: differs from the plain version on exact inputs")
+        del xe, we
+        full = winograd_stage(3, x, weight, bias, relu=True, out_dtype=torch.float32)
+        if not torch.equal(full, winograd_conv_cuda(x, weight, bias, relu=True,
+                                                    out_dtype=torch.float32)):
+            fail(f"P6 full B={b} {name}: the stage entry differs from winograd_conv_cuda")
+        worst = 0.0
+        for s0 in range(0, b, 64):  # the plain version in batches of 64: it holds 16 fp32 V
+            want = winograd_stage_plain(3, x[s0 : s0 + 64], weight, bias, relu=True,
+                                        out_dtype=torch.float32)
+            ef = (full[s0 : s0 + 64] - want).abs().max().item()
+            if not ef <= 1e-4 * want.abs().max().item():
+                fail(f"P6 full B={b} {name}: max-abs {ef} vs plain")
+            worst = max(worst, ef)
+            del want
+        print(f"P6 B={b} {name}: dma and transform checksums equal; matmul max-abs {e:.3g} "
+              f"(scale {scale:.3g}) and bit-equal on exact inputs; full bit-equal to K4's "
+              f"wrapper, max-abs {worst:.3g} vs plain")
+        err = max(err, e, worst)
+        del x, weight, bias, got, full
+        torch.cuda.empty_cache()
+
+    args = SimpleNamespace(device=torch.device("cuda"), reps=20, seed=SEED)
+    per_layer = {}
+    for name, (h, w, c, f) in layers.items():
+        print(f"P6 stage times B=64 {name} {h}x{w} {c}->{f}")
+        per_layer[name] = winograd_ablate.run(args, 64, h, w, c, f)
+    # the ablation's own problem for the kernels line
+    h, w, c, f = layers["conv2_2"]
+    print(f"P6 stage times B=256 conv2_2 {h}x{w} {c}->{f}")
+    own = winograd_ablate.run(args, 256, h, w, c, f)
+    x, weight, bias = k4_inputs(torch, 256, h, w, c, f, 300)
+
+    def plain():  # in batches of 64, as it was held above
+        for s0 in range(0, 256, 64):
+            winograd_stage_plain(3, x[s0 : s0 + 64], weight, bias, relu=True)
+
+    plain_ms = common.time_ms(plain, 1)
+    report["P6_stages"] = dict(
+        name="winograd_stages", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/winograd.cu",
+        replaces="perf/winograd_ablate.py:109",
+        max_abs_err=err, ms=own[3]["ms"], plain_ms=plain_ms, bound_ms=own[3]["bound_ms"],
+        bound_by=own[3]["bound_by"], library_ms=own[3]["control_ms"],
+        stages_B256_conv2_2=own, stages_B64=per_layer)
+    del x, weight, bias
+    torch.cuda.empty_cache()
+
+
+def phase_probes(torch, report):
+    """The probe scripts as a user runs them, at their own problems: each
+    must launch its kernel once per timed call and once to warm up, for
+    every row it prints."""
+    from soft_contrastive_learning_torch.ops.kernels.probe_gemm import CONFIGS
+    from soft_contrastive_learning_torch.perf import (
+        matmul_probe, mxu_probe, mxu_probe2, mxu_probe4, winograd_ablate)
+
+    # (script, --reps, rows by kernel); the full stage is K4 itself, and an
+    # unrolled row is a launch per batch entry
+    product_rows = sum(z if mode == "unrolled" else 1 for mode, z, *_ in matmul_probe.SHAPES)
+    scripts = ((mxu_probe, 10, {"P_gemm": len(mxu_probe.RESIDENT) + len(CONFIGS)}),
+               (mxu_probe2, 3, {"P_gemm": len(CONFIGS)}),
+               (mxu_probe4, 3, {"P_gemm": 2 * len(CONFIGS)}),
+               (matmul_probe, 20, {"P_gemm": product_rows}),
+               (winograd_ablate, 10, {"P6_stages": 3, "K4": 1}))
+    counts = LaunchCounts(report, "probes")
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNEL_IDS, 0)
+    for module, reps, rows in scripts:
+        name = module.__name__.rsplit(".", 1)[1]
+        before = {kid: fn.launches for kid, fn in counts.wrappers.items()}
+        print(f"probes: {name} --reps {reps}")
+        if module.main(["--reps", str(reps)]) != 0:
+            fail(f"probes: {name} did not return 0")
+        torch.cuda.synchronize()
+        launched = {kid: fn.launches - before[kid] for kid, fn in counts.wrappers.items()}
+        expect = {kid: rows.get(kid, 0) * (reps + 1) for kid in KERNEL_IDS}
+        if launched != expect:
+            fail(f"probes: {name} launched {launched}, expected {expect}")
+        for kid, count in expect.items():
+            total[kid] += count
+    launches = counts.read(total)
+    print(f"probes: five scripts in {time.perf_counter() - t0:.1f} s; launches {launches}")
+    torch.cuda.empty_cache()
 
 
 def toy_city():
@@ -680,18 +949,33 @@ def toy_city():
     return KeptToyCity(num_points=120, radius=150.0, img_h=180, img_w=240)
 
 
-def train_epoch(torch, np, report, path, cfg, params, source, expect):
+def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=None,
+                resume=None):
     """One epoch through Trainer.train() from ``params``, every step timed
     on the device; fails unless the kernels launched ``expect`` times on it.
-    Returns the trainer, per-step losses and ms, the epoch's
+    ``out_dir``: a run directory that outlives the call (default: a
+    temporary one); ``resume``: the checkpoint role to take up from it first.
+    Returns the trainer (``tr.drawn``: the image indices of every sample
+    drawn), per-step losses and ms, the epoch's
     wall seconds and how many of them the eval hooks took (they render the
-    held-out city's images on the host), the pool set-up seconds, each
+    held-out city's images on the host) and the checkpoint writes took, the
+    pool set-up seconds, each
     kernel's launches on this path, the eval scalars and the first batch."""
     from soft_contrastive_learning_torch.train.trainer import Trainer
 
-    with tempfile.TemporaryDirectory() as out_dir:
-        tr = Trainer(cfg, source, out_dir=out_dir, device="cuda", params=params)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tr = Trainer(cfg, source, out_dir=out_dir or tmp_dir, device="cuda", params=params)
+        if resume is not None and not tr.resume_latest(resume):
+            fail(f"{path}: no '{resume}' checkpoint to resume from in {out_dir}")
         step, events, first = tr.train_step_pooled, [], {}
+        sample, tr.drawn = tr._sample, []
+
+        def recording_sample(*args):
+            out = sample(*args)
+            tr.drawn.append(None if out is None else tuple(out.indices.reshape(-1).tolist()))
+            return out
+
+        tr._sample = recording_sample
 
         def timed_step(state, batch, pool):
             if not first:
@@ -706,15 +990,26 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect):
 
         tr.train_step_pooled = timed_step
         run_eval, eval_s = tr._run_eval, [0.0]
+        # the checkpoint writes (a part one at anchors 0 and RESUME_ANCHOR, the
+        # rolling one inside the eval, one at the epoch's end), timed apart
+        save, save_s = tr.ckpts.save, [0.0]
+
+        def timed_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save(*args, **kwargs)
+            save_s[0] += time.perf_counter() - t
+
+        tr.ckpts.save = timed_save
 
         def timed_eval(*args):
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            t, saved = time.perf_counter(), save_s[0]
             run_eval(*args)
             torch.cuda.synchronize()
-            eval_s[0] += time.perf_counter() - t
+            eval_s[0] += time.perf_counter() - t - (save_s[0] - saved)
 
-        tr._run_eval = timed_eval
+        tr._run_eval = timed_eval  # the rolling save inside it counts as a save
         t0 = time.perf_counter()  # set-up: render the city into the card's image pool
         tr._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))
         pool_s = time.perf_counter() - t0
@@ -730,7 +1025,7 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect):
                  if r["tag"] not in ("learning_rate",) and (role, r["tag"]) != ("local", "loss")}
         tr.close()
     step_ms = [s.elapsed_time(e) for s, e in events]
-    return tr, losses, step_ms, (epoch_s, eval_s[0]), pool_s, launches, evals, first
+    return tr, losses, step_ms, (epoch_s, eval_s[0], save_s[0]), pool_s, launches, evals, first
 
 
 def check_epoch(torch, np, label, tr, params, losses, evals):
@@ -753,6 +1048,73 @@ def check_epoch(torch, np, label, tr, params, losses, evals):
         f"{k} {v:.2f}" for k, v in sorted(evals.items()) if "Top1" in k))
 
 
+def check_resume(torch, np, report, cfg, params, source, run_dir, tr, losses):
+    """Stop and take up again: the run in ``run_dir / 'a'`` (trainer ``tr``)
+    left a part checkpoint at step 30 of 60. A second trainer, a fresh
+    object with nothing but that checkpoint, resumes from it on the card and
+    finishes the epoch; the uninterrupted epoch is also run a second time
+    from the start. cuDNN's backward sums with atomics, so two runs of one
+    epoch differ: that second run measures the floor (largest difference of
+    a loss of steps 31-60, and of a parameter at the end). The resumed run
+    must take the same steps, every loss finite, on the same batches (up
+    to the next refresh in any case: its cache is rebuilt from the very
+    weights; to the epoch's end where the second uninterrupted run drew the
+    first one's batches too), and its final loss and parameters lie within
+    10x that floor of the uninterrupted run's (1e-6 where the floor is
+    smaller: the runs may also coincide)."""
+    half = RESUME_ANCHOR // cfg.tuples_per_batch
+    part = Path("checkpoints") / "part" / str(half)
+    if not (run_dir / "a" / part / "state.pt").exists():
+        fail(f"train: no part checkpoint at step {half}: {sorted((run_dir / 'a').rglob('*.pt'))}")
+    (run_dir / "b" / part).parent.mkdir(parents=True)
+    shutil.move(str(run_dir / "a" / part), str(run_dir / "b" / part))
+    shutil.rmtree(run_dir / "a")
+    final = {k: v.detach().clone() for k, v in tr.state.model.state_dict().items()}
+
+    def against_first(label, other, other_losses):
+        tail = np.asarray(losses[half:])
+        if len(other_losses) != len(tail) or not np.isfinite(other_losses).all():
+            fail(f"{label}: {len(other_losses)} losses after step {half}, finite: "
+                 f"{np.isfinite(other_losses).all()}; expected {len(tail)}")
+        state = other.state.model.state_dict()
+        drawn = other.drawn[-len(tail):]
+        segment = cfg.mining_step // cfg.tuples_per_batch  # steps to the next refresh
+        return dict(loss=float(np.abs(np.asarray(other_losses) - tail).max()),
+                    last_loss=float(abs(other_losses[-1] - tail[-1])),
+                    param=max((state[k] - final[k]).abs().max().item() for k in final),
+                    same_batches=drawn == tr.drawn[half:],
+                    same_first_segment=drawn[:segment] == tr.drawn[half : half + segment])
+
+    again, again_losses, *_ = train_epoch(
+        torch, np, report, "train_again", cfg, params, source,
+        {"K1": EPOCH_FORWARDS, "K3": 60 + 2}, out_dir=str(run_dir / "again"))
+    shutil.rmtree(run_dir / "again")
+    floor = against_first("train_again", again, again_losses[half:])
+    # the second half: 30 steps, 3 refreshes of 3 embeds, no eval
+    t0 = time.perf_counter()
+    resumed, resumed_losses, *_ = train_epoch(
+        torch, np, report, "train_resumed", cfg, None, source,
+        {"K1": 30 + 3 * 3, "K3": 30}, out_dir=str(run_dir / "b"), resume="part")
+    seconds = time.perf_counter() - t0
+    got = against_first("train_resumed", resumed, resumed_losses)
+    if resumed.global_step != tr.global_step or resumed.state.step != tr.global_step \
+            or resumed.mining.refresh_count != 3 or len(resumed.drawn) != 60 - half:
+        fail(f"train_resumed: {resumed.global_step} steps, {resumed.mining.refresh_count} "
+             f"refreshes, {len(resumed.drawn)} samples; expected {tr.global_step}, 3, {60 - half}")
+    gate = {key: max(10 * floor[key], 1e-6) for key in ("last_loss", "param")}
+    print(f"train_resumed: from part@{half} to step {resumed.global_step} in {seconds:.2f} s; "
+          f"against the uninterrupted epoch: losses of steps {half + 1}-60 max-abs "
+          f"{got['loss']:.3g}, last loss {got['last_loss']:.3g}, parameters {got['param']:.3g}, "
+          f"same batches: {got['same_batches']}; floor from a second uninterrupted epoch: "
+          f"losses {floor['loss']:.3g}, last loss {floor['last_loss']:.3g}, parameters "
+          f"{floor['param']:.3g}, same batches: {floor['same_batches']}; gates {gate}")
+    if not got["same_first_segment"] or (floor["same_batches"] and not got["same_batches"]):
+        fail("train_resumed: the resumed run drew other batches than the uninterrupted one")
+    if got["last_loss"] > gate["last_loss"] or got["param"] > gate["param"]:
+        fail(f"train_resumed: {got} outside 10x the floor {floor}")
+    return dict(resumed_from_step=half, seconds=seconds, vs_uninterrupted=got, floor=floor)
+
+
 def train_config(winograd=False):
     """The flagship's training configuration (B = 2 x (1+12+12), Adam at
     5e-6, fused wms) at the toy city's cadence: mining every 20 anchors over
@@ -762,8 +1124,15 @@ def train_config(winograd=False):
 
     return TrainConfig(model=ModelConfig(winograd=winograd), loss=LossConfig(fused_wms=True),
                        mining_step=20, mining_cache_size=100, max_epoch=1, eval_step=1000,
-                       num_eval_queries=4, eval_ref_r=10)
+                       save_step=RESUME_ANCHOR, num_eval_queries=4, eval_ref_r=10)
 
+
+# A part checkpoint is written at anchor 0 and at this one: half way through
+# the epoch (step 30 of 60), where the mining cache is refreshed, so that a
+# resumed run rebuilds the cache from the very weights the first run embedded
+# it with (with hard mining on, a cache rebuilt from later weights may order
+# its neighbours otherwise: the trainer's stated scope of exactness).
+RESUME_ANCHOR = 60
 
 # kernel launches of one epoch: 60 steps; 6 refreshes embedding 120 images in 3
 # chunks of 50; one eval: 2 held-out loss batches, and 4 embeds (12 refs and 4
@@ -772,6 +1141,7 @@ EPOCH_FORWARDS = 60 + 6 * 3 + 2 + 4
 
 
 def phase_train(torch, np, report, shared):
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
     from soft_contrastive_learning_torch.losses.registry import build_loss
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
@@ -782,14 +1152,19 @@ def phase_train(torch, np, report, shared):
     params = load_trained_params(cfg=cfg.model)
     source = toy_city()
     b = cfg.images_per_batch
+    run_root = tempfile.TemporaryDirectory()
+    run_dir = Path(run_root.name)
     # K1 in every forward, K3 per step and per held-out loss batch
-    tr, losses, step_ms, (epoch_s, eval_s), pool_s, launches, evals, first = train_epoch(
+    tr, losses, step_ms, (epoch_s, eval_s, save_s), pool_s, launches, evals, first = train_epoch(
         torch, np, report, "train", cfg, params, source,
-        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 0})
+        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 0}, out_dir=str(run_dir / "a"))
     print(f"train: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes in "
-          f"{epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s, after {pool_s:.2f} s of "
+          f"{epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s and the checkpoint writes "
+          f"{save_s:.2f} s, after {pool_s:.2f} s of "
           f"pool set-up; launches {launches}; first/last loss {losses[0]:.6f}/{losses[-1]:.6f}")
     check_epoch(torch, np, "train", tr, params, losses, evals)
+    resume = check_resume(torch, np, report, cfg, params, source, run_dir, tr, losses)
+    run_root.cleanup()
 
     # the first batch from the trained weights: kernels on and off, fp32 and bf16
     batch, pool = first, tr._image_pool.array
@@ -826,21 +1201,23 @@ def phase_train(torch, np, report, shared):
     turns = {name: [] for name in variants}
     for name in (*variants, *reversed(variants)):
         state, one = runs[name]
-        turns[name].append(time_ms(torch, lambda: one(state, dict(batch), pool), 10))
+        turns[name].append(common.time_ms(lambda: one(state, dict(batch), pool), 10))
     step_ms_by = {name: statistics.mean(t) for name, t in turns.items()}
     med = statistics.median(step_ms[1:])
     print(f"train: median {med:.3f} ms per step after the first ({1e3 * b / med:.1f} img/s at "
-          f"B={b}); epoch end to end, eval hooks apart, {60 * b / (epoch_s - eval_s):.1f} img/s; "
+          f"B={b}); epoch end to end, eval hooks and checkpoint writes apart, "
+          f"{60 * b / (epoch_s - eval_s - save_s):.1f} img/s; "
           "step with K1 and K3 "
           f"{step_ms_by['K1+K3']:.3f} ms, with K1 and the plain wms {step_ms_by['K1']:.3f} ms, "
           f"with no kernel {step_ms_by['none']:.3f} ms")
     report["train"] = dict(steps=tr.global_step, refreshes=tr.mining.refresh_count,
                            images_per_step=b, median_step_ms=med, img_s=1e3 * b / med,
                            first_step_ms=step_ms[0], pool_setup_s=pool_s, epoch_s=epoch_s,
-                           eval_s=eval_s, epoch_img_s=60 * b / (epoch_s - eval_s),
+                           eval_s=eval_s, save_s=save_s,
+                           epoch_img_s=60 * b / (epoch_s - eval_s - save_s),
                            step_ms_by_kernels=step_ms_by,
                            parity_rel=rel, first_loss=losses[0], last_loss=losses[-1],
-                           evals=evals)
+                           evals=evals, resume=resume)
     shared.update(train_params=params, source=source, first_batch=batch, pool=pool,
                   first_batch_bf16_loss=bf16_loss)
 
@@ -849,17 +1226,19 @@ def phase_train_winograd(torch, np, report, shared):
     """The same epoch with ``winograd=True``: K4 forward and WinogradConvFn's
     backward on 10 of the 13 convs, in the steps, the mining embeds and the
     eval hooks."""
+    from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.losses.registry import build_loss
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
     from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
 
     cfg = train_config(winograd=True)
     params, b = shared["train_params"], cfg.images_per_batch
-    tr, losses, step_ms, (epoch_s, eval_s), pool_s, launches, evals, _ = train_epoch(
+    tr, losses, step_ms, (epoch_s, eval_s, save_s), pool_s, launches, evals, _ = train_epoch(
         torch, np, report, "train_winograd", cfg, params, shared["source"],
         {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 10 * EPOCH_FORWARDS})
     print(f"train_winograd: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes "
-          f"in {epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s, after {pool_s:.2f} s of "
+          f"in {epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s and the checkpoint writes "
+          f"{save_s:.2f} s, after {pool_s:.2f} s of "
           f"pool set-up; launches {launches}; first/last loss {losses[0]:.6f}/{losses[-1]:.6f}")
     check_epoch(torch, np, "train_winograd", tr, params, losses, evals)
 
@@ -882,18 +1261,18 @@ def phase_train_winograd(torch, np, report, shared):
     turns = {name: [] for name in runs}
     for name in ("winograd", "standard", "standard", "winograd"):
         state, one = runs[name]
-        turns[name].append(time_ms(torch, lambda: one(state, dict(batch), pool), 10))
+        turns[name].append(common.time_ms(lambda: one(state, dict(batch), pool), 10))
     step_ms_by = {name: statistics.mean(t) for name, t in turns.items()}
     med = statistics.median(step_ms[1:])
     print(f"train_winograd: median {med:.3f} ms per step after the first "
-          f"({1e3 * b / med:.1f} img/s at B={b}); epoch end to end, eval hooks apart, "
-          f"{60 * b / (epoch_s - eval_s):.1f} img/s; step on one batch "
+          f"({1e3 * b / med:.1f} img/s at B={b}); epoch end to end, eval hooks and checkpoint "
+          f"writes apart, {60 * b / (epoch_s - eval_s - save_s):.1f} img/s; step on one batch "
           f"{step_ms_by['winograd']:.3f} ms against the standard configuration's "
           f"{step_ms_by['standard']:.3f} ms in the same turns")
     report["train_winograd"] = dict(
         steps=tr.global_step, refreshes=tr.mining.refresh_count, images_per_step=b,
-        median_step_ms=med, img_s=1e3 * b / med, epoch_s=epoch_s, eval_s=eval_s,
-        epoch_img_s=60 * b / (epoch_s - eval_s), step_ms_by_config=step_ms_by,
+        median_step_ms=med, img_s=1e3 * b / med, epoch_s=epoch_s, eval_s=eval_s, save_s=save_s,
+        epoch_img_s=60 * b / (epoch_s - eval_s - save_s), step_ms_by_config=step_ms_by,
         first_batch_rel_to_standard=rel, first_loss=losses[0], last_loss=losses[-1], evals=evals)
 
 
@@ -933,6 +1312,9 @@ def main() -> int:
     phase_k1_backward(torch, report)
     phase_k4(torch, report)
     phase_k4_backward(torch, report)
+    phase_probe_gemm(torch, report)
+    phase_winograd_ablate(torch, report)
+    phase_probes(torch, report)
     shared: dict = {}  # what a later phase takes from an earlier one
     phase_serve(torch, np, report, shared)
     phase_serve_winograd(torch, np, report, shared)
@@ -942,8 +1324,8 @@ def main() -> int:
     # launches: the count on the newest path that runs the kernel (the
     # Winograd training epoch for K1, K3 and K4, serve for K2);
     # launches_by_path: each path's own count, set to 0 just before it
-    paths = ("train_winograd", "train", "serve_winograd", "serve")
-    for kid in ("K1", "K2", "K3", "K4"):
+    paths = ("train_winograd", "train", "serve_winograd", "serve", "probes")
+    for kid in KERNEL_IDS:
         by_path = report[kid]["launches_by_path"]
         report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
         if report[kid]["launches"] <= 0:
@@ -956,8 +1338,11 @@ def main() -> int:
                       "K4_backward": report["K4_backward"]}))
     print(json.dumps({"K4_per_shape": report["K4"]["per_shape"],
                       "K4_forward_B50": report["K4"]["forward_B50"]}))
+    print(json.dumps({"P_gemm_rows": report["P_gemm"]["rows"],
+                      "P6_stages_B256_conv2_2": report["P6_stages"]["stages_B256_conv2_2"],
+                      "P6_stages_B64": report["P6_stages"]["stages_B64"]}))
     print(json.dumps({"kernels": [{key: report[kid][key] for key in keys}
-                                  for kid in ("K1", "K2", "K3", "K4")]}))
+                                  for kid in KERNEL_IDS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

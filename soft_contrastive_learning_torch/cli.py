@@ -8,8 +8,12 @@
 Flags follow ``scl-tpu`` (``soft_contrastive_learning_tpu/cli.py``) with the
 same names and defaults, limited to what the port runs so far, plus
 ``--device`` (default ``cuda``). ``--checkpoint`` takes a flagship-layout
-npz: for ``serve`` it defaults to the committed trained artifact; for
-``train`` it is the warm start (default: a fresh init from ``--seed``).
+npz or a training-run directory of the port (its newest checkpoint, with the
+run's own ModelConfig overriding the flags): for ``serve`` it defaults to
+the committed trained artifact; for ``train`` it is the warm start (default:
+a fresh init from ``--seed``). ``train --resume`` with the same
+``--out_folder`` takes a stopped run up again from its newest rolling
+checkpoint; a fresh run without ``--out_folder`` gets a unique suffix.
 ``train`` runs on the synthetic toy city (``--toy_city``); the filesystem
 source comes with a later slice, and ``--loss`` keeps its default
 ``wrd``, which raises until the loss-zoo slice, so pass ``--loss wms``. The
@@ -36,15 +40,37 @@ def _bool_flag(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
+def _load_model_params(cfg, checkpoint: str, default_artifact: bool):
+    """Resolve ``--checkpoint``: a training-run DIRECTORY loads the run's own
+    ModelConfig and newest checkpointed parameters (the train -> serve seam);
+    an npz is a flagship-layout artifact for the flag-built config; empty is
+    the committed artifact (``default_artifact``) or None, a fresh init.
+    Returns ``(model_config, state_dict | None)``."""
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+
+    if checkpoint and os.path.isdir(checkpoint):
+        from soft_contrastive_learning_torch.checkpoints.manager import load_run_params
+
+        run_cfg, params = load_run_params(checkpoint)
+        print(f"loaded trained params from run dir {checkpoint} "
+              f"(run ModelConfig overrides flags)")
+        return run_cfg, params
+    if checkpoint and not checkpoint.endswith(".npz"):
+        raise SystemExit(f"--checkpoint {checkpoint!r}: expected a flagship-layout .npz or a "
+                         "training-run directory")
+    if checkpoint or default_artifact:
+        return cfg, load_trained_params(checkpoint or None, cfg)
+    return cfg, None
+
+
 def cmd_serve(args) -> int:
     from soft_contrastive_learning_torch.core.config import ModelConfig
-    from soft_contrastive_learning_torch.models.weights import load_trained_params
     from soft_contrastive_learning_torch.serving import DescriptorService, serve
     from soft_contrastive_learning_torch.utils.io import load_pickle
 
     cfg = ModelConfig(vlad_cores=args.vlad_cores, reduction=args.reduction,
                       out_dim=args.out_dim)
-    params = load_trained_params(args.checkpoint or None, cfg)
+    cfg, params = _load_model_params(cfg, args.checkpoint, default_artifact=True)
     index = np.asarray(load_pickle(args.index)) if args.index else None
     service = DescriptorService(cfg, params, batch_size=args.batch_size, index=index,
                                 device=args.device)
@@ -86,13 +112,14 @@ def config_from_args(args):
         local_query_set=args.local_query_set, other_ref_set=args.other_ref_set,
         other_query_set=args.other_query_set, seed=args.seed,
         device_image_pool=args.device_image_pool,
-        device_pool_max_bytes=args.device_pool_max_bytes)
+        device_pool_max_bytes=args.device_pool_max_bytes, max_to_keep=args.max_to_keep)
 
 
 def cmd_train(args) -> int:
+    import dataclasses
+
     from soft_contrastive_learning_torch.core.config import unique_out_dir
     from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
-    from soft_contrastive_learning_torch.models.weights import load_trained_params
     from soft_contrastive_learning_torch.train.trainer import Trainer
 
     cfg = config_from_args(args)
@@ -100,15 +127,20 @@ def cmd_train(args) -> int:
         raise NotImplementedError(
             "training from the prep pipeline's files (FilesystemSource) comes with a "
             "later slice of the port; pass --toy_city")
+    model_cfg, params = _load_model_params(cfg.model, args.checkpoint, default_artifact=False)
+    cfg = dataclasses.replace(cfg, model=model_cfg)
     out_folder = args.out_folder or cfg.encode_name()
-    out_dir = (os.path.join(args.out_root, out_folder) if args.out_folder
-               else unique_out_dir(args.out_root, out_folder))
+    out_dir = os.path.join(args.out_root, out_folder)
+    if not args.out_folder and not args.resume:
+        # fresh runs get a unique suffix; --resume must reuse the existing dir
+        out_dir = unique_out_dir(args.out_root, out_folder)
     source = ToyCitySource(num_points=120, radius=150.0,
-                           img_h=args.image_height, img_w=args.image_width)
-    params = load_trained_params(args.checkpoint, cfg.model) if args.checkpoint else None
+                           img_h=cfg.model.image_height, img_w=cfg.model.image_width)
     trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params,
                       save_plots=args.save_plots)
     try:
+        if args.resume and not trainer.resume_latest():
+            trainer.log("--resume requested but no checkpoint found; starting fresh")
         trainer.train()
     finally:
         trainer.close()
@@ -117,7 +149,13 @@ def cmd_train(args) -> int:
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint", default="",
-                   help="flagship-layout params npz to start from (default: fresh init)")
+                   help="flagship-layout params npz or a training-run directory to start "
+                        "from (default: fresh init)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest rolling checkpoint in the output directory "
+                        "(pass the same --out_folder)")
+    p.add_argument("--max_to_keep", type=int, default=1,
+                   help="rolling checkpoints kept (epoch and part checkpoints keep all)")
     p.add_argument("--out_root", default="runs")
     p.add_argument("--out_folder", default="")
     p.add_argument("--toy_city", action="store_true", help="train on the synthetic toy city")
@@ -173,7 +211,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="HTTP descriptor-embedding service")
     p.add_argument("--checkpoint", default="",
-                   help="flagship-layout params npz (default: the committed trained artifact)")
+                   help="flagship-layout params npz or a training-run directory (default: the "
+                        "committed trained artifact)")
     p.add_argument("--index", default="", help="feature pickle to serve /search from")
     p.add_argument("--vlad_cores", type=int, default=64)
     p.add_argument("--reduction", default="none")

@@ -138,6 +138,7 @@ class TrainConfig:
     async_mining: bool = False
     eval_step: int = 100
     save_step: int = 500
+    max_to_keep: int = 1  # rolling checkpoints kept; epoch and part keep all
     num_eval_queries: int = 50
     eval_ref_r: int = 5
     train_ref_r: int = 1

@@ -56,6 +56,28 @@
 // loads with the mma does not help by itself: a two-stage cp.async variant of
 // this loop measured slower (PERF.md), so the next step is fewer bytes per
 // SM (U shared across a thread-block cluster), then wgmma.
+//
+// Stages. The kernel takes a compile-time STAGE, the counterpart of
+// perf/winograd_ablate.py::make_kernel(stage): the same code cut short, so that
+// the differences between the stages' times say where the full kernel's time
+// goes. STAGE 3 (`full`) is the kernel above and the only one winograd_conv
+// runs; `if constexpr` keeps every line of the others out of it. Each shorter
+// stage writes something a plain version reproduces
+// (ops/winograd.py::winograd_stage_plain), so that the compiler cannot drop
+// the work and the stage is shown to do what its name says:
+//   0 `dma`        per chunk: the patch as loaded (no transform) and U's chunk
+//                  into shared memory; out[block] = the sum, mod 2^32, of the
+//                  16-bit patterns of every bf16 value the block brought in
+//                  (an integer sum: any order gives it)
+//   1 `transform`  + the bf16 input transform: the same sum over V and U
+//   2 `matmul`     + the 16 products; out (tiles, F) fp32 = M[0], the
+//                  accumulators of position 0
+// Stages 0 and 1 sum each value from the register it is stored from (about
+// 200 integer operations a thread and chunk beside its 24 loads and 24
+// stores), so they make no shared-memory access the full kernel does not.
+// Nothing would then read what they store, and the stores could go: one load
+// at an address the compiler cannot know, under a test that never holds
+// (`relu` is 0 or 1), keeps them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +98,7 @@ constexpr int kVBytes = 16 * kTiles * kVld * 2;
 constexpr int kUBytes = 16 * kChunk * kUld * 2;
 constexpr int kMBytes = 16 * kTiles * kMld * 4;
 constexpr int kSmemBytes = kVBytes + kUBytes > kMBytes ? kVBytes + kUBytes : kMBytes;
+constexpr int kStageDma = 0, kStageTransform = 1, kStageMatmul = 2, kStageFull = 3;
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
@@ -110,7 +133,18 @@ __global__ void weight_transform_kernel(const float* __restrict__ w,
   }
 }
 
-template <typename OutT>
+// sum of the two 16-bit halves of a word, and of each word of a 16-byte vector
+__device__ __forceinline__ unsigned bits_sum(const unsigned w) {
+  return (w & 0xffffu) + (w >> 16);
+}
+__device__ __forceinline__ unsigned bits_sum(const __nv_bfloat162 v) {
+  return bits_sum(*reinterpret_cast<const unsigned*>(&v));
+}
+__device__ __forceinline__ unsigned bits_sum(const uint4 v) {
+  return bits_sum(v.x) + bits_sum(v.y) + bits_sum(v.z) + bits_sum(v.w);
+}
+
+template <typename OutT, int STAGE>
 __global__ void __launch_bounds__(kThreads, 1)
 winograd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ u,
                 const float* __restrict__ bias, OutT* __restrict__ out, int B, int H, int W,
@@ -153,6 +187,7 @@ winograd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
     for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[m][n], 0.f);
 
+  unsigned checksum = 0;  // stages dma and transform only
   const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
   for (int c0 = 0; c0 < C; c0 += kChunk) {
     // V: the 4x4 patch of one tile and channel pair, transformed in bf16
@@ -165,25 +200,38 @@ winograd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
                       ? *reinterpret_cast<const __nv_bfloat162*>(
                             x + (base + ((long long)a * W + b) * C + c0))
                       : zero2;
-    __nv_bfloat162 r[4][4];  // rows: r[a'][b] = sum_a BT[a'][a] d[a][b]
+    if constexpr (STAGE == kStageDma) {  // the patch as it came, in V's layout
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      r[0][b] = __hsub2(d[0][b], d[2][b]);
-      r[1][b] = __hadd2(d[1][b], d[2][b]);
-      r[2][b] = __hsub2(d[2][b], d[1][b]);
-      r[3][b] = __hsub2(d[1][b], d[3][b]);
-    }
+      for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {  // columns: V[a'][b'] = sum_b BT[b'][b] r[a'][b]
-      __nv_bfloat162 v[4];
-      v[0] = __hsub2(r[a][0], r[a][2]);
-      v[1] = __hadd2(r[a][1], r[a][2]);
-      v[2] = __hsub2(r[a][2], r[a][1]);
-      v[3] = __hsub2(r[a][1], r[a][3]);
+        for (int b = 0; b < 4; ++b) {
+          *reinterpret_cast<__nv_bfloat162*>(vs + ((4 * a + b) * kTiles + tl) * kVld + 2 * cp) =
+              d[a][b];
+          checksum += bits_sum(d[a][b]);
+        }
+    } else {
+      __nv_bfloat162 r[4][4];  // rows: r[a'][b] = sum_a BT[a'][a] d[a][b]
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        *reinterpret_cast<__nv_bfloat162*>(vs + ((4 * a + b) * kTiles + tl) * kVld + 2 * cp) =
-            v[b];
+      for (int b = 0; b < 4; ++b) {
+        r[0][b] = __hsub2(d[0][b], d[2][b]);
+        r[1][b] = __hadd2(d[1][b], d[2][b]);
+        r[2][b] = __hsub2(d[2][b], d[1][b]);
+        r[3][b] = __hsub2(d[1][b], d[3][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {  // columns: V[a'][b'] = sum_b BT[b'][b] r[a'][b]
+        __nv_bfloat162 v[4];
+        v[0] = __hsub2(r[a][0], r[a][2]);
+        v[1] = __hadd2(r[a][1], r[a][2]);
+        v[2] = __hsub2(r[a][2], r[a][1]);
+        v[3] = __hsub2(r[a][1], r[a][3]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          *reinterpret_cast<__nv_bfloat162*>(vs + ((4 * a + b) * kTiles + tl) * kVld + 2 * cp) =
+              v[b];
+          if constexpr (STAGE == kStageTransform) checksum += bits_sum(v[b]);
+        }
+      }
     }
     // U: rows (p, c0 + c) of 64 bf16 = 8 x 16 bytes
 #pragma unroll
@@ -194,74 +242,104 @@ winograd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       const uint4 val = *reinterpret_cast<const uint4*>(
           u + ((size_t)p * C + c0 + c) * F + f0 + vec * 8);
       *reinterpret_cast<uint4*>(us + (p * kChunk + c) * kUld + vec * 8) = val;
+      if constexpr (STAGE <= kStageTransform) checksum += bits_sum(val);
     }
     __syncthreads();
 
+    if constexpr (STAGE <= kStageTransform) {
+      // never taken; it keeps the stores above (the note on stages says why)
+      if (relu < 0)
+        checksum += reinterpret_cast<const unsigned*>(smem)[(tid - relu) % (kSmemBytes / 4)];
+    } else {
 #pragma unroll
-    for (int k0 = 0; k0 < kChunk; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
+      for (int k0 = 0; k0 < kChunk; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
-        wmma::load_matrix_sync(af[m], vs + (warp * kTiles + m * 16) * kVld + k0, kVld);
+        for (int m = 0; m < 2; ++m)
+          wmma::load_matrix_sync(af[m], vs + (warp * kTiles + m * 16) * kVld + k0, kVld);
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, us + (warp * kChunk + k0) * kUld + n * 16, kUld);
+        for (int n = 0; n < 4; ++n) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
+          wmma::load_matrix_sync(bf, us + (warp * kChunk + k0) * kUld + n * 16, kUld);
 #pragma unroll
-        for (int m = 0; m < 2; ++m) wmma::mma_sync(acc[m][n], af[m], bf, acc[m][n]);
+          for (int m = 0; m < 2; ++m) wmma::mma_sync(acc[m][n], af[m], bf, acc[m][n]);
+        }
       }
     }
     __syncthreads();  // V and U are free for the next chunk (or for M below)
   }
 
+  if constexpr (STAGE <= kStageTransform) {
+    // one sum per block, in any order: integer adds mod 2^32
+    unsigned* red = reinterpret_cast<unsigned*>(smem);
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(ms + (warp * kTiles + m * 16) * kMld + n * 16, acc[m][n], kMld,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  // output transform, bias, ReLU, cast: four (tile, channel) items a thread
-#pragma unroll
-  for (int it = 0; it < kTiles * kFeat / kThreads; ++it) {
-    const int idx = tid + it * kThreads;
-    const int tile = idx / kFeat, f = idx - tile * kFeat;
-    const int t = tile0 + tile;
-    if (t >= n_tiles) continue;
-    float mm[4][4];
-#pragma unroll
-    for (int p = 0; p < 16; ++p) mm[p >> 2][p & 3] = ms[(p * kTiles + tile) * kMld + f];
-    float t0[4], t1[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      t0[b] = __fadd_rn(__fadd_rn(mm[0][b], mm[1][b]), mm[2][b]);
-      t1[b] = __fsub_rn(__fsub_rn(mm[1][b], mm[2][b]), mm[3][b]);
+    for (int o = 16; o > 0; o >>= 1) checksum += __shfl_xor_sync(0xffffffffu, checksum, o);
+    if ((tid & 31) == 0) red[warp] = checksum;
+    __syncthreads();
+    if (tid == 0) {
+      unsigned total = 0;
+      for (int i = 0; i < kThreads / 32; ++i) total += red[i];
+      out[blockIdx.x] = total;
     }
-    const float bv = bias[f0 + f];
-    float y[2][2];
-    y[0][0] = __fadd_rn(__fadd_rn(__fadd_rn(t0[0], t0[1]), t0[2]), bv);
-    y[0][1] = __fadd_rn(__fsub_rn(__fsub_rn(t0[1], t0[2]), t0[3]), bv);
-    y[1][0] = __fadd_rn(__fadd_rn(__fadd_rn(t1[0], t1[1]), t1[2]), bv);
-    y[1][1] = __fadd_rn(__fsub_rn(__fsub_rn(t1[1], t1[2]), t1[3]), bv);
-    const int n = t / per_image, r = t - n * per_image, i = r / tw, j = r - i * tw;
+  } else {
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int row = 2 * i + a, col = 2 * j + b;
-        if (row < H && col < W) {
-          const float v = relu ? fmaxf(y[a][b], 0.f) : y[a][b];
-          store_out(out + (((size_t)n * H + row) * W + col) * F + f0 + f, v);
-        }
+      for (int n = 0; n < 4; ++n)
+        wmma::store_matrix_sync(ms + (warp * kTiles + m * 16) * kMld + n * 16, acc[m][n], kMld,
+                                wmma::mem_row_major);
+    __syncthreads();
+    if constexpr (STAGE == kStageMatmul) {  // M[0] as it is, rows past the last tile masked
+#pragma unroll
+      for (int it = 0; it < kTiles * kFeat / kThreads; ++it) {
+        const int idx = tid + it * kThreads;
+        const int tile = idx / kFeat, f = idx - tile * kFeat;
+        if (tile0 + tile < n_tiles)
+          out[(size_t)(tile0 + tile) * F + f0 + f] = ms[tile * kMld + f];
       }
+    } else {
+      // output transform, bias, ReLU, cast: four (tile, channel) items a thread
+#pragma unroll
+      for (int it = 0; it < kTiles * kFeat / kThreads; ++it) {
+        const int idx = tid + it * kThreads;
+        const int tile = idx / kFeat, f = idx - tile * kFeat;
+        const int t = tile0 + tile;
+        if (t >= n_tiles) continue;
+        float mm[4][4];
+#pragma unroll
+        for (int p = 0; p < 16; ++p) mm[p >> 2][p & 3] = ms[(p * kTiles + tile) * kMld + f];
+        float t0[4], t1[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          t0[b] = __fadd_rn(__fadd_rn(mm[0][b], mm[1][b]), mm[2][b]);
+          t1[b] = __fsub_rn(__fsub_rn(mm[1][b], mm[2][b]), mm[3][b]);
+        }
+        const float bv = bias[f0 + f];
+        float y[2][2];
+        y[0][0] = __fadd_rn(__fadd_rn(__fadd_rn(t0[0], t0[1]), t0[2]), bv);
+        y[0][1] = __fadd_rn(__fsub_rn(__fsub_rn(t0[1], t0[2]), t0[3]), bv);
+        y[1][0] = __fadd_rn(__fadd_rn(__fadd_rn(t1[0], t1[1]), t1[2]), bv);
+        y[1][1] = __fadd_rn(__fsub_rn(__fsub_rn(t1[1], t1[2]), t1[3]), bv);
+        const int n = t / per_image, r = t - n * per_image, i = r / tw, j = r - i * tw;
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int row = 2 * i + a, col = 2 * j + b;
+            if (row < H && col < W) {
+              const float v = relu ? fmaxf(y[a][b], 0.f) : y[a][b];
+              store_out(out + (((size_t)n * H + row) * W + col) * F + f0 + f, v);
+            }
+          }
+      }
+    }
   }
 }
 
-template <typename OutT>
+template <typename OutT, int STAGE = kStageFull>
 int launch(const void* x, const void* u, const void* bias, void* out, int B, int H, int W, int C,
            int F, int relu, cudaStream_t s) {
-  auto kernel = winograd_kernel<OutT>;
+  auto kernel = winograd_kernel<OutT, STAGE>;
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       kSmemBytes);
   if (err) return err;
@@ -302,6 +380,25 @@ int scl_winograd_conv(const void* x, const void* u, const void* bias, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_bf16 ? launch<__nv_bfloat16>(x, u, bias, out, B, H, W, C, F, relu, s)
                   : launch<float>(x, u, bias, out, B, H, W, C, F, relu, s);
+}
+
+// The kernel cut short at `stage` (0 dma, 1 transform, 2 matmul; the source
+// note says what each writes): x and u as for scl_winograd_conv; out is one
+// uint32 per block, (ceil(tiles / block_tiles) * F / block_features), for
+// stages 0 and 1, and (tiles, F) fp32 for stage 2. Returns cudaGetLastError()
+// of the launch, else 0; cudaErrorInvalidValue for another stage.
+int scl_winograd_stage(int stage, const void* x, const void* u, void* out, int B, int H, int W,
+                       int C, int F, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case kStageDma:
+      return launch<unsigned, kStageDma>(x, u, nullptr, out, B, H, W, C, F, 0, s);
+    case kStageTransform:
+      return launch<unsigned, kStageTransform>(x, u, nullptr, out, B, H, W, C, F, 0, s);
+    case kStageMatmul:
+      return launch<float, kStageMatmul>(x, u, nullptr, out, B, H, W, C, F, 0, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

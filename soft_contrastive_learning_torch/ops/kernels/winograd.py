@@ -15,6 +15,10 @@ padded copy of x.
 
 The plain version is ``ops/winograd.py::winograd_conv_plain``: the CPU path
 of the wrapper and what ``chip_smoke.py`` holds the kernel against.
+``winograd_stage`` runs the same kernel cut short at a stage (``dma``,
+``transform``, ``matmul``; ``full`` is ``winograd_conv_cuda``), the
+counterpart of ``perf/winograd_ablate.py::make_kernel(stage)``; its plain
+version is ``ops/winograd.py::winograd_stage_plain``.
 ``WinogradConvFn`` keeps the JAX split: K4 forward, and backward the
 gradients of the direct convolution with both operands in the compute type
 (cuDNN, as the JAX backward is XLA's convolution transpose).
@@ -30,7 +34,11 @@ import torch.nn.functional as F
 
 from soft_contrastive_learning_torch.ops.kernels import _build
 from soft_contrastive_learning_torch.ops.kernels._autograd import refuse_graph
-from soft_contrastive_learning_torch.ops.winograd import winograd_conv_plain
+from soft_contrastive_learning_torch.ops.winograd import (
+    stage_index,
+    winograd_conv_plain,
+    winograd_stage_plain,
+)
 
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -42,6 +50,9 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.scl_winograd_weight_transform
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.scl_winograd_stage
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name in ("scl_winograd_chunk_channels", "scl_winograd_block_features",
                  "scl_winograd_block_tiles"):
@@ -70,6 +81,28 @@ def weight_transform_cuda(weight: torch.Tensor) -> torch.Tensor:
     return u
 
 
+def _check_launch(what: str, lib: ctypes.CDLL, x: torch.Tensor, weight: torch.Tensor):
+    """Raise on what the kernel does not take; returns (tile blocks, feature
+    blocks) of the grid."""
+    if x.ndim != 4 or weight.ndim != 4 or weight.shape[1:] != (x.shape[-1], 3, 3):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)} (NHWC), weight "
+                         f"{tuple(weight.shape)} (OIHW 3x3)")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} takes an NHWC-contiguous x (for an NCHW channels_last tensor "
+                         "pass its permute(0, 2, 3, 1) view)")
+    b, h, w, c = x.shape
+    f = weight.shape[0]
+    chunk, feat, tiles = (lib.scl_winograd_chunk_channels(), lib.scl_winograd_block_features(),
+                          lib.scl_winograd_block_tiles())
+    if c % chunk or f % feat:
+        raise ValueError(f"{what} needs C % {chunk} == 0 and F % {feat} == 0; got C={c}, F={f}")
+    n_tiles = b * -(-h // 2) * -(-w // 2)
+    if not 0 < -(-n_tiles // tiles) * (f // feat) < 2**31:
+        raise ValueError(f"{what} takes a non-empty input of fewer than 2^31 blocks; got "
+                         f"x {tuple(x.shape)}, F={f}")
+    return -(-n_tiles // tiles), f // feat
+
+
 def winograd_conv_cuda(
     x: torch.Tensor,  # (B, H, W, C) NHWC-contiguous, bf16 or fp32
     weight: torch.Tensor,  # (F, C, 3, 3) OIHW, the Conv2d parameter
@@ -88,27 +121,16 @@ def winograd_conv_cuda(
     if x.device.type != "cuda" or {weight.device, bias.device} != {x.device}:
         raise ValueError(f"winograd_conv_cuda: x on {x.device}, weight on {weight.device}, "
                          f"bias on {bias.device}")
-    if x.ndim != 4 or weight.ndim != 4 or weight.shape[1:] != (x.shape[-1], 3, 3) \
-            or bias.shape != (weight.shape[0],):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)} (NHWC), weight "
-                         f"{tuple(weight.shape)} (OIHW 3x3), bias {tuple(bias.shape)}")
+    if tuple(bias.shape) != (weight.shape[0],):
+        raise ValueError(f"shape mismatch: weight {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)}")
     if x.dtype not in _OUT_DTYPES or out_dtype not in _OUT_DTYPES:
         raise TypeError(f"K4 takes bfloat16 or float32 x and output, got {x.dtype} -> "
                         f"{out_dtype}")
-    if not x.is_contiguous():
-        raise ValueError("K4 takes an NHWC-contiguous x (for an NCHW channels_last tensor "
-                         "pass its permute(0, 2, 3, 1) view)")
+    lib = _lib()
+    _check_launch("K4", lib, x, weight)
     b, h, w, c = x.shape
     f = weight.shape[0]
-    lib = _lib()
-    chunk, feat, tiles = (lib.scl_winograd_chunk_channels(), lib.scl_winograd_block_features(),
-                          lib.scl_winograd_block_tiles())
-    if c % chunk or f % feat:
-        raise ValueError(f"K4 needs C % {chunk} == 0 and F % {feat} == 0; got C={c}, F={f}")
-    n_tiles = b * -(-h // 2) * -(-w // 2)
-    if not 0 < -(-n_tiles // tiles) * (f // feat) < 2**31:
-        raise ValueError(f"K4 takes a non-empty input of fewer than 2^31 blocks; got "
-                         f"x {tuple(x.shape)}, F={f}")
     xb = x.to(torch.bfloat16)  # no copy when x is bf16 already
     u = weight_transform_cuda(weight)
     bias32 = bias.float().contiguous()
@@ -124,6 +146,46 @@ def winograd_conv_cuda(
 
 
 winograd_conv_cuda.launches = 0
+
+
+def winograd_stage(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, relu: bool = False,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K4 cut short at ``stage`` (0 ``dma``, 1 ``transform``, 2 ``matmul``,
+    3 ``full``; ``winograd_stage_plain`` says what each returns) for CUDA
+    tensors, the plain version for CPU tensors. ``full`` is
+    ``winograd_conv_cuda`` itself and counts as its launch; the shorter
+    stages count on ``winograd_stage.launches``."""
+    stage = stage_index(stage)
+    if stage == 3:
+        if bias is None:
+            raise ValueError("the full stage needs a bias")
+        return winograd_conv_cuda(x, weight, bias, relu=relu, out_dtype=out_dtype)
+    if x.device.type == "cpu":
+        return winograd_stage_plain(stage, x, weight)
+    if x.device.type != "cuda" or weight.device != x.device:
+        raise ValueError(f"winograd_stage: x on {x.device}, weight on {weight.device}")
+    if x.dtype not in _OUT_DTYPES:
+        raise TypeError(f"winograd_stage takes bfloat16 or float32 x, got {x.dtype}")
+    lib = _lib()
+    tile_blocks, feature_blocks = _check_launch("winograd_stage", lib, x, weight)
+    b, h, w, c = x.shape
+    f = weight.shape[0]
+    xb = x.to(torch.bfloat16)
+    u = weight_transform_cuda(weight)
+    if stage == 2:
+        out = torch.empty((b * -(-h // 2) * -(-w // 2), f), dtype=torch.float32, device=x.device)
+    else:  # one uint32 per block, carried in an int32 tensor
+        out = torch.empty((tile_blocks, feature_blocks), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.scl_winograd_stage(stage, xb.data_ptr(), u.data_ptr(), out.data_ptr(), b, h, w,
+                                     c, f, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "winograd_stage")
+    winograd_stage.launches += 1
+    return out if stage == 2 else out.to(torch.int64) & 0xFFFFFFFF
+
+
+winograd_stage.launches = 0
 
 
 def direct_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -22,6 +22,10 @@ Two functions compute the convolution:
   add, fp32 sums of the products, an fp32 output transform, bias and ReLU
   in fp32, then the cast. The CPU path of the kernel's wrapper and what the
   kernel is held against on the card.
+
+``winograd_stage_plain`` is the plain version of that kernel cut short at a
+stage (``dma``, ``transform``, ``matmul``, ``full``), which the ablation
+script ``soft_contrastive_learning_torch/perf/winograd_ablate.py`` times.
 """
 
 from __future__ import annotations
@@ -141,3 +145,64 @@ def winograd_conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     if relu:
         y = torch.clamp(y, min=0.0)
     return y.to(out_dtype)
+
+
+STAGES = ("dma", "transform", "matmul", "full")
+
+
+def stage_index(stage: int | str) -> int:
+    """0..3 from a stage's number or name."""
+    if isinstance(stage, str):
+        if stage not in STAGES:
+            raise ValueError(f"unknown stage {stage!r}; expected one of {STAGES}")
+        return STAGES.index(stage)
+    if not 0 <= int(stage) < len(STAGES):
+        raise ValueError(f"stage {stage} outside 0..{len(STAGES) - 1}")
+    return int(stage)
+
+
+def _bits_sum(t: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    """The sum over ``dims`` of the 16-bit patterns of a bf16 tensor, int64."""
+    return (t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF).sum(dims)
+
+
+def winograd_stage_plain(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, relu: bool = False,
+                         out_dtype: Optional[torch.dtype] = None, block_tiles: int = 32,
+                         block_features: int = 64) -> torch.Tensor:
+    """What the fused kernel writes when it is cut short at ``stage``, built
+    from the pieces of ``winograd_conv_plain``. A block of the kernel owns
+    ``block_tiles`` consecutive 2x2 output tiles (row-major over (n, i, j))
+    and ``block_features`` output channels.
+
+    * 0 ``dma``: (tile blocks, F / block_features) int64: the sum, mod 2^32,
+      of the 16-bit patterns of every bf16 value the block brings into shared
+      memory: its tiles' 4x4 patches over all channels (the zero halo counts
+      0) and U's rows for its channels.
+    * 1 ``transform``: the same with the patches transformed, V = B^T d B in
+      bf16.
+    * 2 ``matmul``: (tiles, F) fp32: ``M[0] = V[0] @ U[0]``, the products of
+      position 0.
+    * 3 ``full``: ``winograd_conv_plain`` (needs ``bias``).
+    """
+    stage = stage_index(stage)
+    _check(x, weight, bias)
+    if stage == 3:
+        if bias is None:
+            raise ValueError("the full stage needs a bias")
+        return winograd_conv_plain(x, weight, bias, relu=relu, out_dtype=out_dtype)
+    n, _, _, c = x.shape
+    f = weight.shape[0]
+    if f % block_features:
+        raise ValueError(f"F={f} is not a multiple of block_features={block_features}")
+    d, th, tw = _tiles(x.to(torch.bfloat16))
+    u = weight_transform(weight).to(torch.bfloat16)
+    values = [t for row in d for t in row] if stage == 0 else _input_transform(d)
+    if stage == 2:
+        return (values[0].reshape(n * th * tw, c).float() @ u[0].float())
+    per_tile = sum(_bits_sum(t, (-1,)) for t in values).reshape(-1)  # (tiles,)
+    blocks = -(-len(per_tile) // block_tiles)
+    per_tile = F.pad(per_tile, (0, blocks * block_tiles - len(per_tile)))
+    per_block = per_tile.reshape(blocks, block_tiles).sum(1)
+    per_features = _bits_sum(u, (0, 1)).reshape(f // block_features, block_features).sum(1)
+    return (per_block[:, None] + per_features[None, :]) & 0xFFFFFFFF

@@ -23,9 +23,16 @@ and ``metrics_local.jsonl``. They draw from ``eval_rng``, a stream of its
 own, so the training draws are the same with or without them. As in the
 JAX loop there is no eval at an epoch's end.
 
-Not in this slice: checkpoints. Where the JAX loop writes them (the rolling
-one inside each eval, a part every ``save_step`` and one at each epoch's
-end), the port logs one line naming the slice that brings them.
+Checkpoints (``checkpoints/manager.py``) are written where the JAX loop
+writes them: the rolling one inside each eval, before the evals; a part one
+every ``save_step`` anchors; one at each epoch's end. Each holds the model,
+the optimizer, the step and ``_extras()``: the generator states and the
+position inside the epoch. ``resume_latest`` takes a run up again from one:
+at the next epoch after an epoch checkpoint, else inside the segment that
+was running, whose child generator is seeded again from the saved pre-draw
+state and run forward over the batches already trained. The losses still on
+the card when a save fires are fetched and written first, so a resumed run's
+``metrics_local.jsonl`` goes on without a gap or a repeat.
 """
 
 from __future__ import annotations
@@ -36,6 +43,11 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from soft_contrastive_learning_torch.checkpoints.manager import (
+    RunCheckpoints,
+    numpy_rng_from_array,
+    numpy_rng_to_array,
+)
 from soft_contrastive_learning_torch.core.config import TrainConfig, resolve_device
 from soft_contrastive_learning_torch.core.logging import MetricsWriter, RunLogger
 from soft_contrastive_learning_torch.data.device_pool import build_pool
@@ -56,9 +68,6 @@ from soft_contrastive_learning_torch.train.step import (
     init_train_state,
 )
 from soft_contrastive_learning_torch.utils.meta import get_xy, get_yaw, image_keys
-
-SAVE_LATER = ("checkpoints (checkpoints/manager.py) come with a later slice of the "
-              "port; no '{}' checkpoint at step {}")
 
 
 class Trainer:
@@ -81,6 +90,7 @@ class Trainer:
         self.log = RunLogger(self.out_dir)
         self.writers = {"local": MetricsWriter(self.out_dir, "local"),
                         "other": MetricsWriter(self.out_dir, "other")}
+        self.ckpts = RunCheckpoints(self.out_dir, max_to_keep=cfg.max_to_keep)
 
         model = EmbeddingNet(cfg.model)
         model.load_state_dict(params if params is not None else init_params(cfg.model, cfg.seed))
@@ -102,6 +112,10 @@ class Trainer:
         # draws do not depend on whether or when they fire
         self.eval_rng = np.random.default_rng(cfg.seed + 1)
         self.global_step = 0
+        self.start_epoch = 0
+        self._current_epoch = 0
+        self._seg_ctx = None  # the running segment's position, for mid-epoch checkpoints
+        self._resume_ctx = None  # set by resume_latest for the first epoch
         self.used_images: set = set()
 
     # ------------------------------------------------------------ helpers
@@ -156,14 +170,42 @@ class Trainer:
 
     # ------------------------------------------------------------ training
     def train(self) -> None:
-        for epoch in range(self.cfg.max_epoch):
+        for epoch in range(self.start_epoch, self.cfg.max_epoch):
             self.log(f"**** EPOCH {epoch} ****")
             self.used_images.clear()
-            self.train_one_epoch(epoch)
-            self.log(SAVE_LATER.format("epoch", self.global_step))
+            self.train_one_epoch(epoch, resume_ctx=self._resume_ctx)
+            self._resume_ctx = None
+            self._current_epoch = epoch + 1  # an epoch checkpoint resumes AFTER it
+            self.ckpts.save("epoch", epoch, self.state, self._extras())
+        self.ckpts.wait()
 
-    def train_one_epoch(self, epoch: int) -> None:
+    def _extras(self) -> dict:
+        """The host state beside the model and optimizer: the generators and
+        the position. Each segment draws from a child generator seeded by a
+        draw from ``self.rng``; inside a segment the state BEFORE that draw
+        is saved with the segment's first step and the number of batches
+        consumed, so that a resume seeds the identical child and runs it
+        forward to the exact step. Scope of exactness, as in the JAX
+        trainer: the replayed draws are the same bits, so resumed equals
+        uninterrupted whenever the hard-example picks are unchanged by the
+        rebuilt mining cache: always with hard mining off. The rebuilt cache
+        is embedded with the restored (slightly later) weights; where its
+        neighbour order differs from the original cache's, hard picks can
+        differ. Saving the cache's features would close that and is not
+        done (131 MB at the flagship's size)."""
+        ctx = self._seg_ctx
+        return {
+            "sampler_rng": ctx["pre_spawn"] if ctx is not None else numpy_rng_to_array(self.rng),
+            "eval_rng": numpy_rng_to_array(self.eval_rng),
+            "epoch": int(self._current_epoch),
+            "seg_step0": int(ctx["seg_step0"]) if ctx is not None else -1,
+            "consumed": int(ctx["consumed"]) if ctx is not None else 0,
+            "mining_count": int(ctx["mining_count"]) if ctx is not None else 0,
+        }
+
+    def train_one_epoch(self, epoch: int, resume_ctx: Optional[dict] = None) -> None:
         cfg = self.cfg
+        self._current_epoch = epoch
         meta = self.source.epoch_meta(cfg.local_ref_set, epoch)
         self._ensure_image_pool(meta)
         anchor_indices = np.asarray(
@@ -172,35 +214,77 @@ class Trainer:
         boundary = steps % cfg.mining_step == 0
         mining_count = 0
         seg_start = 0
+        # Mid-epoch resume: go straight to the checkpointed segment, drawing no
+        # seeds for the skipped ones (self.rng was restored to the state
+        # before the draw OF that segment).
+        resume_step0 = int(resume_ctx["seg_step0"]) if resume_ctx else -1
+        skip = int(resume_ctx["consumed"]) if resume_ctx else 0
+        suppress_first = resume_ctx is not None
+        if resume_step0 >= 0:
+            mining_count = int(resume_ctx["mining_count"])
+            # its segment starts at the last boundary at or before that step
+            starts = np.flatnonzero(boundary & (steps <= resume_step0))
+            seg_start = int(starts[-1]) if len(starts) else 0
+            self.log(f"Resuming epoch {epoch} at segment step {int(steps[seg_start])}, "
+                     f"skipping {skip} consumed batches")
         while seg_start < len(steps):
             if boundary[seg_start]:
+                # on a resume this rebuilds the cache with the restored weights
                 self.log("Caching features for hard negative mining.")
                 self.mining.refresh(epoch, int(steps[seg_start]), mining_count, meta,
                                     anchor_indices)
                 mining_count += 1
             later = np.flatnonzero(boundary[seg_start + 1 :])
             seg_end = seg_start + 1 + (int(later[0]) if len(later) else len(steps))
-            # the segment's generator is seeded by a draw, as the JAX trainer does
+            seg_steps = steps[seg_start:seg_end]
+            # The segment's generator is seeded by a DRAW, as the JAX trainer
+            # does (not Generator.spawn, whose child counter is no part of the
+            # bit generator's state and would not survive a checkpoint).
+            pre_spawn = numpy_rng_to_array(self.rng)
             seg_rng = np.random.default_rng(int(self.rng.integers(np.iinfo(np.int64).max)))
-            self._run_segment(epoch, steps[seg_start:seg_end], anchor_indices, meta,
-                              self._sampler_for(meta, rng=seg_rng))
+            sampler = self._sampler_for(meta, rng=seg_rng)
+            self._seg_ctx = {
+                "pre_spawn": pre_spawn, "seg_step0": int(steps[seg_start]), "consumed": 0,
+                "mining_count": mining_count - 1 if boundary[seg_start] else mining_count}
+            # the batches already trained: draw their samples again (no image
+            # is loaded, no step taken), so that the child generator advances
+            # as it did
+            offset = min(skip, len(seg_steps))
+            for s in map(int, seg_steps[:offset]):
+                self._sample(sampler, anchor_indices, s)
+            skip = 0
+            suppress_first = self._run_segment(epoch, seg_steps, anchor_indices, meta, sampler,
+                                               offset, suppress_first)
             seg_start = seg_end
+        self._seg_ctx = None
 
-    def _run_segment(self, epoch: int, seg_steps, anchor_indices, meta,
-                     sampler: TupleSampler) -> None:
+    def _sample(self, sampler: TupleSampler, anchor_indices, s: int):
+        cfg = self.cfg
+        anchors = anchor_indices[s : s + cfg.tuples_per_batch]
+        if len(anchors) < cfg.tuples_per_batch:
+            anchors = pad_to_multiple(anchors, cfg.tuples_per_batch)
+        return sampler.sample(anchors, use_hard=True, cache=self.mining_cache)
+
+    def _run_segment(self, epoch: int, seg_steps, anchor_indices, meta, sampler: TupleSampler,
+                     offset: int = 0, suppress_first: bool = False) -> bool:
+        """The segment's steps from item ``offset`` on. ``suppress_first``
+        holds back the first item's eval and part save: after a resume they
+        fired at the saved step already. Returns the flag for the next
+        segment (False once an item was reached)."""
         cfg = self.cfg
         pool_rows = self._pool_rows
         records = []  # (global_step, device loss, lr)
-        for s in map(int, seg_steps):
-            if s % cfg.eval_step == 0:
+        for i in range(offset, len(seg_steps)):
+            s = int(seg_steps[i])
+            self._seg_ctx["consumed"] = i  # items behind us; a resume trains this one
+            side_effects, suppress_first = not suppress_first, False
+            if side_effects and s % cfg.eval_step == 0:
                 self._write_train_metrics(records)
                 self._run_eval(epoch, s // max(cfg.eval_step, 1))
-            if s % cfg.save_step == 0:
-                self.log(SAVE_LATER.format("part", self.global_step))
-            anchors = anchor_indices[s : s + cfg.tuples_per_batch]
-            if len(anchors) < cfg.tuples_per_batch:
-                anchors = pad_to_multiple(anchors, cfg.tuples_per_batch)
-            sample = sampler.sample(anchors, use_hard=True, cache=self.mining_cache)
+            if side_effects and s % cfg.save_step == 0:
+                self._write_train_metrics(records)
+                self.ckpts.save("part", self.global_step, self.state, self._extras())
+            sample = self._sample(sampler, anchor_indices, s)
             if sample is None:
                 self.log("Faulty training batch... skipping.")
                 continue
@@ -216,7 +300,9 @@ class Trainer:
             self.used_images.update(sample.used_indices)
             self.global_step += 1
             records.append((self.global_step, metrics["loss"], metrics["learning_rate"]))
+        self._seg_ctx["consumed"] = len(seg_steps)
         self._write_train_metrics(records)
+        return suppress_first
 
     def _write_train_metrics(self, records: list) -> None:
         """Fetch the pending steps' losses in one device-to-host transfer,
@@ -234,12 +320,34 @@ class Trainer:
         and indexes the rolling windows of eval queries."""
         self.log("EVALUATING")
         gs = self.global_step
-        self.log(SAVE_LATER.format("rolling", gs))
+        self.ckpts.save("rolling", gs, self.state, self._extras())
         self.evals.loss_other(epoch, gs, eval_ordinal)
         self.evals.localization(epoch, gs, self.cfg.other_ref_set, self.cfg.other_query_set,
                                 "other", eval_ordinal)
         self.evals.localization(epoch, gs, self.cfg.local_ref_set, self.cfg.local_query_set,
                                 "local", eval_ordinal)
 
+    # ------------------------------------------------------------ resume
+    def resume_latest(self, role: str = "rolling") -> bool:
+        """Take up the newest ``role`` checkpoint of this run directory:
+        model, optimizer, step, generators and position. False when there
+        is none."""
+        step = self.ckpts.latest(role)
+        if step is None:
+            return False
+        self.state, extras = self.ckpts.restore(role, step, self.state)
+        if extras is not None:
+            self.rng = numpy_rng_from_array(extras["sampler_rng"])
+            self.eval_rng = numpy_rng_from_array(extras["eval_rng"])
+            self.start_epoch = self._current_epoch = int(extras["epoch"])
+            if int(extras["seg_step0"]) >= 0:
+                self._resume_ctx = {key: int(extras[key])
+                                    for key in ("seg_step0", "consumed", "mining_count")}
+        self.global_step = int(self.state.step)
+        self.log(f"Resumed from {role}@{step}")
+        return True
+
     def close(self) -> None:
+        self.ckpts.wait()
+        self.ckpts.close()
         self.log.close()

@@ -23,16 +23,26 @@ from soft_contrastive_learning_torch.ops.kernels.netvlad import (
     netvlad_aggregate_cuda,
     vlad_aggregate,
 )
+from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
+    CONFIGS,
+    probe_gemm,
+    probe_gemm_plain,
+)
 from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda, topk_l2_stream_plain
 from soft_contrastive_learning_torch.ops.kernels.winograd import (
     WinogradConvFn,
     direct_conv,
     weight_transform_cuda,
     winograd_conv_cuda,
+    winograd_stage,
 )
 from soft_contrastive_learning_torch.ops.kernels.wms import wms_loss_cuda, wms_loss_fused
 from soft_contrastive_learning_torch.ops.topk import topk_l2_streamed
-from soft_contrastive_learning_torch.ops.winograd import weight_transform, winograd_conv_plain
+from soft_contrastive_learning_torch.ops.winograd import (
+    weight_transform,
+    winograd_conv_plain,
+    winograd_stage_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -336,3 +346,87 @@ def test_model_winograd_configuration_runs_k4(cuda):
             outs.append(model.to(cuda).eval()(imgs)[1])
     assert winograd_conv_cuda.launches == before + 10
     assert ((outs[0] * outs[1]).sum(1) >= 0.999).all()
+
+
+def _gemm_operands(device, shape_a, shape_b, dtype, exact):
+    """Seeded operands: int8 values, or bf16 multiples of 1/8 in [-1, 1]
+    (every product and partial sum exact in fp32), or bf16 normals."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape_a) + sum(shape_b))
+    if dtype == torch.int8:
+        return tuple(torch.randint(-127, 128, sh, generator=gen, device=device, dtype=torch.int8)
+                     for sh in (shape_a, shape_b))
+    if exact:
+        return tuple((torch.randint(-8, 9, sh, generator=gen, device=device).float() / 8)
+                     .bfloat16() for sh in (shape_a, shape_b))
+    return tuple(torch.randn(sh, generator=gen, device=device).bfloat16()
+                 for sh in (shape_a, shape_b))
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [(torch.bfloat16, torch.float32),
+                                                (torch.bfloat16, torch.bfloat16),
+                                                (torch.int8, torch.int32)])
+@pytest.mark.parametrize("shape_a,shape_b", [((512, 256), (256, 256)),       # every tile shape
+                                             ((16, 240, 128), (16, 128, 128)),  # ragged, batched
+                                             ((3, 1000, 192), (3, 192, 320))])
+def test_probe_gemm_is_bit_equal_to_plain_on_exact_operands(cuda, in_dtype, out_dtype, shape_a,
+                                                            shape_b):
+    """Whatever the order of the K loop, exact sums give the same bits: each
+    type pair at every tile shape that divides N and K, rows past M masked."""
+    a, b = _gemm_operands(cuda, shape_a, shape_b, in_dtype, exact=True)
+    want = probe_gemm_plain(a, b, out_dtype)
+    fits = [i for i, (_, bn, bk) in enumerate(CONFIGS)
+            if shape_b[-1] % bn == 0 and shape_b[-2] % bk == 0]
+    assert fits
+    for config in [None] + fits:
+        before = probe_gemm.launches
+        got = probe_gemm(a, b, out_dtype, config)
+        torch.cuda.synchronize()
+        assert probe_gemm.launches == before + 1
+        assert got.dtype == out_dtype and torch.equal(got, want), config
+
+
+def test_probe_gemm_on_normals_and_what_it_refuses(cuda):
+    """fp32 results within 1e-3 sqrt(K) max|a| max|b| of the plain version
+    (two fp32 summation orders); bf16 results within one bf16 step or, near
+    zero, twice the fp32 results' own difference."""
+    a, b = _gemm_operands(cuda, (1024, 512), (512, 384), torch.bfloat16, exact=False)
+    want = probe_gemm_plain(a, b, torch.float32)
+    got = probe_gemm(a, b, torch.float32)
+    e = (got - want).abs().max().item()
+    assert e <= 1e-3 * 512 ** 0.5 * a.float().abs().max().item() * b.float().abs().max().item()
+    w16 = probe_gemm_plain(a, b, torch.bfloat16).float()
+    step = torch.ldexp(torch.ones_like(w16), torch.frexp(w16.abs().clamp_min(1e-30))[1] - 8)
+    diff = (probe_gemm(a, b, torch.bfloat16).float() - w16).abs()
+    assert (diff <= torch.clamp(step, min=2 * e)).all()
+    with pytest.raises(ValueError, match="N % 256"):
+        probe_gemm(a, b, torch.float32, config=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_gemm(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="b on"):
+        probe_gemm(a, b.cpu())
+    with pytest.raises(TypeError, match="bfloat16 or int8"):
+        probe_gemm(a.half(), b.half())
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [(2, 11, 15, 256, 128), (50, 22, 30, 512, 512)])
+def test_winograd_stages_match_their_plain_versions(cuda, b, h, w, c, f):
+    """``dma`` and ``transform``: integer checksums, equal. ``matmul``:
+    within 1e-4 of the largest entry (two fp32 summation orders). ``full``:
+    K4 itself, the same bits as ``winograd_conv_cuda``. The second shape
+    ends in a ragged block of tiles."""
+    x, weight, bias = _conv_inputs(cuda, b, h, w, c, f)
+    for stage in ("dma", "transform"):
+        before = winograd_stage.launches
+        got = winograd_stage(stage, x, weight)
+        torch.cuda.synchronize()
+        assert winograd_stage.launches == before + 1
+        assert torch.equal(got, winograd_stage_plain(stage, x, weight)), stage
+    got, want = winograd_stage("matmul", x, weight), winograd_stage_plain("matmul", x, weight)
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    before = (winograd_stage.launches, winograd_conv_cuda.launches)
+    full = winograd_stage("full", x, weight, bias, relu=True)
+    assert (winograd_stage.launches, winograd_conv_cuda.launches) == (before[0], before[1] + 1)
+    assert torch.equal(full, winograd_conv_cuda(x, weight, bias, relu=True))
+    with pytest.raises(ValueError, match="C % 32"):
+        winograd_stage(0, x[..., :24].contiguous(), weight[:, :24].contiguous())

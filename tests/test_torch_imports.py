@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it, or chip_smoke.py, pulls in no
-JAX and nothing of soft_contrastive_learning_tpu, and no scikit-learn or
+"""The PyTorch port stands alone: importing it (the probe scripts and the
+checkpoint manager included), or chip_smoke.py, pulls in no JAX, flax, optax
+or orbax and nothing of soft_contrastive_learning_tpu, and no scikit-learn or
 OpenCV (not dependencies of the port: a GPU host need not have them); its
 kernels build only from its own CUDA sources."""
 
@@ -14,7 +15,7 @@ from soft_contrastive_learning_torch.ops.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "soft_contrastive_learning_torch"
-FORBIDDEN = ("jax", "flax", "optax", "soft_contrastive_learning_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "soft_contrastive_learning_tpu")
 # not dependencies of the port: importing it must not load them (cv2
 # is imported inside the few functions that decode or resize an image)
 NOT_DEPENDENCIES = ("sklearn", "cv2")
@@ -58,7 +59,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 
 def test_every_kernel_source_exports_its_c_entry_points():
     names = _build.kernel_names()
-    assert names == ["netvlad", "topk", "winograd", "wms"]
+    assert names == ["netvlad", "probe_gemm", "topk", "winograd", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
     assert "int scl_topk_l2(" in text["topk"] and "scl_topk_chunk_rows" in text["topk"]
@@ -69,6 +70,15 @@ def test_every_kernel_source_exports_its_c_entry_points():
     # its input transform rounds in bf16 at every add
     assert "mma_sync" in text["winograd"] and "__hsub2" in text["winograd"]
     assert not any(lib in text["winograd"] for lib in ("cublas", "cudnn", "cutlass"))
+    # the Winograd stages are instantiations of K4's own kernel, not a second one
+    assert "int scl_winograd_stage(" in text["winograd"]
+    assert text["winograd"].count("__global__") == 2  # the weight transform and K4
+    assert "if constexpr (STAGE" in text["winograd"]
+    # the probes' product is the kernel's own mma, bf16 and int8, fed by cp.async
+    gemm = text["probe_gemm"]
+    assert "int scl_probe_gemm(" in gemm and "mma_sync" in gemm and "cp.async" in gemm
+    assert "signed char" in gemm and "__nv_bfloat16" in gemm
+    assert not any(lib in gemm.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
     assert all("scl_cuda_error_string" in t for t in text.values())
 
 
