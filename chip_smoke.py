@@ -9,7 +9,11 @@ nothing of JAX or of soft_contrastive_learning_tpu. Phases, each fatal on
 failure:
 
 1. build every kernel under soft_contrastive_learning_torch/ops/kernels/csrc
-   with nvcc, one process per source, all at once;
+   with nvcc, one process per source, all at once; print each kernel
+   function's registers, spills and static shared memory (ptxas), the
+   probe tiles' and K4's dynamic shared memory and K4's cluster size, and
+   (where cuobjdump is present) the wgmma (HGMMA) and TMA-load (UTMALDG)
+   instructions in each library, which probe_gemm and winograd must hold;
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation) against its plain version at B=64, N=165,
    D=512, K=64, with fp32 and with bf16 logits;
@@ -38,7 +42,8 @@ failure:
    bf16 conv at B=50 (conv4_2 with the fused ReLU, conv2_2 without), within
    0.05 of each gradient's largest entry (the cotangent comes from the
    Winograd forward), and forward + backward timed against plain autograd;
-9. the probes' product kernel (probe_gemm) against its plain version:
+9. the probes' product kernels (probe_gemm: bf16 on wgmma fed by TMA, int8
+   on mma.sync) against their plain version:
    bit-equal on operands whose sums are exact (multiples of 1/8; int8) at
    every problem the probe scripts launch (the resident and blocked shapes
    of perf/mxu_probe.py, (8192, 4096) @ (4096, 8192), the eight of
@@ -123,6 +128,67 @@ def eighths(torch, gen, shape, out=None, rows_per_chunk=2048):
         m = torch.randint(-8, 9, (e - s, shape[1]), generator=gen, device="cuda")
         out[s:e] = m.float() / 8.0
     return out
+
+
+def phase_build(torch, report):
+    """Build every kernel library (one nvcc per source, all at once), then
+    print per kernel function what ptxas said (registers, spills, static
+    shared memory), the dynamic shared memory and cluster of the rebuilt
+    kernels, and, where cuobjdump is present, how many HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions each library's SASS holds: probe_gemm
+    and winograd must hold both."""
+    import shutil
+
+    from soft_contrastive_learning_torch.ops import winograd as plain_winograd
+    from soft_contrastive_learning_torch.ops.kernels import _build, probe_gemm, winograd
+
+    seconds = _build.build()
+    print(f"build: {_build.kernel_names()} in {seconds:.1f} s (0 = already built)")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    cuobjdump = str(cuobjdump) if cuobjdump.exists() else shutil.which("cuobjdump")
+    cxxfilt = shutil.which("c++filt")
+    out = {}
+    for name in _build.kernel_names():
+        funcs = _build.ptxas_summary(name)
+        if cxxfilt and funcs:
+            names = subprocess.run([cxxfilt], input="\n".join(f["function"] for f in funcs),
+                                   capture_output=True, text=True, timeout=60).stdout.split("\n")
+            for f, demangled in zip(funcs, names):
+                name_only = demangled.replace("(anonymous namespace)::", "").split("(", 1)[0]
+                f["function"] = name_only.removeprefix("void ").strip()
+        for f in funcs:
+            print(f"ptxas {name}: {f['function']}: {f['registers']} registers, spills "
+                  f"{f['spill_stores']}/{f['spill_loads']} bytes stored/loaded, static smem "
+                  f"{f['smem']} bytes")
+        sass = None
+        if cuobjdump:
+            text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                                  capture_output=True, text=True, timeout=120).stdout
+            sass = {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA", "IMMA")}
+            print(f"sass {name}: {sass}")
+            if name in ("probe_gemm", "winograd") and not (sass["HGMMA"] and sass["UTMALDG"]):
+                fail(f"{name}: the built library holds no wgmma or no TMA load ({sass})")
+        out[name] = dict(kernels=funcs, sass=sass)
+    if not cuobjdump:
+        print("sass: cuobjdump not found; the instruction check is skipped")
+    lib = probe_gemm._lib()
+    tiles = []
+    for dtype, route in probe_gemm.ROUTES.items():
+        int8 = int(dtype == torch.int8)
+        for i, tile in enumerate(probe_gemm.CONFIGS[dtype]):
+            smem, stages = (lib.scl_probe_gemm_config(int8, i, w) for w in (3, 4))
+            tiles.append(dict(dtype=str(dtype), route=route, tile=tile, smem=smem, stages=stages))
+            print(f"probe_gemm {dtype} {route} tile {tile}: {stages} stages, {smem} bytes of "
+                  "dynamic shared memory")
+    k4_smem = winograd._lib().scl_winograd_smem_bytes()
+    print(f"K4: clusters of {plain_winograd.CLUSTER} blocks sharing U by TMA multicast, "
+          f"{k4_smem} bytes of dynamic shared memory a block; tile rectangles (rows x cols) "
+          "at 180x240: " + ", ".join(
+              f"{n} {plain_winograd.block_rows(h, w)}x{32 // plain_winograd.block_rows(h, w)}"
+              for n, (h, w) in (("conv2", (90, 120)), ("conv3", (45, 60)), ("conv4", (22, 30)),
+                                ("conv5", (11, 15)))))
+    report["build"] = dict(seconds=seconds, libraries=out, probe_gemm_tiles=tiles,
+                           k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem))
 
 
 def phase_k1(torch, report):
@@ -721,10 +787,11 @@ def phase_probe_gemm(torch, report):
         + [(pz, pm, pk, pn, mode == "unrolled") for mode, pz, pm, pk, pn in matmul_probe.SHAPES]))
     checks = 0
     for z, pm, pk, pn, unrolled in problems:
-        configs = [None] + [c for c in range(len(CONFIGS))
-                            if pn % CONFIGS[c][1] == 0 and pk % CONFIGS[c][2] == 0]
         for in_dtype, out_dtypes in ((torch.bfloat16, (torch.float32, torch.bfloat16)),
                                      (torch.int8, (torch.int32,))):
+            tiles = CONFIGS[in_dtype]
+            configs = [None] + [c for c in range(len(tiles))
+                                if pn % tiles[c][1] == 0 and pk % tiles[c][2] == 0]
             a, b = exact_operands(*shapes(z, pm, pk, pn), in_dtype)
             for out_dtype in out_dtypes:
                 want = probe_gemm_plain(a, b, out_dtype)
@@ -745,7 +812,8 @@ def phase_probe_gemm(torch, report):
             del a, b
     print(f"P_gemm exact inputs: {checks} comparisons bit-equal to the plain version at the "
           f"{len(problems)} problems of the probe scripts (chosen and every dividing tile shape; "
-          "bf16->fp32, bf16->bf16, int8->int32; ragged rows, batch 16 and unrolled included)")
+          "bf16->fp32, bf16->bf16 on wgmma, int8->int32 on mma.sync; ragged rows, batch 16 and "
+          "unrolled included)")
 
     err = 0.0
     for z, pm, pk, pn in [(1, m, k, n)] + [s[1:] for s in matmul_probe.SHAPES
@@ -779,7 +847,8 @@ def phase_probe_gemm(torch, report):
         a, b = common.operands((m, k), (k, n), in_dtype, args.device, SEED)
         control_ms = common.control_gemm_ms(a, b, args.reps)
         rows[key] = [common.gemm_row(args, f"P_gemm {key} ({m},{k})@({k},{n})", a, b, out_dtype,
-                                     config, control_ms) for config in range(len(CONFIGS))]
+                                     config, control_ms)
+                     for config in range(len(CONFIGS[in_dtype]))]
         if key == "bf16":
             plain_ms = common.time_ms(lambda: probe_gemm_plain(a, b, out_dtype), 2)
         del a, b
@@ -904,9 +973,10 @@ def phase_probes(torch, report):
     # (script, --reps, rows by kernel); the full stage is K4 itself, and an
     # unrolled row is a launch per batch entry
     product_rows = sum(z if mode == "unrolled" else 1 for mode, z, *_ in matmul_probe.SHAPES)
-    scripts = ((mxu_probe, 10, {"P_gemm": len(mxu_probe.RESIDENT) + len(CONFIGS)}),
-               (mxu_probe2, 3, {"P_gemm": len(CONFIGS)}),
-               (mxu_probe4, 3, {"P_gemm": 2 * len(CONFIGS)}),
+    bf16, int8 = len(CONFIGS[torch.bfloat16]), len(CONFIGS[torch.int8])
+    scripts = ((mxu_probe, 10, {"P_gemm": len(mxu_probe.RESIDENT) + bf16}),
+               (mxu_probe2, 3, {"P_gemm": bf16}),
+               (mxu_probe4, 3, {"P_gemm": int8 + bf16}),
                (matmul_probe, 20, {"P_gemm": product_rows}),
                (winograd_ablate, 10, {"P6_stages": 3, "K4": 1}))
     counts = LaunchCounts(report, "probes")
@@ -1284,18 +1354,14 @@ def main() -> int:
     try:
         import numpy as np
 
-        from soft_contrastive_learning_torch.ops.kernels import _build
+        import soft_contrastive_learning_torch.ops.kernels._build  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the repository root")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    seconds = _build.build()
-    print(f"build: {_build.kernel_names()} in {seconds:.1f} s (0 = already built)")
-    for name in _build.kernel_names():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    report: dict = {}
+    phase_build(torch, report)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1305,7 +1371,6 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    report: dict = {}
     phase_k1(torch, report)
     phase_k2(torch, report)
     phase_k3(torch, np, report)
@@ -1338,6 +1403,7 @@ def main() -> int:
                       "K4_backward": report["K4_backward"]}))
     print(json.dumps({"K4_per_shape": report["K4"]["per_shape"],
                       "K4_forward_B50": report["K4"]["forward_B50"]}))
+    print(json.dumps({"build": report["build"]}))
     print(json.dumps({"P_gemm_rows": report["P_gemm"]["rows"],
                       "P6_stages_B256_conv2_2": report["P6_stages"]["stages_B256_conv2_2"],
                       "P6_stages_B64": report["P6_stages"]["stages_B64"]}))

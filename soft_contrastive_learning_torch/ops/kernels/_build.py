@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -103,6 +104,30 @@ def build(names: Iterable[str] | None = None) -> float:
 def build_log(name: str) -> str:
     path = library_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_summary(name: str) -> list[dict]:
+    """Per kernel function of library ``name``, what ``ptxas -v`` said:
+    registers, spill stores and loads (bytes) and static shared memory
+    (bytes; dynamic shared memory is the launch's and not in the log)."""
+    out: list[dict] = []
+    current: dict = {}
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = dict(function=m.group(1), registers=None, spill_stores=0, spill_loads=0,
+                           smem=0)
+            out.append(current)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            current["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

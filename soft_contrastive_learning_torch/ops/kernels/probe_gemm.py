@@ -5,12 +5,14 @@ Replaces the Pallas kernels of the probe scripts under ``perf/``
 (``mxu_probe.py::resident_dot`` and ``blocked_grid``,
 ``mxu_probe2.py``/``mxu_probe3.py``/``mxu_probe4.py::pallas_matmul``,
 ``matmul_probe.py::probe``), which are one function, ``C[z] = A[z] . B[z]``,
-asked at different shapes, types and blockings. The kernel is
-``csrc/probe_gemm.cu``; its source note gives the bound and the design. Tile
-shapes are a short compiled list (``CONFIGS``), chosen by argument. Types:
-bf16 operands with fp32 sums and an fp32 or bf16 result; int8 operands with
-an exact int32 result. M may be ragged (the kernel masks the last tile);
-N and K must be multiples of the tile's BN and BK.
+asked at different shapes, types and blockings. The kernels are in
+``csrc/probe_gemm.cu``; its source note gives the bound and the design:
+bf16 operands (fp32 sums, an fp32 or bf16 result) go through ``wgmma`` fed
+by TMA, int8 operands (an exact int32 result) through ``mma.sync``. Tile
+shapes are a short compiled list per type (``CONFIGS``), chosen by argument.
+M may be ragged (the kernels mask the last tile); N and K must be multiples
+of the tile's BN and BK, and TMA takes bf16 operands only at 16-byte-aligned
+addresses with rows a multiple of 16 bytes apart.
 
 It is a measuring instrument, not a layer of the model: the scripts in
 ``soft_contrastive_learning_torch/perf/`` time it beside ``torch.matmul`` /
@@ -23,17 +25,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from soft_contrastive_learning_torch.ops.kernels import _build
 
-# (BM, BN, BK) of csrc/probe_gemm.cu's instantiations, checked against the
-# library when it loads
-CONFIGS: Tuple[Tuple[int, int, int], ...] = (
-    (64, 64, 32), (128, 128, 32), (128, 256, 32), (256, 128, 64))
-_PREFERENCE = (2, 3, 1, 0)  # largest tiles first
+# (BM, BN, BK) of csrc/probe_gemm.cu's tile shapes per operand type, checked
+# against the library when it loads: bf16 on wgmma + TMA, int8 on mma.sync
+CONFIGS: Dict[torch.dtype, Tuple[Tuple[int, int, int], ...]] = {
+    torch.bfloat16: ((128, 256, 64), (128, 128, 64), (128, 64, 64)),
+    torch.int8: ((64, 64, 32), (128, 128, 32), (128, 256, 32), (256, 128, 64)),
+}
+ROUTES = {torch.bfloat16: "wgmma", torch.int8: "mma.sync"}
+_PREFERENCE = {torch.bfloat16: (0, 1, 2), torch.int8: (2, 3, 1, 0)}  # largest tiles first
 _MIN_BLOCKS = 132  # one block per SM of the H100
 _OUT_DTYPES = {torch.bfloat16: (torch.float32, torch.bfloat16), torch.int8: (torch.int32,)}
 
@@ -44,15 +49,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.scl_probe_gemm
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.scl_probe_gemm_num_configs.argtypes = []
+    lib.scl_probe_gemm_num_configs.argtypes = [ctypes.c_int]
     lib.scl_probe_gemm_num_configs.restype = ctypes.c_int
-    lib.scl_probe_gemm_config.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.scl_probe_gemm_config.argtypes = [ctypes.c_int] * 3
     lib.scl_probe_gemm_config.restype = ctypes.c_int
-    built = tuple(tuple(lib.scl_probe_gemm_config(i, w) for w in range(3))
-                  for i in range(lib.scl_probe_gemm_num_configs()))
-    if built != CONFIGS:
-        raise RuntimeError(f"probe_gemm.cu was built with tiles {built}, the wrapper "
-                           f"expects {CONFIGS}")
+    for dtype, configs in CONFIGS.items():
+        int8 = int(dtype == torch.int8)
+        built = tuple(tuple(lib.scl_probe_gemm_config(int8, i, w) for w in range(3))
+                      for i in range(lib.scl_probe_gemm_num_configs(int8)))
+        if built != configs:
+            raise RuntimeError(f"probe_gemm.cu was built with {dtype} tiles {built}, the "
+                               f"wrapper expects {configs}")
     return lib
 
 
@@ -87,27 +94,67 @@ def probe_gemm_plain(a: torch.Tensor, b: torch.Tensor,
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
-def choose_config(m: int, n: int, k: int, z: int = 1) -> int:
-    """The largest tile shape that divides N and K and still gives a block
-    per SM; failing that, the dividing shape with the most blocks. Raises
-    when none divides."""
-    fits = [i for i in _PREFERENCE if n % CONFIGS[i][1] == 0 and k % CONFIGS[i][2] == 0]
+def choose_config(m: int, n: int, k: int, z: int = 1, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The largest of the type's tile shapes that divides N and K and still
+    gives a block per SM; failing that, the dividing shape with the most
+    blocks. Raises when none divides."""
+    configs = CONFIGS[dtype]
+    fits = [i for i in _PREFERENCE[dtype] if n % configs[i][1] == 0 and k % configs[i][2] == 0]
     if not fits:
-        raise ValueError(f"probe_gemm: no tile shape of {CONFIGS} (BM, BN, BK) divides "
-                         f"N={n} and K={k}")
+        raise ValueError(f"probe_gemm: no tile shape of {dtype} {configs} (BM, BN, BK) "
+                         f"divides N={n} and K={k}")
     for i in fits:
-        bm, bn, _ = CONFIGS[i]
+        bm, bn, _ = configs[i]
         if z * -(-m // bm) * (n // bn) >= _MIN_BLOCKS:
             return i
     return fits[-1]
+
+
+def plan_launch(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...], dtype: torch.dtype,
+                config: Optional[int] = None, a_ptr: int = 0, b_ptr: int = 0) -> int:
+    """The tile shape a launch on contiguous operands of these shapes and
+    addresses would take (``config``, default ``choose_config``); raises on
+    what the kernel does not take: an empty operand, a tile that does not
+    divide N and K, a grid past its limits, and for bf16 (TMA) an operand
+    base that is not 16-byte aligned or rows not a multiple of 16 bytes
+    apart."""
+    z = shape_a[0] if len(shape_a) == 3 else 1
+    m, k, n = shape_a[-2], shape_a[-1], shape_b[-1]
+    if min(z, m, n, k) <= 0:
+        raise ValueError(f"probe_gemm takes non-empty operands, got {tuple(shape_a)} and "
+                         f"{tuple(shape_b)}")
+    configs = CONFIGS[dtype]
+    if config is None:
+        config = choose_config(m, n, k, z, dtype)
+    if not 0 <= config < len(configs):
+        raise ValueError(f"config {config} outside 0..{len(configs) - 1} for {dtype}")
+    bm, bn, bk = configs[config]
+    if n % bn or k % bk:
+        raise ValueError(f"tile shape {configs[config]} needs N % {bn} == 0 and K % {bk} == 0; "
+                         f"got N={n}, K={k}")
+    if dtype == torch.bfloat16:
+        if a_ptr % 16 or b_ptr % 16:
+            raise ValueError(f"probe_gemm: TMA needs 16-byte-aligned operands; a at {a_ptr:#x}, "
+                             f"b at {b_ptr:#x}")
+        if (2 * k) % 16 or (2 * n) % 16:
+            raise ValueError(f"probe_gemm: TMA needs rows a multiple of 16 bytes apart; got "
+                             f"K={k}, N={n} bf16 values")
+    # grid: bf16 (tiles, 1, Z); int8 (N / BN, row tiles, Z)
+    rows_y = 1 if dtype == torch.bfloat16 else -(-m // bm)
+    blocks_x = -(-m // bm) * (n // bn) if dtype == torch.bfloat16 else n // bn
+    if z > 65535 or rows_y > 65535 or blocks_x >= 2**31 or max(m, n, k) >= 2**31 \
+            or max(z * m * k, z * k * n, z * m * n) >= 2**62:
+        raise ValueError(f"probe_gemm: grid out of range for {tuple(shape_a)} @ {tuple(shape_b)}")
+    return config
 
 
 def probe_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype] = None,
                config: Optional[int] = None) -> torch.Tensor:
     """``a @ b`` through the hand-written kernel for CUDA tensors, the
     plain version for CPU tensors. a (M, K) or (Z, M, K), b (K, N) or
-    (Z, K, N), contiguous; ``config`` indexes ``CONFIGS`` (default:
-    ``choose_config``). Raises on anything the kernel does not take."""
+    (Z, K, N), contiguous; ``config`` indexes ``CONFIGS[a.dtype]`` (default:
+    ``choose_config``). Raises on anything the kernel does not take
+    (``plan_launch``)."""
     out_dtype = _check(a, b, out_dtype)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return probe_gemm_plain(a, b, out_dtype)
@@ -115,21 +162,10 @@ def probe_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype
         raise ValueError(f"probe_gemm: a on {a.device}, b on {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("probe_gemm takes contiguous row-major operands")
+    config = plan_launch(tuple(a.shape), tuple(b.shape), a.dtype, config, a.data_ptr(),
+                         b.data_ptr())
     z = a.shape[0] if a.ndim == 3 else 1
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
-    if min(z, m, n, k) <= 0:
-        raise ValueError(f"probe_gemm takes non-empty operands, got {tuple(a.shape)} and "
-                         f"{tuple(b.shape)}")
-    if config is None:
-        config = choose_config(m, n, k, z)
-    if not 0 <= config < len(CONFIGS):
-        raise ValueError(f"config {config} outside 0..{len(CONFIGS) - 1}")
-    bm, bn, bk = CONFIGS[config]
-    if n % bn or k % bk:
-        raise ValueError(f"tile shape {CONFIGS[config]} needs N % {bn} == 0 and K % {bk} == 0; "
-                         f"got N={n}, K={k}")
-    if z > 65535 or -(-m // bm) > 65535 or max(z * m * k, z * k * n, z * m * n) >= 2**62:
-        raise ValueError(f"probe_gemm: grid out of range for {tuple(a.shape)} @ {tuple(b.shape)}")
     lib = _lib()
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)
     with torch.cuda.device(a.device):

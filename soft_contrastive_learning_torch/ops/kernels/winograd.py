@@ -3,15 +3,17 @@ kernel for Hopper.
 
 Replaces ``soft_contrastive_learning_tpu/ops/pallas/winograd_kernel.py``
 (``_winograd_kernel``, ``winograd_conv_pallas``, and the ``winograd_conv``
-custom_vjp). The kernel is ``csrc/winograd.cu``: a block owns 32 tiles x 64
-output channels, loops over the input channels in chunks of 32, transforms
-each 4x4 patch in bf16, multiplies the 16 positions on the tensor cores and
-finishes the output transform, bias and ReLU in shared memory; its source
-note gives the bound and the design. The weight transform, which the JAX
-wrapper runs before its ``pallas_call``, is a small kernel of the same
-library (``weight_transform_cuda``), launched first; the cast of an fp32 x to bf16 stays PyTorch. The
-kernel masks the halo and the ragged last tiles itself, so there is no
-padded copy of x.
+custom_vjp). The kernel is ``csrc/winograd.cu``: a block owns a rectangle
+of 32 tiles x 64 output channels and loops over the input channels in
+chunks of 32; per chunk TMA brings the rectangle's input box (its halo and
+ragged edge zero-filled by TMA, so there is no padded copy of x) and U's
+chunk, shared across a cluster of ``CLUSTER`` blocks by multicast; the
+threads transform the patches in bf16, ``wgmma`` multiplies the 16
+positions, and the output transform, bias and ReLU finish in shared memory.
+Its source note gives the bound and the design. The weight transform, which
+the JAX wrapper runs before its ``pallas_call``, is a small kernel of the
+same library (``weight_transform_cuda``), launched first; the cast of an
+fp32 x to bf16 stays PyTorch.
 
 The plain version is ``ops/winograd.py::winograd_conv_plain``: the CPU path
 of the wrapper and what ``chip_smoke.py`` holds the kernel against.
@@ -27,7 +29,8 @@ gradients of the direct convolution with both operands in the compute type
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +38,12 @@ import torch.nn.functional as F
 from soft_contrastive_learning_torch.ops.kernels import _build
 from soft_contrastive_learning_torch.ops.kernels._autograd import refuse_graph
 from soft_contrastive_learning_torch.ops.winograd import (
+    BLOCK_FEATURES,
+    BLOCK_TILES,
+    CHUNK,
+    CLUSTER,
+    block_grid,
+    block_rows,
     stage_index,
     winograd_conv_plain,
     winograd_stage_plain,
@@ -43,21 +52,29 @@ from soft_contrastive_learning_torch.ops.winograd import (
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 
+@functools.lru_cache(maxsize=None)  # the block's sizes are verified once, not per launch
 def _lib() -> ctypes.CDLL:
     lib = _build.load("winograd")
     fn = lib.scl_winograd_conv
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.scl_winograd_weight_transform
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.scl_winograd_stage
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name in ("scl_winograd_chunk_channels", "scl_winograd_block_features",
-                 "scl_winograd_block_tiles"):
+                 "scl_winograd_block_tiles", "scl_winograd_smem_bytes",
+                 "scl_winograd_cluster_blocks"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    built = (lib.scl_winograd_chunk_channels(), lib.scl_winograd_block_features(),
+             lib.scl_winograd_block_tiles(), lib.scl_winograd_cluster_blocks())
+    if built != (CHUNK, BLOCK_FEATURES, BLOCK_TILES, CLUSTER):
+        raise RuntimeError(f"winograd.cu was built with (chunk, features, tiles, cluster) "
+                           f"{built}, the wrapper expects "
+                           f"{(CHUNK, BLOCK_FEATURES, BLOCK_TILES, CLUSTER)}")
     return lib
 
 
@@ -81,26 +98,39 @@ def weight_transform_cuda(weight: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def _check_launch(what: str, lib: ctypes.CDLL, x: torch.Tensor, weight: torch.Tensor):
-    """Raise on what the kernel does not take; returns (tile blocks, feature
-    blocks) of the grid."""
-    if x.ndim != 4 or weight.ndim != 4 or weight.shape[1:] != (x.shape[-1], 3, 3):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)} (NHWC), weight "
-                         f"{tuple(weight.shape)} (OIHW 3x3)")
-    if not x.is_contiguous():
+def check_launch(what: str, x_shape, weight_shape, x_ptr: int = 0) -> Tuple[int, int]:
+    """Raise on what the kernel does not take; returns (block rows, tile
+    blocks rounded up to whole clusters) of the launch. Needs no library:
+    the block's sizes are ``ops/winograd.py``'s, which ``_lib`` holds the
+    library to when it loads."""
+    if len(x_shape) != 4 or len(weight_shape) != 4 \
+            or tuple(weight_shape[1:]) != (x_shape[-1], 3, 3):
+        raise ValueError(f"shape mismatch: x {tuple(x_shape)} (NHWC), weight "
+                         f"{tuple(weight_shape)} (OIHW 3x3)")
+    b, h, w, c = x_shape
+    f = weight_shape[0]
+    if c % CHUNK or f % BLOCK_FEATURES:
+        raise ValueError(f"{what} needs C % {CHUNK} == 0 and F % {BLOCK_FEATURES} == 0; got "
+                         f"C={c}, F={f}")
+    if x_ptr % 16:
+        raise ValueError(f"{what}: TMA needs a 16-byte-aligned x; got x at {x_ptr:#x}")
+    if min(b, h, w) <= 0 or max(b, h, w, c, f) >= 2**31:
+        raise ValueError(f"{what} takes a non-empty input of fewer than 2^31 rows; got x "
+                         f"{tuple(x_shape)}, F={f}")
+    rows = block_rows(h, w)
+    _, _, padded = block_grid(b, h, w, rows)
+    if padded // CLUSTER > 65535:
+        raise ValueError(f"{what}: {padded} tile blocks, more than 65,535 clusters of {CLUSTER}; "
+                         f"got x {tuple(x_shape)}")
+    return rows, padded
+
+
+def _check_x(what: str, x: torch.Tensor, weight: torch.Tensor) -> Tuple[int, int]:
+    if x.ndim == 4 and not x.is_contiguous():
         raise ValueError(f"{what} takes an NHWC-contiguous x (for an NCHW channels_last tensor "
                          "pass its permute(0, 2, 3, 1) view)")
-    b, h, w, c = x.shape
-    f = weight.shape[0]
-    chunk, feat, tiles = (lib.scl_winograd_chunk_channels(), lib.scl_winograd_block_features(),
-                          lib.scl_winograd_block_tiles())
-    if c % chunk or f % feat:
-        raise ValueError(f"{what} needs C % {chunk} == 0 and F % {feat} == 0; got C={c}, F={f}")
-    n_tiles = b * -(-h // 2) * -(-w // 2)
-    if not 0 < -(-n_tiles // tiles) * (f // feat) < 2**31:
-        raise ValueError(f"{what} takes a non-empty input of fewer than 2^31 blocks; got "
-                         f"x {tuple(x.shape)}, F={f}")
-    return -(-n_tiles // tiles), f // feat
+    return check_launch(what, tuple(x.shape), tuple(weight.shape),
+                        x.data_ptr() if x.dtype == torch.bfloat16 else 0)
 
 
 def winograd_conv_cuda(
@@ -127,8 +157,8 @@ def winograd_conv_cuda(
     if x.dtype not in _OUT_DTYPES or out_dtype not in _OUT_DTYPES:
         raise TypeError(f"K4 takes bfloat16 or float32 x and output, got {x.dtype} -> "
                         f"{out_dtype}")
+    rows, _ = _check_x("K4", x, weight)
     lib = _lib()
-    _check_launch("K4", lib, x, weight)
     b, h, w, c = x.shape
     f = weight.shape[0]
     xb = x.to(torch.bfloat16)  # no copy when x is bf16 already
@@ -138,7 +168,7 @@ def winograd_conv_cuda(
     with torch.cuda.device(x.device):
         err = lib.scl_winograd_conv(
             xb.data_ptr(), u.data_ptr(), bias32.data_ptr(), out.data_ptr(), b, h, w, c, f,
-            int(bool(relu)), int(out_dtype == torch.bfloat16),
+            int(bool(relu)), int(out_dtype == torch.bfloat16), rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "winograd_conv_cuda")
     winograd_conv_cuda.launches += 1
@@ -167,8 +197,8 @@ def winograd_stage(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"winograd_stage: x on {x.device}, weight on {weight.device}")
     if x.dtype not in _OUT_DTYPES:
         raise TypeError(f"winograd_stage takes bfloat16 or float32 x, got {x.dtype}")
+    rows, tile_blocks = _check_x("winograd_stage", x, weight)
     lib = _lib()
-    tile_blocks, feature_blocks = _check_launch("winograd_stage", lib, x, weight)
     b, h, w, c = x.shape
     f = weight.shape[0]
     xb = x.to(torch.bfloat16)
@@ -176,10 +206,10 @@ def winograd_stage(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
     if stage == 2:
         out = torch.empty((b * -(-h // 2) * -(-w // 2), f), dtype=torch.float32, device=x.device)
     else:  # one uint32 per block, carried in an int32 tensor
-        out = torch.empty((tile_blocks, feature_blocks), dtype=torch.int32, device=x.device)
+        out = torch.empty((tile_blocks, f // BLOCK_FEATURES), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.scl_winograd_stage(stage, xb.data_ptr(), u.data_ptr(), out.data_ptr(), b, h, w,
-                                     c, f, torch.cuda.current_stream().cuda_stream)
+                                     c, f, rows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "winograd_stage")
     winograd_stage.launches += 1
     return out if stage == 2 else out.to(torch.int64) & 0xFFFFFFFF

@@ -25,7 +25,9 @@ Two functions compute the convolution:
 
 ``winograd_stage_plain`` is the plain version of that kernel cut short at a
 stage (``dma``, ``transform``, ``matmul``, ``full``), which the ablation
-script ``soft_contrastive_learning_torch/perf/winograd_ablate.py`` times.
+script ``soft_contrastive_learning_torch/perf/winograd_ablate.py`` times;
+``block_rows``, ``block_grid`` and ``block_boxes`` give the kernel's block
+layout, which the stages' checksums depend on.
 """
 
 from __future__ import annotations
@@ -161,26 +163,93 @@ def stage_index(stage: int | str) -> int:
     return int(stage)
 
 
+BLOCK_TILES = 32  # 2x2 output tiles per block of the fused kernel
+BLOCK_FEATURES = 64  # output channels per block
+CHUNK = 32  # input channels per step of its loop over C
+CLUSTER = 2  # blocks that share U's loads (a thread-block cluster)
+BLOCK_ROWS = (2, 4)  # a block's tiles: rows x (32 / rows) of one image
+
+
+def block_rows(h: int, w: int) -> int:
+    """The fused kernel's tile rectangle for an H x W input: the rows (of
+    ``BLOCK_ROWS``) that pad the tile grid least, then the smaller input box,
+    (2 rows + 2) x (2 cols + 2) pixels. The flagship at 180x240: 2 (2 x 16)
+    for conv2 (45 x 60 tiles), 4 (4 x 8) for conv3-conv5."""
+    th, tw = -(-h // 2), -(-w // 2)
+
+    def cost(rows):
+        cols = BLOCK_TILES // rows
+        return (-(-th // rows) * rows * -(-tw // cols) * cols,
+                (2 * rows + 2) * (2 * cols + 2))
+
+    return min(BLOCK_ROWS, key=cost)
+
+
+def block_grid(n: int, h: int, w: int, rows: int) -> Tuple[int, int, int]:
+    """(rectangles down an image gi, across it gj, tile blocks rounded up to
+    whole clusters) of the fused kernel's grid."""
+    th, tw = -(-h // 2), -(-w // 2)
+    gi, gj = -(-th // rows), -(-tw // (BLOCK_TILES // rows))
+    return gi, gj, -(-(n * gi * gj) // CLUSTER) * CLUSTER
+
+
 def _bits_sum(t: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
     """The sum over ``dims`` of the 16-bit patterns of a bf16 tensor, int64."""
     return (t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF).sum(dims)
 
 
+def block_boxes(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """The input box of every block of the fused kernel, as its TMA load
+    gives it: (tile blocks rounded up to whole clusters, 2 rows + 2,
+    2 cols + 2, C) bf16, the pixels from (2 i0 - 1, 2 j0 - 1) of the block's
+    first tile (i0, j0), zero outside the image; blocks past the last are
+    all zero."""
+    n, h, w, c = x.shape
+    cols = BLOCK_TILES // rows
+    gi, gj, padded = block_grid(n, h, w, rows)
+    xp = x.new_zeros((n, 2 * gi * rows + 2, 2 * gj * cols + 2, c), dtype=torch.bfloat16)
+    xp[:, 1 : h + 1, 1 : w + 1] = x.to(torch.bfloat16)
+    boxes = xp.unfold(1, 2 * rows + 2, 2 * rows).unfold(2, 2 * cols + 2, 2 * cols)
+    boxes = boxes.permute(0, 1, 2, 4, 5, 3).reshape(n * gi * gj, 2 * rows + 2, 2 * cols + 2, c)
+    return F.pad(boxes, (0, 0, 0, 0, 0, 0, 0, padded - n * gi * gj))
+
+
+def _u_sample(u: torch.Tensor) -> torch.Tensor:
+    """Per feature block, the sum of the 16-bit patterns of the words of U
+    that the dma and transform stages sample in every chunk: consumer thread
+    t (0..511) reads position t % 16, channel t / 16, features 2 ((t / 4) % 32)
+    and one more."""
+    _, c, f = u.shape
+    t = torch.arange(512, device=u.device)
+    p, ch, fp = t % 16, t // 16, 2 * ((t // 4) % 32)
+    total = torch.zeros(f // BLOCK_FEATURES, dtype=torch.int64, device=u.device)
+    for c0 in range(0, c, CHUNK):
+        for f0 in range(0, f, BLOCK_FEATURES):
+            for e in (0, 1):
+                total[f0 // BLOCK_FEATURES] += _bits_sum(u[p, c0 + ch, f0 + fp + e], (0,))
+    return total
+
+
 def winograd_stage_plain(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, relu: bool = False,
-                         out_dtype: Optional[torch.dtype] = None, block_tiles: int = 32,
-                         block_features: int = 64) -> torch.Tensor:
+                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """What the fused kernel writes when it is cut short at ``stage``, built
-    from the pieces of ``winograd_conv_plain``. A block of the kernel owns
-    ``block_tiles`` consecutive 2x2 output tiles (row-major over (n, i, j))
-    and ``block_features`` output channels.
+    from the pieces of ``winograd_conv_plain``. A block of the kernel owns a
+    rows x (32 / rows) rectangle of 2x2 output tiles of one image (rows from
+    ``block_rows``) and 64 output channels; the blocks run row-major over
+    (image, rectangle row, rectangle column), rounded up to whole clusters
+    of ``CLUSTER``, and bring in, per chunk of 32 input channels, one input
+    box (``block_boxes``) and U's chunk.
 
-    * 0 ``dma``: (tile blocks, F / block_features) int64: the sum, mod 2^32,
-      of the 16-bit patterns of every bf16 value the block brings into shared
-      memory: its tiles' 4x4 patches over all channels (the zero halo counts
-      0) and U's rows for its channels.
-    * 1 ``transform``: the same with the patches transformed, V = B^T d B in
-      bf16.
+    * 0 ``dma``: (tile blocks, F / 64) int64: the sum, mod 2^32,
+      of the 16-bit patterns of a fixed sample of what the block brings in:
+      of its box, the pixels ``(k P) // 32`` (k = 0..31, in the box's
+      row-major order of its P pixels) over all channels; of U, the words
+      ``_u_sample`` names in every chunk.
+    * 1 ``transform``: the same with the box's sample replaced by every
+      value of V = B^T d B in bf16 over the block's 32 tiles (those past the
+      image's tile grid included: the kernel transforms them too) and all
+      channels.
     * 2 ``matmul``: (tiles, F) fp32: ``M[0] = V[0] @ U[0]``, the products of
       position 0.
     * 3 ``full``: ``winograd_conv_plain`` (needs ``bias``).
@@ -191,18 +260,26 @@ def winograd_stage_plain(stage: int | str, x: torch.Tensor, weight: torch.Tensor
         if bias is None:
             raise ValueError("the full stage needs a bias")
         return winograd_conv_plain(x, weight, bias, relu=relu, out_dtype=out_dtype)
-    n, _, _, c = x.shape
+    n, h, w, c = x.shape
     f = weight.shape[0]
-    if f % block_features:
-        raise ValueError(f"F={f} is not a multiple of block_features={block_features}")
-    d, th, tw = _tiles(x.to(torch.bfloat16))
     u = weight_transform(weight).to(torch.bfloat16)
-    values = [t for row in d for t in row] if stage == 0 else _input_transform(d)
     if stage == 2:
-        return (values[0].reshape(n * th * tw, c).float() @ u[0].float())
-    per_tile = sum(_bits_sum(t, (-1,)) for t in values).reshape(-1)  # (tiles,)
-    blocks = -(-len(per_tile) // block_tiles)
-    per_tile = F.pad(per_tile, (0, blocks * block_tiles - len(per_tile)))
-    per_block = per_tile.reshape(blocks, block_tiles).sum(1)
-    per_features = _bits_sum(u, (0, 1)).reshape(f // block_features, block_features).sum(1)
+        d, th, tw = _tiles(x.to(torch.bfloat16))
+        v0 = _input_transform(d)[0]
+        return v0.reshape(n * th * tw, c).float() @ u[0].float()
+    if f % BLOCK_FEATURES or c % CHUNK:
+        raise ValueError(f"the dma and transform stages take C % {CHUNK} == 0 and "
+                         f"F % {BLOCK_FEATURES} == 0; got C={c}, F={f}")
+    rows = block_rows(h, w)
+    boxes = block_boxes(x, rows)  # (blocks, 2 rows + 2, 2 cols + 2, C)
+    if stage == 0:
+        px = boxes.reshape(boxes.shape[0], -1, c)
+        sample = (torch.arange(32, device=x.device) * px.shape[1]) // 32
+        per_block = _bits_sum(px[:, sample], (1, 2))
+    else:
+        cols = BLOCK_TILES // rows
+        d = [[boxes[:, a : a + 2 * rows - 1 : 2, b : b + 2 * cols - 1 : 2] for b in range(4)]
+             for a in range(4)]
+        per_block = sum(_bits_sum(t, (1, 2, 3)) for t in _input_transform(d))
+    per_features = _u_sample(u)
     return (per_block[:, None] + per_features[None, :]) & 0xFFFFFFFF

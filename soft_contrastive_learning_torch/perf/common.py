@@ -28,7 +28,8 @@ NOT_CARRIED = {
     "vmem_limit": "vmem_limit_bytes: n/a (became the dynamic shared-memory attribute, set per "
                   "instantiation up to 227 KB; the larger-block sweep is this tile sweep)",
     "acc_bf16": "bf16 accumulator: n/a (the tensor cores add bf16 products in fp32)",
-    "pl_dot": "pl.dot against jnp.dot: n/a (one lowering here: mma.sync through nvcuda::wmma)",
+    "pl_dot": "pl.dot against jnp.dot: n/a (one lowering per type here: wgmma fed by TMA for "
+              "bf16, mma.sync through nvcuda::wmma for int8)",
 }
 
 
@@ -136,7 +137,7 @@ def gemm_row(args, label: str, a: torch.Tensor, b: torch.Tensor, out_dtype: torc
     """One configuration of the product probe: on the card, time
     ``probe_gemm`` (``unrolled``: one launch per batch entry) and print its
     row; on the CPU, run the plain version once and check its shape."""
-    from soft_contrastive_learning_torch.ops.kernels.probe_gemm import CONFIGS, probe_gemm
+    from soft_contrastive_learning_torch.ops.kernels.probe_gemm import CONFIGS, ROUTES, probe_gemm
 
     z = a.shape[0] if a.ndim == 3 else 1
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
@@ -148,7 +149,7 @@ def gemm_row(args, label: str, a: torch.Tensor, b: torch.Tensor, out_dtype: torc
             return probe_gemm(a, b, out_dtype, config)
 
     if config is not None:
-        label = f"{label} tile{CONFIGS[config]}"
+        label = f"{label} {ROUTES[a.dtype]} tile{CONFIGS[a.dtype][config]}"
     if args.device.type != "cuda":
         out = torch.stack(fn()) if unrolled else fn()
         if out.shape != (*a.shape[:-1], n) or out.dtype != out_dtype:

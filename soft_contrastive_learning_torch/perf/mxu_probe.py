@@ -45,7 +45,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     m, k, n = BLOCKED if on_card else SMALL_BLOCKED
     a, b = common.operands((m, k), (k, n), torch.bfloat16, args.device, args.seed)
     control_ms = common.control_gemm_ms(a, b, args.reps) if on_card else None
-    for config in range(len(CONFIGS)):
+    for config in range(len(CONFIGS[torch.bfloat16])):
         common.gemm_row(args, f"B grid bf16->fp32 ({m},{k})@({k},{n})", a, b, torch.float32,
                         config, control_ms)
     for key in ("fori_loop", "semantics", "pl_dot"):

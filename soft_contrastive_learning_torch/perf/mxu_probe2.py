@@ -37,7 +37,7 @@ def sweep(args, in_dtype: torch.dtype, out_dtype: torch.dtype, label: str) -> Li
               f"{2.0 * m * k * n / control_ms / 1e9:7.1f} "
               f"{'TOP/s' if in_dtype == torch.int8 else 'TFLOP/s'}", flush=True)
     return [common.gemm_row(args, f"{label} ({m},{k})@({k},{n})", a, b, out_dtype, config,
-                            control_ms) for config in range(len(CONFIGS))]
+                            control_ms) for config in range(len(CONFIGS[in_dtype]))]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

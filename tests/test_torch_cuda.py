@@ -25,6 +25,7 @@ from soft_contrastive_learning_torch.ops.kernels.netvlad import (
 )
 from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
     CONFIGS,
+    choose_config,
     probe_gemm,
     probe_gemm_plain,
 )
@@ -251,6 +252,10 @@ def _conv_inputs(device, b, h, w, c, f, dtype=torch.bfloat16):
     (4, 22, 30, 512, 512),  # the flagship's conv4_2, 16 channel chunks
     (50, 45, 60, 128, 256),  # conv3_1 at the training batch: 34,500 tiles, ragged last block
     (50, 22, 30, 512, 512),  # conv4_2 at the training batch: 8,250 tiles, ragged last block
+    # every Winograd layer shape of the flagship at 180x240, B = 2 (2 x 16 tile
+    # rectangles for conv2, 4 x 8 for the rest; 45 x 60 and 11 x 15 are odd)
+    (2, 90, 120, 128, 128), (2, 45, 60, 128, 256), (2, 45, 60, 256, 256),
+    (2, 22, 30, 256, 512), (2, 22, 30, 512, 512), (2, 11, 15, 512, 512),
 ])
 def test_k4_matches_plain(cuda, b, h, w, c, f, relu):
     """Same roundings, another order of the fp32 sums: fp32 output within
@@ -307,6 +312,9 @@ def test_k4_refuses_what_it_does_not_take(cuda):
         winograd_conv_cuda(x, weight, bias.cpu())
     with pytest.raises(RuntimeError, match="WinogradConvFn"):
         winograd_conv_cuda(x, weight.requires_grad_(), bias)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte-aligned"):  # TMA's base address
+        winograd_conv_cuda(flat[1:].view(x.shape), weight.detach(), bias)
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -374,7 +382,7 @@ def test_probe_gemm_is_bit_equal_to_plain_on_exact_operands(cuda, in_dtype, out_
     type pair at every tile shape that divides N and K, rows past M masked."""
     a, b = _gemm_operands(cuda, shape_a, shape_b, in_dtype, exact=True)
     want = probe_gemm_plain(a, b, out_dtype)
-    fits = [i for i, (_, bn, bk) in enumerate(CONFIGS)
+    fits = [i for i, (_, bn, bk) in enumerate(CONFIGS[in_dtype])
             if shape_b[-1] % bn == 0 and shape_b[-2] % bk == 0]
     assert fits
     for config in [None] + fits:
@@ -399,21 +407,51 @@ def test_probe_gemm_on_normals_and_what_it_refuses(cuda):
     diff = (probe_gemm(a, b, torch.bfloat16).float() - w16).abs()
     assert (diff <= torch.clamp(step, min=2 * e)).all()
     with pytest.raises(ValueError, match="N % 256"):
-        probe_gemm(a, b, torch.float32, config=2)
+        probe_gemm(a, b, torch.float32, config=0)
     with pytest.raises(ValueError, match="contiguous"):
         probe_gemm(a.t().contiguous().t(), b)
     with pytest.raises(ValueError, match="b on"):
         probe_gemm(a, b.cpu())
     with pytest.raises(TypeError, match="bfloat16 or int8"):
         probe_gemm(a.half(), b.half())
+    flat = torch.empty(a.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte-aligned"):  # TMA's base address
+        probe_gemm(flat[1 : 1 + a.numel()].view(a.shape), b)
+    with pytest.raises(ValueError, match="K % 64"):
+        probe_gemm(a[:, :96].contiguous(), b[:96].contiguous(), torch.float32, config=1)
 
 
-@pytest.mark.parametrize("b,h,w,c,f", [(2, 11, 15, 256, 128), (50, 22, 30, 512, 512)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 127, 129, 240, 360, 1000])
+def test_every_wgmma_tile_is_bit_equal_at_ragged_m(cuda, m, out_dtype):
+    """Each bf16 tile shape (wgmma fed by TMA) on exact operands, batched,
+    with M not a multiple of the 128-row tile: TMA fills the rows past M of
+    each batch entry with zeros and the epilogue drops them."""
+    a, b = _gemm_operands(cuda, (3, m, 192), (3, 192, 256), torch.bfloat16, exact=True)
+    want = probe_gemm_plain(a, b, out_dtype)
+    for config in range(len(CONFIGS[torch.bfloat16])):
+        got = probe_gemm(a, b, out_dtype, config)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and torch.equal(got, want), config
+
+
+def test_choose_config_routes_by_type(cuda):
+    """bf16 takes a wgmma tile (BK 64), int8 an mma.sync one, on the card as
+    on the CPU."""
+    assert CONFIGS[torch.bfloat16][choose_config(8192, 8192, 4096)] == (128, 256, 64)
+    assert CONFIGS[torch.int8][choose_config(8192, 8192, 4096, dtype=torch.int8)] == \
+        (128, 256, 32)
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [(2, 11, 15, 256, 128), (50, 22, 30, 512, 512),
+                                       (3, 90, 120, 128, 128), (3, 5, 7, 128, 64)])
 def test_winograd_stages_match_their_plain_versions(cuda, b, h, w, c, f):
     """``dma`` and ``transform``: integer checksums, equal. ``matmul``:
     within 1e-4 of the largest entry (two fp32 summation orders). ``full``:
     K4 itself, the same bits as ``winograd_conv_cuda``. The second shape
-    ends in a ragged block of tiles."""
+    ends in a ragged block of tiles; the third takes 2 x 16 tile rectangles
+    (the others 4 x 8); the fourth has 3 tile blocks, rounded up to two
+    clusters of 2 whose last block loads nothing but zeros and U."""
     x, weight, bias = _conv_inputs(cuda, b, h, w, c, f)
     for stage in ("dma", "transform"):
         before = winograd_stage.launches

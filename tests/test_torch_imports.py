@@ -66,19 +66,26 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert "int scl_wms_loss(" in text["wms"] and "atomicAdd" not in text["wms"]
     assert "int scl_winograd_conv(" in text["winograd"] and "atomicAdd" not in text["winograd"]
     assert "int scl_winograd_weight_transform(" in text["winograd"]
-    # K4's 16 products are its own: tensor-core mma in the kernel body, and
-    # its input transform rounds in bf16 at every add
-    assert "mma_sync" in text["winograd"] and "__hsub2" in text["winograd"]
+    # K4's 16 products are its own: wgmma in the kernel body, fed by TMA (U
+    # multicast across the cluster), and its input transform rounds in bf16
+    # at every add
+    assert "wgmma_m64n32k16" in text["winograd"] and "__hsub2" in text["winograd"]
+    assert "tma_load_4d" in text["winograd"] and "tma_load_3d_multicast" in text["winograd"]
+    sm90 = (_build.SRC_DIR / "sm90.cuh").read_text()
+    assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90 and "mbarrier" in sm90
     assert not any(lib in text["winograd"] for lib in ("cublas", "cudnn", "cutlass"))
     # the Winograd stages are instantiations of K4's own kernel, not a second one
     assert "int scl_winograd_stage(" in text["winograd"]
     assert text["winograd"].count("__global__") == 2  # the weight transform and K4
     assert "if constexpr (STAGE" in text["winograd"]
-    # the probes' product is the kernel's own mma, bf16 and int8, fed by cp.async
+    # the probes' product is the kernels' own: bf16 on wgmma fed by TMA, int8
+    # on mma fed by cp.async
     gemm = text["probe_gemm"]
     assert "int scl_probe_gemm(" in gemm and "mma_sync" in gemm and "cp.async" in gemm
+    assert "wgmma_m64n256k16" in gemm and "tma_load_3d" in gemm and "setmaxnreg" in gemm
     assert "signed char" in gemm and "__nv_bfloat16" in gemm
-    assert not any(lib in gemm.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
+    assert not any(lib in t.lower() for t in (gemm, sm90) for lib in ("cublas", "cudnn", "cutlass",
+                                                                       "torch"))
     assert all("scl_cuda_error_string" in t for t in text.values())
 
 

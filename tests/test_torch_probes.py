@@ -23,9 +23,12 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from soft_contrastive_learning_torch.ops import winograd
+from soft_contrastive_learning_torch.ops.kernels import winograd as k4
 from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
     CONFIGS,
+    ROUTES,
     choose_config,
+    plan_launch,
     probe_gemm,
     probe_gemm_plain,
 )
@@ -194,8 +197,49 @@ def test_probe_gemm_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="no tile shape"):
         choose_config(128, 96, 64)
     # the largest tile that still fills the card; else the most blocks
-    assert CONFIGS[choose_config(8192, 8192, 4096)] == (128, 256, 32)
-    assert CONFIGS[choose_config(240, 128, 128, z=16)] == (64, 64, 32)
+    assert CONFIGS[torch.bfloat16][choose_config(8192, 8192, 4096)] == (128, 256, 64)
+    assert CONFIGS[torch.bfloat16][choose_config(240, 128, 128, z=16)] == (128, 64, 64)
+
+
+def test_choose_config_takes_wgmma_tiles_for_bf16_and_mma_sync_tiles_for_int8():
+    """bf16 chooses among the wgmma tiles (128 rows, K steps of 64 bf16 =
+    one 128-byte swizzle row), int8 among the mma.sync ones; both lists are
+    what the library is checked against when it loads."""
+    assert ROUTES == {torch.bfloat16: "wgmma", torch.int8: "mma.sync"}
+    assert CONFIGS[torch.bfloat16] == ((128, 256, 64), (128, 128, 64), (128, 64, 64))
+    assert CONFIGS[torch.int8] == ((64, 64, 32), (128, 128, 32), (128, 256, 32), (256, 128, 64))
+    for m, n, k, z in ((8192, 8192, 4096, 1), (4096, 4096, 2048, 1), (512, 512, 512, 1),
+                       (1024, 128, 128, 16), (360, 256, 256, 16), (16384, 128, 128, 1)):
+        assert CONFIGS[torch.bfloat16][choose_config(m, n, k, z)][2] == 64
+        assert choose_config(m, n, k, z, torch.int8) in range(len(CONFIGS[torch.int8]))
+    assert CONFIGS[torch.int8][choose_config(8192, 8192, 4096, dtype=torch.int8)] == (128, 256, 32)
+    # K = 96: an mma.sync tile (BK 32) divides it, no wgmma tile does
+    assert CONFIGS[torch.int8][choose_config(512, 256, 96, dtype=torch.int8)][2] == 32
+    with pytest.raises(ValueError, match="no tile shape"):
+        choose_config(512, 256, 96)
+
+
+@pytest.mark.parametrize("shape_a,shape_b,dtype,config,ptrs,match", [
+    ((512, 256), (256, 256), torch.bfloat16, None, (8, 0), "16-byte-aligned"),
+    ((512, 256), (256, 256), torch.bfloat16, None, (0, 2), "16-byte-aligned"),
+    ((512, 96), (96, 256), torch.bfloat16, 1, (0, 0), "K % 64"),
+    ((512, 256), (256, 320), torch.bfloat16, 1, (0, 0), "N % 128"),
+    ((512, 256), (256, 256), torch.bfloat16, 3, (0, 0), "outside 0..2"),
+    ((0, 256), (256, 256), torch.bfloat16, None, (0, 0), "non-empty"),
+    ((70000, 64, 64), (70000, 64, 64), torch.bfloat16, None, (0, 0), "grid out of range"),
+    ((512, 48), (48, 64), torch.int8, None, (0, 0), "no tile shape"),
+])
+def test_probe_gemm_refuses_before_any_build(shape_a, shape_b, dtype, config, ptrs, match):
+    """What TMA and the tiles cannot take is refused from shapes and
+    addresses alone, before a library is built or a tensor is on a card."""
+    with pytest.raises(ValueError, match=match):
+        plan_launch(shape_a, shape_b, dtype, config, *ptrs)
+
+
+def test_probe_gemm_plans_what_it_takes():
+    # int8 has no TMA: any address its 16-byte copies take is the caller's
+    assert plan_launch((16, 240, 128), (16, 128, 128), torch.bfloat16) == 2
+    assert plan_launch((512, 256), (256, 256), torch.int8, None, 8, 0) in range(4)
 
 
 # ---------------------------------------------------------------- P6
@@ -258,43 +302,67 @@ def test_ablation_full_stage_matches_the_plain_full_stage():
 
 
 def _tiny():
-    """One 2x2 image of ones over 2 channels (a single tile) and 64 filters
-    whose only tap is k[0][0] = (f % 4) / 2."""
-    x = torch.ones((1, 2, 2, 2), dtype=torch.bfloat16)
-    weight = torch.zeros((64, 2, 3, 3))
-    weight[:, :, 0, 0] = (torch.arange(64) % 4)[:, None] / 2
+    """One 2x2 image of ones over 32 channels (a single tile) and 64 filters
+    whose only tap is k[0][0] = (f % 4) / 2, in channels 0 and 1."""
+    x = torch.ones((1, 2, 2, 32), dtype=torch.bfloat16)
+    weight = torch.zeros((64, 32, 3, 3))
+    weight[:, :2, 0, 0] = (torch.arange(64) % 4)[:, None] / 2
     return x, weight
 
 
+# one 1.0 (0x3F80), four 0.5 (0x3F00), four 0.25 (0x3E80): U[p] over the 16
+# positions when k[0][0] = 1 alone, U[4a + b] = g[a] g[b], g = (1, .5, .5, 0)
+U_BITS = 0x3F80 + 4 * 0x3F00 + 4 * 0x3E80
+
+
 def test_stage_dma_by_hand():
-    """The checksum counts every bf16 value the block loads: 4 pixels x 2
-    channels of 1.0 (0x3F80; the 12 halo pixels are 0), and U."""
-    x, weight = _tiny()
-    zero_u = winograd.winograd_stage_plain("dma", x, torch.zeros_like(weight))
-    assert zero_u.tolist() == [[8 * 0x3F80]]
-    # k[0][0] = 1 alone gives U = outer((1, .5, .5, 0), (1, .5, .5, 0)): one 1.0
-    # (0x3F80), four 0.5 (0x3F00), four 0.25 (0x3E80), per (c, f) of 2 x 64
-    ones = torch.zeros((64, 2, 3, 3))
+    """The checksum counts a fixed sample of what TMA brings in. Of the
+    input box of a block (4 x 8 tiles here: 10 x 18 pixels from (-1, -1) of
+    the block's first tile), the pixels (k 180) // 32, k = 0..31, over every
+    channel; of U, per chunk of 32 channels, the words of 512 threads:
+    position t % 16, channel t / 16, two features, i.e. 64 values of each
+    position. A 15x16 image of ones (0x3F80) is two blocks, tile rows 0-3
+    and 4-7: one cluster of 2."""
+    x = torch.ones((1, 15, 16, 32), dtype=torch.bfloat16)
+    inside = []
+    for row0 in (-1, 7):  # the boxes' first pixel rows
+        count = 0
+        for k in range(32):
+            q = k * 180 // 32
+            r, c = row0 + q // 18, -1 + q % 18
+            count += 0 <= r < 15 and 0 <= c < 16
+        inside.append(count)
+    assert 0 < inside[1] < inside[0]  # the second box runs past the image's last row
+    zero_w = torch.zeros((64, 32, 3, 3))
+    got = winograd.winograd_stage_plain("dma", x, zero_w)
+    assert got.tolist() == [[inside[0] * 32 * 0x3F80], [inside[1] * 32 * 0x3F80]]
+    ones = torch.zeros((64, 32, 3, 3))
     ones[:, :, 0, 0] = 1.0
-    per_pair = 0x3F80 + 4 * 0x3F00 + 4 * 0x3E80
     got = winograd.winograd_stage_plain(0, torch.zeros_like(x), ones)
-    assert got.tolist() == [[2 * 64 * per_pair]]
+    assert got.tolist() == [[64 * U_BITS]] * 2
+    x, weight = _tiny()
     assert torch.equal(winograd_stage("dma", x, weight), winograd.winograd_stage_plain(0, x, weight))
 
 
 def test_stage_transform_by_hand():
     """B^T d B of the patch [[0,0,0,0],[0,1,1,0],[0,1,1,0],[0,0,0,0]] is
-    [[1,-2,0,-1],[-2,4,0,2],[0,0,0,0],[-1,2,0,1]] per channel."""
+    [[1,-2,0,-1],[-2,4,0,2],[0,0,0,0],[-1,2,0,1]] per channel. The block's
+    4 x 8 rectangle also transforms tiles past the 1 x 1 tile grid, and
+    three of them reach the image: tile (0, 1) sees column 1 as its first
+    column ([-1, 2, 0, 1] down column 0 of V), tile (1, 0) row 1 (the same
+    along row 0), tile (1, 1) pixel (1, 1) (a single 1). A second, all-zero
+    block rounds the grid up to a cluster of 2."""
     x, weight = _tiny()
     bits = {1: 0x3F80, -1: 0xBF80, 2: 0x4000, -2: 0xC000, 4: 0x4080, 0: 0}
-    v = [1, -2, 0, -1, -2, 4, 0, 2, 0, 0, 0, 0, -1, 2, 0, 1]
+    tiles = ([1, -2, 0, -1, -2, 4, 0, 2, 0, 0, 0, 0, -1, 2, 0, 1], [-1, 2, 0, 1], [-1, 2, 0, 1],
+             [1])
     got = winograd.winograd_stage_plain("transform", x, torch.zeros_like(weight))
-    assert got.tolist() == [[2 * sum(bits[e] for e in v)]]
+    assert got.tolist() == [[32 * sum(bits[e] for v in tiles for e in v)], [0]]
 
 
 def test_stage_matmul_by_hand():
-    """M[0] = V[0] . U[0]: V[0] = 1 in both channels and U[0][c][f] =
-    k[0][0] = (f % 4) / 2, so M[0][f] = f % 4."""
+    """M[0] = V[0] . U[0]: V[0] = 1 in every channel and U[0][c][f] =
+    k[0][0] = (f % 4) / 2 in channels 0 and 1, so M[0][f] = f % 4."""
     x, weight = _tiny()
     got = winograd.winograd_stage_plain("matmul", x, weight)
     assert got.shape == (1, 64) and got.dtype == torch.float32
@@ -302,25 +370,36 @@ def test_stage_matmul_by_hand():
 
 
 def test_stages_block_layout_and_full_stage():
-    """Ragged tiles and two feature blocks: the checksum grid is (tile
-    blocks, F / 64), M[0] is (tiles, F), and ``full`` is the plain conv."""
+    """Ragged tiles and two feature blocks: 3 images of 5 x 5 tiles make two
+    4 x 8 rectangles each, 6 blocks (3 clusters of 2); the boxes are the
+    input with its zero halo; M[0] is (tiles, F), and ``full`` is the plain
+    conv. 3 images of 3 x 4 tiles are 3 blocks, rounded up to 4: the last
+    is all zero and counts U's sample alone."""
     rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((3, 9, 10, 8)).astype(np.float32)).bfloat16()
-    weight = torch.from_numpy(rng.standard_normal((128, 8, 3, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((3, 9, 10, 32)).astype(np.float32)).bfloat16()
+    weight = torch.from_numpy(rng.standard_normal((128, 32, 3, 3)).astype(np.float32))
     bias = torch.from_numpy(rng.standard_normal(128).astype(np.float32))
     tiles = 3 * 5 * 5
+    assert winograd.block_rows(9, 10) == 4 and winograd.block_grid(3, 9, 10, 4) == (2, 1, 6)
+    boxes = winograd.block_boxes(x, 4)
+    assert boxes.shape == (6, 10, 18, 32) and boxes.dtype == torch.bfloat16
+    for n in range(3):
+        assert torch.equal(boxes[2 * n, 1:10, 1:11], x[n])  # rows -1..8, cols -1..16
+        assert torch.equal(boxes[2 * n + 1, 0:2, 1:11], x[n, 7:9])  # rows 7..16
+        assert boxes[2 * n, 0].abs().sum() == 0  # the halo above the image's first row
+        assert boxes[2 * n + 1, 2:].abs().sum() == 0 and boxes[2 * n, :, 11:].abs().sum() == 0
     for stage in (0, 1):
         got = winograd_stage(stage, x, weight)
-        assert got.shape == (-(-tiles // 32), 2) and got.dtype == torch.int64
+        assert got.shape == (6, 2) and got.dtype == torch.int64
         assert (got >= 0).all() and (got < 2 ** 32).all()
-    # the tile blocks' patch sums add up to the whole input's, each of the two
-    # feature blocks adding its own U
-    d, _, _ = winograd._tiles(x)
-    patches = sum(winograd._bits_sum(t, (0, 1, 2, 3)) for row in d for t in row).item()
-    u = winograd._bits_sum(winograd.weight_transform(weight).bfloat16(), (0, 1))
-    blocks = -(-tiles // 32)
-    assert winograd_stage(0, x, weight)[:, 0].sum().item() % 2 ** 32 == \
-        (patches + blocks * u[:64].sum().item()) % 2 ** 32
+    small = x[:, :5, :7].contiguous()
+    assert winograd.block_grid(3, 5, 7, 4) == (1, 1, 4)
+    assert winograd.block_boxes(small, 4)[3].abs().sum() == 0
+    for stage in (0, 1):
+        got = winograd_stage(stage, small, weight)
+        u_alone = winograd_stage(stage, torch.zeros_like(small), weight)
+        assert got.shape == (4, 2) and torch.equal(got[3], u_alone[0])
+        assert not torch.equal(got[0], got[3])
     assert winograd_stage(2, x, weight).shape == (tiles, 128)
     full = winograd_stage("full", x, weight, bias, relu=True)
     assert torch.equal(full, winograd.winograd_conv_plain(x, weight, bias, relu=True))
@@ -328,6 +407,30 @@ def test_stages_block_layout_and_full_stage():
         winograd_stage("output", x, weight)
     with pytest.raises(ValueError, match="needs a bias"):
         winograd_stage(3, x, weight)
+    with pytest.raises(ValueError, match="C % 32"):
+        winograd.winograd_stage_plain(0, x[..., :8], weight[:, :8])
+
+
+def test_block_rectangles_of_the_flagship_layers():
+    """2 x 16 tiles where the tile grid is 60 wide (conv2), 4 x 8 at 30, 15
+    and 8 (conv3-5): the fewest padded tiles, then the smaller box."""
+    assert [winograd.block_rows(h, w) for h, w in ((90, 120), (45, 60), (22, 30), (11, 15))] == \
+        [2, 4, 4, 4]
+    # (tile blocks per column, per row, all rounded to clusters of 2) at B = 64
+    assert winograd.block_grid(64, 90, 120, 2) == (23, 4, 5888)
+    assert winograd.block_grid(64, 11, 15, 4) == (2, 1, 128)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,ptr,match", [
+    ((2, 8, 8, 24), (64, 24, 3, 3), 0, "C % 32"),
+    ((2, 8, 8, 128), (48, 128, 3, 3), 0, "F % 64"),
+    ((2, 8, 8, 128), (64, 128, 3, 3), 8, "16-byte-aligned"),
+    ((2, 8, 8, 128), (64, 64, 3, 3), 0, "shape mismatch"),
+    ((70000, 45, 60, 128), (64, 128, 3, 3), 0, "65,535 clusters"),
+])
+def test_k4_refuses_before_any_build(x_shape, w_shape, ptr, match):
+    with pytest.raises(ValueError, match=match):
+        k4.check_launch("K4", x_shape, w_shape, ptr)
 
 
 # ---------------------------------------------------------------- scripts
