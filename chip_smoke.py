@@ -11,12 +11,17 @@ failure:
 1. build every kernel under soft_contrastive_learning_torch/ops/kernels/csrc
    with nvcc, one process per source, all at once; print each kernel
    function's registers, spills and static shared memory (ptxas), the
-   probe tiles' and K4's dynamic shared memory and K4's cluster size, and
+   probe tiles' and K4's dynamic shared memory and K4's cluster size, K1's
+   shared memory per block (forward and backward) and cluster size, and
    (where cuobjdump is present) the wgmma (HGMMA) and TMA-load (UTMALDG)
-   instructions in each library, which probe_gemm and winograd must hold;
+   instructions in each library, which probe_gemm and winograd must hold
+   (and netvlad the TMA loads); wms must hold one kernel function (K3 is one
+   launch);
 2. print the card's name and power limit (nvidia-smi);
-3. K1 (NetVLAD aggregation) against its plain version at B=64, N=165,
-   D=512, K=64, with fp32 and with bf16 logits;
+3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
+   plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
+   bf16 logits, within 1e-6; timed at both batches, the device's time apart
+   from the host's;
 4. K2 (streaming top-k) against its plain version at Q=64, R=66,048,
    D=32,768, k=5 and k=128, on an index with duplicated rows, and with
    R < k. Inputs are multiples of 1/8 in [-1, 1], so every dot product is
@@ -24,10 +29,18 @@ failure:
 5. K3 (fused wms loss) against its plain version at B=50, D=32,768 (the
    flagship), B=100, D=32,768 and B=1,024, D=512 (where the TPU kernel did
    not compile), mining on and off, on inputs where mining moves the loss:
-   |dloss| <= 1e-5 max(1, |loss|), and WmsLossFn's gradient equal to plain
-   autograd's within 1e-6;
-6. K1's backward: VladAggregateFn's gradients against plain autograd at
-   B=50, N=165, D=512, K=64 with bf16 logits, within 1e-6;
+   |dloss| <= 1e-5 max(1, |loss|), the same bits twice, and WmsLossFn's
+   gradient equal to plain autograd's within 1e-6; a call's time on the
+   host apart from the card's, and forward + backward against plain
+   autograd;
+6. K1's backward: the backward kernel against the closed form it
+   implements (vlad_aggregate_backward) and VladAggregateFn's gradients
+   against plain autograd at B=50, N=165, D=512, K=64 with bf16 and fp32
+   logits: within 1e-6 of each gradient's largest entry (at least 1), the
+   bf16 logits gradient within one bf16 step (two fp32 summation orders may
+   round to neighbouring bf16 values) or, where the bf16 grid is finer, that
+   1e-6; the same bits twice; forward + backward timed against plain
+   autograd in turns;
 7. K4 (fused Winograd F(2x2,3x3) conv) against its plain version at every
    Winograd layer shape of the flagship (conv2_2 to conv5_3 at 180x240) at
    the serving batch, B=64, and the training batch, B=50, where conv3 and
@@ -140,7 +153,7 @@ def phase_build(torch, report):
     import shutil
 
     from soft_contrastive_learning_torch.ops import winograd as plain_winograd
-    from soft_contrastive_learning_torch.ops.kernels import _build, probe_gemm, winograd
+    from soft_contrastive_learning_torch.ops.kernels import _build, netvlad, probe_gemm, winograd
 
     seconds = _build.build()
     print(f"build: {_build.kernel_names()} in {seconds:.1f} s (0 = already built)")
@@ -168,6 +181,11 @@ def phase_build(torch, report):
             print(f"sass {name}: {sass}")
             if name in ("probe_gemm", "winograd") and not (sass["HGMMA"] and sass["UTMALDG"]):
                 fail(f"{name}: the built library holds no wgmma or no TMA load ({sass})")
+            if name == "netvlad" and not sass["UTMALDG"]:
+                fail(f"netvlad: the built library holds no TMA load ({sass})")
+        if name == "wms" and len(funcs) != 1:
+            fail(f"wms: {len(funcs)} kernel functions, expected one (K3 is one launch): "
+                 f"{[f['function'] for f in funcs]}")
         out[name] = dict(kernels=funcs, sass=sass)
     if not cuobjdump:
         print("sass: cuobjdump not found; the instruction check is skipped")
@@ -180,6 +198,15 @@ def phase_build(torch, report):
             tiles.append(dict(dtype=str(dtype), route=route, tile=tile, smem=smem, stages=stages))
             print(f"probe_gemm {dtype} {route} tile {tile}: {stages} stages, {smem} bytes of "
                   "dynamic shared memory")
+    k1 = netvlad._lib()
+    k1_smem = {which: k1.scl_netvlad_smem_bytes(165, 64, int(which == "backward"))
+               for which in ("forward", "backward")}
+    k1_active = {which: k1.scl_netvlad_active_clusters(165, 64, int(which == "backward"))
+                 for which in ("forward", "backward")}
+    print(f"K1: clusters of {k1.scl_netvlad_cluster_blocks()} blocks per image along D, "
+          f"{k1_smem['forward']} / {k1_smem['backward']} bytes of dynamic shared memory a block, "
+          f"{k1_active['forward']} / {k1_active['backward']} clusters resident at once "
+          "(forward / backward, N=165, K=64)")
     k4_smem = winograd._lib().scl_winograd_smem_bytes()
     print(f"K4: clusters of {plain_winograd.CLUSTER} blocks sharing U by TMA multicast, "
           f"{k4_smem} bytes of dynamic shared memory a block; tile rectangles (rows x cols) "
@@ -188,7 +215,23 @@ def phase_build(torch, report):
               for n, (h, w) in (("conv2", (90, 120)), ("conv3", (45, 60)), ("conv4", (22, 30)),
                                 ("conv5", (11, 15)))))
     report["build"] = dict(seconds=seconds, libraries=out, probe_gemm_tiles=tiles,
+                           k1=dict(cluster=k1.scl_netvlad_cluster_blocks(), smem=k1_smem,
+                                   resident_clusters=k1_active),
                            k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem))
+
+
+def vlad_inputs(torch, b, seed, logit_dtype=None):
+    """Seeded NetVLAD inputs at the flagship's widths (N=165, D=512, K=64) on
+    the card: unit-norm features, logits 3 N(0, 1) (bf16 unless said), and
+    centers N(0, 1/D)."""
+    n, d, k = 165, 512, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, n, d), generator=gen, device="cuda")
+    x = x / x.norm(dim=-1, keepdim=True)
+    logits = (3.0 * torch.randn((b, n, k), generator=gen, device="cuda"))
+    logits = logits.to(logit_dtype or torch.bfloat16)
+    centers = torch.randn((d, k), generator=gen, device="cuda") / d ** 0.5
+    return x, logits, centers
 
 
 def phase_k1(torch, report):
@@ -196,35 +239,37 @@ def phase_k1(torch, report):
     from soft_contrastive_learning_torch.ops.kernels.netvlad import (
         netvlad_aggregate_cuda, vlad_aggregate)
 
-    b, n, d, k = 64, 165, 512, 64
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((b, n, d), generator=gen, device="cuda")
-    x = x / x.norm(dim=-1, keepdim=True)
-    logits32 = 3.0 * torch.randn((b, n, k), generator=gen, device="cuda")
-    centers = torch.randn((d, k), generator=gen, device="cuda") / d ** 0.5
-    err = 0.0
-    for logits in (logits32, logits32.bfloat16()):
-        got = netvlad_aggregate_cuda(x, logits, centers)
-        want = vlad_aggregate(x, logits, centers)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        print(f"K1 logits={logits.dtype}: max-abs err {e:.3g} vs plain")
-        if not (e <= 1e-6 and torch.isfinite(got).all()):
-            fail(f"K1 disagrees with its plain version ({logits.dtype}): max-abs {e}")
-        err = max(err, e)
-    logits = logits32.bfloat16()  # the main path's logits dtype
-    ms = common.time_ms(lambda: netvlad_aggregate_cuda(x, logits, centers), 50)
-    plain_ms = common.time_ms(lambda: vlad_aggregate(x, logits, centers), 50)
-    nbytes = 4 * b * n * d + 2 * b * n * k + 4 * d * k + 4 * b * d * k
-    bound_ms, bound_by = common.bound_ms(2 * b * n * k * d, nbytes)
-    print(f"K1 B={b} N={n} D={d} K={k} bf16 logits: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    n, d, k = 165, 512, 64
+    err, by_batch = 0.0, {}
+    for b in (64, 50):  # serving and training batch: 256 and 200 blocks
+        x, logits32, centers = vlad_inputs(torch, b, SEED + b, torch.float32)
+        for logits in (logits32, logits32.bfloat16()):
+            got = netvlad_aggregate_cuda(x, logits, centers)
+            want = vlad_aggregate(x, logits, centers)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            print(f"K1 B={b} logits={logits.dtype}: max-abs err {e:.3g} vs plain")
+            if not (e <= 1e-6 and torch.isfinite(got).all()):
+                fail(f"K1 disagrees with its plain version (B={b}, {logits.dtype}): max-abs {e}")
+            err = max(err, e)
+        logits = logits32.bfloat16()  # the main path's logits dtype
+        ms = common.time_ms(lambda: netvlad_aggregate_cuda(x, logits, centers), 50)
+        host_ms, device_ms = common.host_and_device_ms(
+            lambda: netvlad_aggregate_cuda(x, logits, centers), 50)
+        plain_ms = common.time_ms(lambda: vlad_aggregate(x, logits, centers), 50)
+        nbytes = 4 * b * n * d + 2 * b * n * k + 4 * d * k + 4 * b * d * k
+        bound_ms, bound_by = common.bound_ms(2 * b * n * k * d, nbytes)
+        print(f"K1 B={b} N={n} D={d} K={k} bf16 logits: kernel {ms:.4f} ms a call (device "
+              f"{device_ms:.4f}, host {host_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        by_batch[f"B{b}"] = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
     report["K1"] = dict(
         name="netvlad_aggregate", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/netvlad.cu",
         replaces="soft_contrastive_learning_tpu/ops/pallas/netvlad_kernel.py:26",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
+        max_abs_err=err, library_ms=None, by_batch=by_batch,
+        **{key: by_batch["B64"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
 def phase_k2(torch, report):
@@ -287,7 +332,7 @@ def phase_k2(torch, report):
     torch.cuda.empty_cache()
 
 
-KERNEL_IDS = ("K1", "K2", "K3", "K4", "P_gemm", "P6_stages")
+KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages")
 
 
 class LaunchCounts:
@@ -295,7 +340,8 @@ class LaunchCounts:
     entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
 
     def __init__(self, report, path):
-        from soft_contrastive_learning_torch.ops.kernels.netvlad import netvlad_aggregate_cuda
+        from soft_contrastive_learning_torch.ops.kernels.netvlad import (
+            netvlad_aggregate_cuda, netvlad_backward_cuda)
         from soft_contrastive_learning_torch.ops.kernels.probe_gemm import probe_gemm
         from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda
         from soft_contrastive_learning_torch.ops.kernels.winograd import (
@@ -304,8 +350,8 @@ class LaunchCounts:
 
         self.report, self.path = report, path
         self.wrappers = dict(zip(KERNEL_IDS, (
-            netvlad_aggregate_cuda, topk_l2_cuda, wms_loss_cuda, winograd_conv_cuda, probe_gemm,
-            winograd_stage)))
+            netvlad_aggregate_cuda, netvlad_backward_cuda, topk_l2_cuda, wms_loss_cuda,
+            winograd_conv_cuda, probe_gemm, winograd_stage)))
         for fn in self.wrappers.values():
             fn.launches = 0
 
@@ -523,53 +569,139 @@ def phase_k3(torch, np, report):
         # that got it wrong or ignored it could not pass
         if abs(losses[True] - losses[False]) < 1e-3 * max(1.0, abs(losses[True])):
             fail(f"K3 inputs at B={b} beta={beta}: mining does not move the loss {losses}")
+        # no atomics: the same bits twice
+        if not torch.equal(wms_loss_cuda(geo, emb, 0.8, 15.0, beta=beta),
+                           wms_loss_cuda(geo, emb, 0.8, 15.0, beta=beta)):
+            fail(f"K3 B={b} D={d}: two runs give different bits")
     b, d = 50, 32768
     geo, emb = wms_inputs(torch, np, b, d, SEED + b)
     ms = common.time_ms(lambda: wms_loss_cuda(geo, emb, 0.8, 15.0), 200)
+    host_ms, device_ms = common.host_and_device_ms(lambda: wms_loss_cuda(geo, emb, 0.8, 15.0),
+                                                   200)
     plain_ms = common.time_ms(lambda: wms_loss(geo, emb, 0.8, 15.0), 200)
+
+    def fwd_bwd(fn):
+        e = emb.clone().requires_grad_()
+        return torch.autograd.grad(fn(geo, e, 0.8, 15.0), e)
+
+    turns = {"fused": [], "plain": []}
+    for name in ("fused", "plain", "plain", "fused"):
+        fn = wms_loss_fused if name == "fused" else wms_loss
+        turns[name].append(common.time_ms(lambda: fwd_bwd(fn), 50))
+    fwd_bwd_ms = {name: statistics.mean(t) for name, t in turns.items()}
     # the Gram is symmetric: B (B + 1) / 2 dot products of D; emb and geo
     # read once, one float written
     bound_ms, bound_by = common.bound_ms(b * (b + 1) * d, 4 * (b * d + b * b) + 4)
-    print(f"K3 B={b} D={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"K3 B={b} D={d}: kernel {ms:.4f} ms a call back to back (device {device_ms:.4f} ms, "
+          f"host {host_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); forward + backward through WmsLossFn {fwd_bwd_ms['fused']:.4f} ms, "
+          f"plain autograd {fwd_bwd_ms['plain']:.4f} ms")
     report["K3"] = dict(
         name="wms_loss", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/wms.cu",
         replaces="soft_contrastive_learning_tpu/ops/pallas/wms_kernel.py:27",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
+        library_ms=None, device_ms=device_ms, host_ms=host_ms,
+        fwd_bwd_ms=fwd_bwd_ms["fused"], plain_fwd_bwd_ms=fwd_bwd_ms["plain"])
 
 
 def phase_k1_backward(torch, report):
+    """K1's backward kernel against the closed form it implements and
+    against plain autograd; VladAggregateFn (both kernels) timed against
+    plain autograd in turns."""
     from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.ops.kernels.netvlad import (
-        VladAggregateFn, vlad_aggregate)
+        VladAggregateFn, netvlad_backward_cuda, vlad_aggregate, vlad_aggregate_backward)
 
     b, n, d, k = 50, 165, 512, 64
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    x = torch.randn((b, n, d), generator=gen, device="cuda")
-    x = x / x.norm(dim=-1, keepdim=True)
-    logits = (3.0 * torch.randn((b, n, k), generator=gen, device="cuda")).bfloat16()
-    centers = torch.randn((d, k), generator=gen, device="cuda") / d ** 0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     g = torch.randn((b, d * k), generator=gen, device="cuda")
 
-    def grads(fn):
+    def grads(fn, x, logits, centers):
         ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
         return torch.autograd.grad(fn(*ins), ins, g)
 
-    got, want = grads(VladAggregateFn.apply), grads(vlad_aggregate)
+    worst = 0.0
+    for logit_dtype in (torch.bfloat16, torch.float32):
+        x, logits, centers = vlad_inputs(torch, b, SEED + 3, logit_dtype)
+        ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
+        out = VladAggregateFn.apply(*ins)
+        scales = out.grad_fn.saved_tensors[4]
+        kernel = netvlad_backward_cuda(x, logits, centers, out.detach(), scales, g)
+        again = netvlad_backward_cuda(x, logits, centers, out.detach(), scales, g)
+        closed = vlad_aggregate_backward(x, logits, centers, g)
+        via_fn = grads(VladAggregateFn.apply, x, logits, centers)
+        autograd = grads(vlad_aggregate, x, logits, centers)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(kernel, again)):
+            fail(f"K1 backward ({logit_dtype}): two runs give different bits")
+        if not all(torch.equal(p, q) for p, q in zip(kernel, via_fn)):
+            fail(f"K1 backward ({logit_dtype}): VladAggregateFn differs from its kernel")
+        if [t.dtype for t in kernel] != [torch.float32, logit_dtype, torch.float32]:
+            fail(f"K1 backward: gradient dtypes {[t.dtype for t in kernel]}")
+        line = []
+        for label, ref in (("closed form", closed), ("plain autograd", autograd)):
+            rel = [(a.float() - r.float()).abs().max().item()
+                   / max(1.0, r.float().abs().max().item()) for a, r in zip(kernel, ref)]
+            bf16 = logit_dtype == torch.bfloat16
+            floor = 1e-6 * max(1.0, ref[1].float().abs().max().item())
+            steps = bf16_steps(torch, kernel[1], ref[1], floor) if bf16 else 0.0
+            fp32_gates = [rel[0], rel[2]] + ([] if bf16 else [rel[1]])
+            if max(fp32_gates) > 1e-6 or steps > 1.0 or not all(
+                    torch.isfinite(t).all() for t in kernel):
+                fail(f"K1 backward ({logit_dtype}) vs {label}: x {rel[0]:.3g}, logits "
+                     f"{rel[1]:.3g} ({steps:.2f} bf16 steps), centers {rel[2]:.3g}")
+            line.append(f"vs {label}: x {rel[0]:.3g}, logits {rel[1]:.3g}"
+                        + (f" ({steps:.2f} bf16 steps)" if bf16 else "")
+                        + f", centers {rel[2]:.3g}")
+            worst = max(worst, *fp32_gates)
+        print(f"K1 backward B={b} N={n} D={d} K={k} logits={logit_dtype}: max-abs over "
+              f"max(1, max|ref|) " + "; ".join(line) + "; same bits twice")
+
+    x, logits, centers = vlad_inputs(torch, b, SEED + 3)
+    ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
+    out = VladAggregateFn.apply(*ins)
+    scales = out.grad_fn.saved_tensors[4]
+    y = out.detach()
+    ms = common.time_ms(lambda: netvlad_backward_cuda(x, logits, centers, y, scales, g), 50)
+    host_ms, device_ms = common.host_and_device_ms(
+        lambda: netvlad_backward_cuda(x, logits, centers, y, scales, g), 50)
+    plain_ms = common.time_ms(lambda: vlad_aggregate_backward(x, logits, centers, g), 20)
+    turns = {"fn": [], "plain": []}
+    for name in ("fn", "plain", "plain", "fn"):
+        fn = VladAggregateFn.apply if name == "fn" else vlad_aggregate
+        turns[name].append(common.time_ms(lambda: grads(fn, x, logits, centers), 20))
+    fwd_bwd_ms = {name: statistics.mean(t) for name, t in turns.items()}
+    # two products of the forward's size (dx = a dV^T, da = x dV); x, logits,
+    # centers, y, dy and the scales read once, dx, ds and dC written once
+    nbytes = (2 * 4 * b * n * d + 2 * 2 * b * n * k + 2 * 4 * d * k + 2 * 4 * b * d * k
+              + 4 * b * (k + 1))
+    bound_ms, bound_by = common.bound_ms(4 * b * n * k * d, nbytes)
+    print(f"K1 backward kernel B={b}: {ms:.4f} ms a call (device {device_ms:.4f}, host "
+          f"{host_ms:.4f}), closed form in PyTorch {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}); forward + backward through VladAggregateFn {fwd_bwd_ms['fn']:.4f} ms, "
+          f"plain autograd {fwd_bwd_ms['plain']:.4f} ms (in turns)")
+    if fwd_bwd_ms["fn"] >= fwd_bwd_ms["plain"]:
+        print("K1 forward + backward: NOT faster than plain autograd in these turns")
+    from torch.profiler import ProfilerActivity, profile
+
+    grads(VladAggregateFn.apply, x, logits, centers)
     torch.cuda.synchronize()
-    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
-    print(f"K1 backward B={b} N={n} D={d} K={k} bf16 logits: grad max-abs "
-          f"x {errs[0]:.3g}, logits {errs[1]:.3g}, centers {errs[2]:.3g} vs plain autograd")
-    if got[1].dtype != torch.bfloat16 or max(errs) > 1e-6:
-        fail(f"VladAggregateFn gradients disagree with plain autograd: {errs}")
-    fwd_bwd_ms = common.time_ms(lambda: grads(VladAggregateFn.apply), 20)
-    plain_ms = common.time_ms(lambda: grads(vlad_aggregate), 20)
-    print(f"K1 forward+backward B={b}: through VladAggregateFn {fwd_bwd_ms:.4f} ms, "
-          f"plain autograd {plain_ms:.4f} ms")
-    report["K1_backward"] = dict(max_abs_err=max(errs), fwd_bwd_ms=fwd_bwd_ms,
-                                 plain_fwd_bwd_ms=plain_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            grads(VladAggregateFn.apply, x, logits, centers)
+        torch.cuda.synchronize()
+    print("K1 forward + backward through VladAggregateFn, 5 calls profiled:")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
+                                    max_name_column_width=50))
+    report["K1_bwd"] = dict(
+        name="netvlad_aggregate_backward", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/netvlad.cu",
+        replaces="soft_contrastive_learning_tpu/ops/pallas/netvlad_kernel.py:110",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, device_ms=device_ms, host_ms=host_ms)
+    report["K1_backward"] = dict(max_rel_err=worst, fwd_bwd_ms=fwd_bwd_ms["fn"],
+                                 plain_fwd_bwd_ms=fwd_bwd_ms["plain"])
 
 
 # The flagship's Winograd layers at 180x240: (layers, H, W, C, F, fused ReLU
@@ -594,6 +726,17 @@ def k4_inputs(torch, b, h, w, c, f, seed):
     weight = torch.randn((f, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5
     bias = 0.1 * torch.randn((f,), generator=gen, device="cuda")
     return x, weight, bias
+
+
+def bf16_steps(torch, got, want, floor):
+    """The largest |got - want| in units of max(the bf16 step at |want|
+    (2^-8 relative), ``floor``): at most 1 when every entry is within one
+    bf16 step, or within the fp32 gate ``floor`` where the bf16 grid is
+    finer than that."""
+    w = want.float()
+    _, e = torch.frexp(w.abs().clamp_min(1e-30))
+    unit = torch.clamp(torch.ldexp(torch.ones_like(w), e - 8), min=floor)
+    return ((got.float() - w).abs() / unit).max().item()
 
 
 def bf16_steps_ok(torch, got, want, floor):
@@ -1157,14 +1300,15 @@ def check_resume(torch, np, report, cfg, params, source, run_dir, tr, losses):
 
     again, again_losses, *_ = train_epoch(
         torch, np, report, "train_again", cfg, params, source,
-        {"K1": EPOCH_FORWARDS, "K3": 60 + 2}, out_dir=str(run_dir / "again"))
+        {"K1": EPOCH_FORWARDS, "K1_bwd": 60, "K3": 60 + 2}, out_dir=str(run_dir / "again"))
     shutil.rmtree(run_dir / "again")
     floor = against_first("train_again", again, again_losses[half:])
     # the second half: 30 steps, 3 refreshes of 3 embeds, no eval
     t0 = time.perf_counter()
     resumed, resumed_losses, *_ = train_epoch(
         torch, np, report, "train_resumed", cfg, None, source,
-        {"K1": 30 + 3 * 3, "K3": 30}, out_dir=str(run_dir / "b"), resume="part")
+        {"K1": 30 + 3 * 3, "K1_bwd": 30, "K3": 30}, out_dir=str(run_dir / "b"),
+        resume="part")
     seconds = time.perf_counter() - t0
     got = against_first("train_resumed", resumed, resumed_losses)
     if resumed.global_step != tr.global_step or resumed.state.step != tr.global_step \
@@ -1224,10 +1368,12 @@ def phase_train(torch, np, report, shared):
     b = cfg.images_per_batch
     run_root = tempfile.TemporaryDirectory()
     run_dir = Path(run_root.name)
-    # K1 in every forward, K3 per step and per held-out loss batch
+    # K1 in every forward, its backward per step, K3 per step and per
+    # held-out loss batch
     tr, losses, step_ms, (epoch_s, eval_s, save_s), pool_s, launches, evals, first = train_epoch(
         torch, np, report, "train", cfg, params, source,
-        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 0}, out_dir=str(run_dir / "a"))
+        {"K1": EPOCH_FORWARDS, "K1_bwd": 60, "K2": 0, "K3": 60 + 2, "K4": 0},
+        out_dir=str(run_dir / "a"))
     print(f"train: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes in "
           f"{epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s and the checkpoint writes "
           f"{save_s:.2f} s, after {pool_s:.2f} s of "
@@ -1305,7 +1451,7 @@ def phase_train_winograd(torch, np, report, shared):
     params, b = shared["train_params"], cfg.images_per_batch
     tr, losses, step_ms, (epoch_s, eval_s, save_s), pool_s, launches, evals, _ = train_epoch(
         torch, np, report, "train_winograd", cfg, params, shared["source"],
-        {"K1": EPOCH_FORWARDS, "K2": 0, "K3": 60 + 2, "K4": 10 * EPOCH_FORWARDS})
+        {"K1": EPOCH_FORWARDS, "K1_bwd": 60, "K2": 0, "K3": 60 + 2, "K4": 10 * EPOCH_FORWARDS})
     print(f"train_winograd: {tr.global_step} steps, {tr.mining.refresh_count} mining refreshes "
           f"in {epoch_s:.2f} s, of which the eval hooks {eval_s:.2f} s and the checkpoint writes "
           f"{save_s:.2f} s, after {pool_s:.2f} s of "
@@ -1387,7 +1533,7 @@ def main() -> int:
     phase_train_winograd(torch, np, report, shared)
 
     # launches: the count on the newest path that runs the kernel (the
-    # Winograd training epoch for K1, K3 and K4, serve for K2);
+    # Winograd training epoch for K1, K1's backward, K3 and K4, serve for K2);
     # launches_by_path: each path's own count, set to 0 just before it
     paths = ("train_winograd", "train", "serve_winograd", "serve", "probes")
     for kid in KERNEL_IDS:
@@ -1401,6 +1547,10 @@ def main() -> int:
     print(json.dumps({"train": report["train"], "train_winograd": report["train_winograd"],
                       "K1_backward": report["K1_backward"],
                       "K4_backward": report["K4_backward"]}))
+    print(json.dumps({"K1_by_batch": report["K1"]["by_batch"],
+                      "K1_bwd_call": {key: report["K1_bwd"][key] for key in ("device_ms", "host_ms")},
+                      "K3_call": {key: report["K3"][key] for key in (
+                          "device_ms", "host_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms")}}))
     print(json.dumps({"K4_per_shape": report["K4"]["per_shape"],
                       "K4_forward_B50": report["K4"]["forward_B50"]}))
     print(json.dumps({"build": report["build"]}))

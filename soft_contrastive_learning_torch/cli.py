@@ -7,11 +7,13 @@
 
 Flags follow ``scl-tpu`` (``soft_contrastive_learning_tpu/cli.py``) with the
 same names and defaults, limited to what the port runs so far, plus
-``--device`` (default ``cuda``). ``--checkpoint`` takes a flagship-layout
-npz or a training-run directory of the port (its newest checkpoint, with the
-run's own ModelConfig overriding the flags): for ``serve`` it defaults to
-the committed trained artifact; for ``train`` it is the warm start (default:
-a fresh init from ``--seed``). ``train --resume`` with the same
+``--device`` (default ``cuda``). ``--checkpoint`` takes, as the JAX CLI's
+infer/serve loader does, a training-run directory of the port (its newest
+checkpoint, with the run's own ModelConfig overriding the flags), a
+flagship-layout npz, or a TF1 export as npz (its VGG16 and NetVLAD scopes
+warm-started onto a fresh init); a file that matches no variable is
+refused. For ``serve`` it defaults to the committed trained artifact; for
+``train`` it is the warm start (default: a fresh init from ``--seed``). ``train --resume`` with the same
 ``--out_folder`` takes a stopped run up again from its newest rolling
 checkpoint; a fresh run without ``--out_folder`` gets a unique suffix.
 ``train`` runs on the synthetic toy city (``--toy_city``); the filesystem
@@ -40,12 +42,22 @@ def _bool_flag(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
-def _load_model_params(cfg, checkpoint: str, default_artifact: bool):
-    """Resolve ``--checkpoint``: a training-run DIRECTORY loads the run's own
-    ModelConfig and newest checkpointed parameters (the train -> serve seam);
-    an npz is a flagship-layout artifact for the flag-built config; empty is
-    the committed artifact (``default_artifact``) or None, a fresh init.
-    Returns ``(model_config, state_dict | None)``."""
+def _load_model_params(cfg, checkpoint: str, default_artifact: bool, seed: int = 0):
+    """Resolve ``--checkpoint`` in the order of the JAX CLI's infer/serve
+    loader (``soft_contrastive_learning_tpu/cli.py::_load_model_params``),
+    for ``train`` and ``serve`` alike:
+
+    1. a training-run DIRECTORY loads the run's own ModelConfig and newest
+       checkpointed parameters (the train -> serve seam);
+    2. an npz whose keys and shapes match the flag-built architecture is a
+       flagship-layout artifact, loaded as it is;
+    3. any other npz is a TF1 export: converted (``models/convert_tf1.py``)
+       and its ``vgg16`` and ``netvlad`` scopes warm-started onto a fresh
+       init drawn from ``seed`` (the heads stay fresh);
+    4. a file that matches zero variables is refused.
+
+    Empty: the committed artifact (``default_artifact``) or None, a fresh
+    init. Returns ``(model_config, state_dict | None)``."""
     from soft_contrastive_learning_torch.models.weights import load_trained_params
 
     if checkpoint and os.path.isdir(checkpoint):
@@ -55,12 +67,36 @@ def _load_model_params(cfg, checkpoint: str, default_artifact: bool):
         print(f"loaded trained params from run dir {checkpoint} "
               f"(run ModelConfig overrides flags)")
         return run_cfg, params
-    if checkpoint and not checkpoint.endswith(".npz"):
-        raise SystemExit(f"--checkpoint {checkpoint!r}: expected a flagship-layout .npz or a "
-                         "training-run directory")
-    if checkpoint or default_artifact:
-        return cfg, load_trained_params(checkpoint or None, cfg)
-    return cfg, None
+    if not checkpoint:
+        return cfg, load_trained_params(None, cfg) if default_artifact else None
+    if not checkpoint.endswith(".npz"):
+        raise SystemExit(f"--checkpoint {checkpoint!r}: expected a .npz (a flagship artifact or "
+                         "a TF1 export) or a training-run directory")
+    try:
+        params = load_trained_params(checkpoint, cfg)
+    except ValueError:
+        params = None
+    if params is not None:
+        print(f"loaded flagship artifact {checkpoint}")
+        return cfg, params
+    from soft_contrastive_learning_torch.checkpoints.manager import (
+        WARM_START_SCOPES, warm_start_params)
+    from soft_contrastive_learning_torch.models.convert_tf1 import convert_checkpoint, flatten
+    from soft_contrastive_learning_torch.models.model import init_params
+    from soft_contrastive_learning_torch.models.weights import params_from_flax
+
+    donor, _ = convert_checkpoint(checkpoint)
+    donor = {k: v for k, v in flatten(donor).items() if k.split("/")[0] in WARM_START_SCOPES}
+    params, copied = warm_start_params(init_params(cfg, seed),
+                                       params_from_flax(donor, cfg, partial=True))
+    if not copied:
+        raise SystemExit(
+            f"--checkpoint {checkpoint!r} matched ZERO variables — "
+            "neither a flagship params artifact for this architecture "
+            "nor a TF1 export with recognizable names; refusing to run "
+            "on silently-random params")
+    print(f"warm-started {copied} from {checkpoint}")
+    return cfg, params
 
 
 def cmd_serve(args) -> int:
@@ -127,7 +163,8 @@ def cmd_train(args) -> int:
         raise NotImplementedError(
             "training from the prep pipeline's files (FilesystemSource) comes with a "
             "later slice of the port; pass --toy_city")
-    model_cfg, params = _load_model_params(cfg.model, args.checkpoint, default_artifact=False)
+    model_cfg, params = _load_model_params(cfg.model, args.checkpoint, default_artifact=False,
+                                           seed=cfg.seed)
     cfg = dataclasses.replace(cfg, model=model_cfg)
     out_folder = args.out_folder or cfg.encode_name()
     out_dir = os.path.join(args.out_root, out_folder)
@@ -149,8 +186,8 @@ def cmd_train(args) -> int:
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint", default="",
-                   help="flagship-layout params npz or a training-run directory to start "
-                        "from (default: fresh init)")
+                   help="training-run directory, flagship-layout params npz or TF1 export "
+                        "npz to start from (default: fresh init)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest rolling checkpoint in the output directory "
                         "(pass the same --out_folder)")
@@ -211,8 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("serve", help="HTTP descriptor-embedding service")
     p.add_argument("--checkpoint", default="",
-                   help="flagship-layout params npz or a training-run directory (default: the "
-                        "committed trained artifact)")
+                   help="training-run directory, flagship-layout params npz or TF1 export npz "
+                        "(default: the committed trained artifact)")
     p.add_argument("--index", default="", help="feature pickle to serve /search from")
     p.add_argument("--vlad_cores", type=int, default=64)
     p.add_argument("--reduction", default="none")

@@ -6,8 +6,9 @@ conv in the compute dtype, softmax over clusters, ``cluster_centers``
 holding the *negated* centers (added), intra-normalization with the eps
 inside the sqrt, a d-major flatten and a final L2 norm. ``vlad_aggregate``
 is the plain PyTorch formula; with ``use_kernels`` the aggregation goes
-through ``VladAggregateFn``: K1 (``ops/kernels/netvlad.py``) forward on a
-CUDA device, autograd of the plain formula backward.
+through K1 (``ops/kernels/netvlad.py::vlad_aggregate_fused``): its forward
+and backward kernels on a CUDA device, the plain forward and the closed-form
+backward on the CPU.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import torch
 from torch import nn
 
 from soft_contrastive_learning_torch.ops.kernels.netvlad import (
-    VladAggregateFn,
     vlad_aggregate,
+    vlad_aggregate_fused,
 )
 
 __all__ = ["NetVLAD", "vlad_aggregate"]
@@ -45,5 +46,5 @@ class NetVLAD(nn.Module):
         weight = self.assignment.weight.to(self.compute_dtype).reshape(-1, d)
         logits = x.to(self.compute_dtype) @ weight.T  # (B, N, K)
         if self.use_kernels:
-            return VladAggregateFn.apply(x, logits, self.cluster_centers)
+            return vlad_aggregate_fused(x, logits, self.cluster_centers)
         return vlad_aggregate(x, logits, self.cluster_centers)

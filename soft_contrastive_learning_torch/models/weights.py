@@ -57,19 +57,23 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
 
 
 def params_from_flax(
-    flat: Mapping[str, np.ndarray], cfg: Optional[ModelConfig] = None
+    flat: Mapping[str, np.ndarray], cfg: Optional[ModelConfig] = None, partial: bool = False
 ) -> Dict[str, torch.Tensor]:
     """Flat flax params (slash keys, HWIO kernels) -> an EmbeddingNet
-    state_dict in ``cfg.param_dtype`` on the CPU."""
+    state_dict in ``cfg.param_dtype`` on the CPU. ``partial``: a subset of
+    the architecture's keys is allowed (a warm start's donor) and only those
+    are returned; an unknown key or a wrong shape still raises."""
     cfg = cfg or ModelConfig()
     expect = flax_param_shapes(cfg)
     missing, extra = sorted(set(expect) - set(flat)), sorted(set(flat) - set(expect))
-    if missing or extra:
+    if (missing and not partial) or extra:
         raise ValueError(f"params do not match the architecture (missing {missing[:3]}, "
                          f"extra {extra[:3]})")
     dtype = torch_dtype(cfg.param_dtype)
     state = {}
     for key, shape in expect.items():
+        if key not in flat:
+            continue
         arr = np.asarray(flat[key])
         if arr.shape != shape:
             raise ValueError(f"shape mismatch at {key}: {arr.shape} vs {shape}")

@@ -2,9 +2,11 @@
 
 A kernel writes its output through raw pointers and records no graph. Each
 kernel that needs a gradient has an ``autograd.Function`` whose forward
-launches it and whose backward is autograd of the plain PyTorch formula,
-recomputed from the saved inputs: the split the JAX package's custom_vjps
-make (``vlad_aggregate_fused``, ``wms_loss_fused``).
+launches it. K3's backward is autograd of the plain PyTorch formula,
+recomputed from the saved inputs (``plain_backward``): the split the JAX
+package's custom_vjp makes (``wms_loss_fused``). K4's is autograd of the
+direct conv (``ops/kernels/winograd.py``); K1's is a kernel of its own
+(``ops/kernels/netvlad.py``).
 """
 
 from __future__ import annotations

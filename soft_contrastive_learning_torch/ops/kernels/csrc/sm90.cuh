@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that copy with the
-// Tensor Memory Accelerator (TMA) and multiply with wgmma: mbarriers, cluster
-// barriers, TMA loads (plain and multicast), wgmma descriptors and products,
-// and the host-side encoding of tensor maps. Inline PTX only; no library
+// Tensor Memory Accelerator (TMA), multiply with wgmma or split work over a
+// thread-block cluster: mbarriers, cluster barriers and distributed shared
+// memory loads, TMA loads (plain and multicast), wgmma descriptors and
+// products, and the host-side encoding of tensor maps. Inline PTX only; no library
 // computes anything here.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, a driver
@@ -98,6 +99,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// a float at shared-memory address `addr` of block `cta` of the cluster
+// (distributed shared memory; this block's own included)
+__device__ __forceinline__ float ld_shared_cluster(uint32_t addr, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v)
+      : "r"(addr), "r"(cta)
+      : "memory");
+  return v;
 }
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
@@ -269,18 +284,30 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (innermost first), `strides` in bytes for dims
-// 1.., boxes of `box` elements; returns 0 or an error code
-inline int encode_bf16(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
-                       const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+// a tensor of `type` and `rank` dims (innermost first), `strides` in bytes
+// for dims 1.., boxes of `box` elements; returns 0 or an error code
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                  const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  // A thread that has made no runtime call yet (autograd's device thread, in
+  // a backward) has no context current, and the driver call would fail with
+  // CUDA_ERROR_INVALID_CONTEXT: bind the runtime's device first.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+inline int encode_bf16(CUtensorMap* map, int rank, const void* base, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims, strides, box, swizzle);
 }
 
 }  // namespace sm90

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -46,6 +47,31 @@ def time_ms(fn: Callable[[], object], reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_and_device_ms(fn: Callable[[], object], reps: int,
+                       hold_cycles: int = 100_000_000) -> Tuple[float, float]:
+    """(host ms, device ms) per call on the current CUDA device. Host: the
+    ``perf_counter`` time of ``reps`` back-to-back calls with no
+    synchronization (what the caller's thread spends enqueueing one).
+    Device: the same calls queued behind a ``torch.cuda._sleep`` of
+    ``hold_cycles`` (~50 ms) that holds the stream while the host enqueues
+    them, so that the CUDA events around them time the card's work alone;
+    it is only that if the host finished inside the hold, which the host
+    time says."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host, start.elapsed_time(end) / reps
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = FP32_FLOPS) -> Tuple[float, str]:

@@ -21,7 +21,9 @@ from soft_contrastive_learning_torch.losses.ms import wms_loss
 from soft_contrastive_learning_torch.ops.kernels.netvlad import (
     VladAggregateFn,
     netvlad_aggregate_cuda,
+    netvlad_backward_cuda,
     vlad_aggregate,
+    vlad_aggregate_backward,
 )
 from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
     CONFIGS,
@@ -67,10 +69,13 @@ def _vlad_inputs(device, b, n, d, k, logit_dtype):
 
 
 @pytest.mark.parametrize("logit_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,d,k", [(8, 165, 512, 64), (3, 20, 36, 8)])
+@pytest.mark.parametrize("b,n,d,k", [(8, 165, 512, 64), (3, 20, 36, 8), (1, 165, 512, 64),
+                                     (50, 165, 512, 64), (64, 165, 512, 64), (2, 7, 100, 12)])
 def test_k1_matches_plain(cuda, logit_dtype, b, n, d, k):
     """fp32 FMA in the kernel against fp32 cuBLAS (TF32 off) in the plain
-    version: unit-norm outputs agree to ~1e-8, held to 1e-6."""
+    version: unit-norm outputs agree to ~1e-8, held to 1e-6. A cluster of 4
+    blocks per image along D: at D=36 two of them hold no rows, at D=100 the
+    last chunk is ragged; K=8 and 12 leave thread columns idle."""
     x, logits, centers = _vlad_inputs(cuda, b, n, d, k, logit_dtype)
     before = netvlad_aggregate_cuda.launches
     got = netvlad_aggregate_cuda(x, logits, centers)
@@ -170,21 +175,84 @@ def test_k1_refuses_a_bare_call_that_would_cut_the_graph(cuda):
         netvlad_aggregate_cuda(x, logits, centers)
 
 
-def test_k1_function_gradients_are_plain_autograd(cuda):
-    """The backward is the plain formula's autograd on the same inputs, so
-    the gradients agree to rounding of the recomputation (1e-6); the forward
-    is K1."""
-    x, logits, centers = _vlad_inputs(cuda, 4, 165, 512, 64, torch.bfloat16)
+def _bf16_steps(got, want):
+    """|got - want| in units of the bf16 step at |want| (2^-8 relative), or
+    of the fp32 gate 1e-6 max(1, max |want|) where the bf16 grid is finer:
+    near zero two fp32 summation orders differ by more than a bf16 step of
+    the value."""
+    w = want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs().clamp_min(1e-30))[1] - 8)
+    floor = 1e-6 * max(1.0, w.abs().max().item())
+    return ((got.float() - w).abs() / torch.clamp(step, min=floor)).max().item()
+
+
+@pytest.mark.parametrize("logit_dtype", [torch.float32, torch.bfloat16])
+def test_k1_function_gradients_are_plain_autograd(cuda, logit_dtype):
+    """The forward and the backward are K1's kernels (one launch each); the
+    gradients are autograd's of the plain formula up to the two fp32
+    summation orders: within 1e-6 of each gradient's largest entry (at
+    least 1). A bf16 logits gradient is the fp32 one rounded on each side,
+    so an entry whose fp32 values straddle a rounding boundary moves by one
+    bf16 step, and no further (near zero, where a bf16 step is finer than
+    the fp32 gate, by that gate)."""
+    x, logits, centers = _vlad_inputs(cuda, 4, 165, 512, 64, logit_dtype)
     ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
     ref = [t.clone().requires_grad_() for t in (x, logits, centers)]
     g = torch.randn((4, 512 * 64), device=cuda)
-    before = netvlad_aggregate_cuda.launches
+    before = (netvlad_aggregate_cuda.launches, netvlad_backward_cuda.launches)
     got = torch.autograd.grad(VladAggregateFn.apply(*ins), ins, g)
-    assert netvlad_aggregate_cuda.launches == before + 1
+    assert (netvlad_aggregate_cuda.launches, netvlad_backward_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
     want = torch.autograd.grad(vlad_aggregate(*ref), ref, g)
-    assert got[1].dtype == torch.bfloat16
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a.float(), b.float(), atol=1e-6, rtol=0)
+    assert got[1].dtype == logit_dtype
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 1 and logit_dtype == torch.bfloat16:
+            assert _bf16_steps(a, b) <= 1.0
+        else:
+            torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                       atol=1e-6 * max(1.0, b.float().abs().max().item()))
+
+
+@pytest.mark.parametrize("logit_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,k", [(50, 165, 512, 64), (3, 20, 36, 8), (2, 7, 100, 12)])
+def test_k1_backward_kernel_matches_the_plain_backward(cuda, logit_dtype, b, n, d, k):
+    """K1's backward kernel against ``vlad_aggregate_backward`` (the closed
+    form it implements) on the forward kernel's output and scales: the same
+    gates as against autograd; and twice the same bits (dC is summed over
+    images in a fixed order, no atomics)."""
+    x, logits, centers = _vlad_inputs(cuda, b, n, d, k, logit_dtype)
+    g = torch.randn((b, d * k), device=cuda, generator=torch.Generator(cuda).manual_seed(7))
+    ins = [t.clone().requires_grad_() for t in (x, logits, centers)]
+    out = VladAggregateFn.apply(*ins)
+    scales = out.grad_fn.saved_tensors[4]
+    assert scales.shape == (b, k + 1)
+    got = netvlad_backward_cuda(x, logits, centers, out.detach(), scales, g)
+    again = netvlad_backward_cuda(x, logits, centers, out.detach(), scales, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    want = vlad_aggregate_backward(x, logits, centers, g)
+    assert [t.dtype for t in got] == [torch.float32, logit_dtype, torch.float32]
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape
+        if i == 1 and logit_dtype == torch.bfloat16:
+            assert _bf16_steps(a, w) <= 1.0
+        else:
+            torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                       atol=1e-6 * max(1.0, w.float().abs().max().item()))
+
+
+def test_k1_inference_writes_no_residual(cuda):
+    """Under no_grad the model's aggregation is the bare forward (no scales
+    written, no graph); with grad it is the Function, which keeps them."""
+    from soft_contrastive_learning_torch.ops.kernels.netvlad import vlad_aggregate_fused
+
+    x, logits, centers = _vlad_inputs(cuda, 2, 20, 36, 8, torch.float32)
+    centers.requires_grad_()
+    with torch.no_grad():
+        assert vlad_aggregate_fused(x, logits, centers).grad_fn is None
+    out = vlad_aggregate_fused(x, logits, centers)
+    assert "VladAggregateFn" in type(out.grad_fn).__name__
+    assert len(out.grad_fn.saved_tensors) == 5
 
 
 def _wms_inputs(device, b, d, seed):
@@ -204,7 +272,8 @@ def test_k3_matches_plain(cuda, b, d, mining):
     """fp32 FMA Gram against cuBLAS fp32 (TF32 off): the loss agrees to
     1e-5 relative, the bound chip_smoke.py holds it to. Mining moves the
     plain loss by at least 100x that bound on these inputs, so a kernel that
-    ignored the flag could not pass."""
+    ignored the flag could not pass. One cooperative launch a call, the
+    same bits every run."""
     geo, emb = _wms_inputs(cuda, b, d, b + d)
     before = wms_loss_cuda.launches
     got = wms_loss_cuda(geo, emb, 0.8, 15.0, ms_mining=mining)
@@ -216,6 +285,29 @@ def test_k3_matches_plain(cuda, b, d, mining):
     assert abs(got.item() - want.item()) <= 1e-5 * max(1.0, abs(want.item()))
     again = wms_loss_cuda(geo, emb, 0.8, 15.0, ms_mining=mining)
     assert torch.equal(got, again)  # no atomics: the same bits every run
+
+
+@pytest.mark.parametrize("b,d", [(50, 32768), (100, 32768), (1024, 512)])
+def test_k3_is_one_launch_with_the_same_bits(cuda, b, d):
+    """At the three batch sizes K3 runs in training and in chip_smoke.py: one
+    kernel launch per call in a profile of the call, the same bits over
+    three runs, and the grid barrier's and the ticket's words back at zero
+    afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from soft_contrastive_learning_torch.ops.kernels import wms
+
+    geo, emb = _wms_inputs(cuda, b, d, b + 1)
+    first = wms_loss_cuda(geo, emb, 0.8, 15.0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = wms_loss_cuda(geo, emb, 0.8, 15.0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA" and "wms" in e.name]
+    assert len(kernels) in (0, 1)  # 0: the profiler recorded no kernel on this machine
+    third = wms_loss_cuda(geo, emb, 0.8, 15.0)
+    assert torch.equal(first, again) and torch.equal(first, third)
+    barrier = wms._barrier(emb.device, torch.cuda.current_stream().cuda_stream)
+    assert barrier.tolist()[0] == 0 and barrier.tolist()[2] == 0
 
 
 def test_k3_function_gradient_is_plain_autograd(cuda):

@@ -1,10 +1,12 @@
 """K1 (NetVLAD aggregation) in the PyTorch port against the JAX package.
 
 The port's plain version is held to JAX's ``vlad_aggregate`` and to the
-Pallas kernel in interpret mode on the same numpy inputs, and
-``VladAggregateFn``'s gradients to ``jax.vjp`` of ``vlad_aggregate_fused``.
-The kernel itself is held to the plain version in ``test_torch_cuda.py``, on
-a CUDA card.
+Pallas kernel in interpret mode on the same numpy inputs; the closed-form
+backward ``vlad_aggregate_backward`` to autograd of ``vlad_aggregate`` and to
+``jax.vjp`` of ``vlad_aggregate_fused`` (JAX's ``_fused_bwd``), and
+``VladAggregateFn``'s gradients, which on CPU tensors are that closed form,
+to the same. The kernels themselves are held to the plain versions in
+``test_torch_cuda.py``, on a CUDA card.
 """
 
 import jax
@@ -23,6 +25,9 @@ from soft_contrastive_learning_torch.models.netvlad import NetVLAD, vlad_aggrega
 from soft_contrastive_learning_torch.ops.kernels.netvlad import (
     VladAggregateFn,
     netvlad_aggregate_cuda,
+    netvlad_backward_cuda,
+    vlad_aggregate_backward,
+    vlad_aggregate_fused as torch_vlad_aggregate_fused,
 )
 
 torch.set_num_threads(1)  # tier-1 runs several workers on one host
@@ -127,7 +132,9 @@ def test_function_gradients_match_jax_fused_vjp(logit_dtype):
 
 def test_module_backward_goes_through_the_function():
     """With use_kernels the module's graph runs VladAggregateFn's backward
-    and gives the plain module's gradients."""
+    (on the CPU the closed form, ``vlad_aggregate_backward``) and gives the
+    plain module's gradients, up to the two fp32 summation orders: within
+    1e-6 of each gradient's largest entry (measured 5e-7 and 3e-7)."""
     rng = np.random.default_rng(6)
     fmap = torch.from_numpy(rng.standard_normal((2, 3, 4, 512)).astype(np.float32))
     grads, state = [], None
@@ -142,7 +149,7 @@ def test_module_backward_goes_through_the_function():
         grads.append(torch.autograd.grad(out.square().sum() + out.sum(),
                                          [mod.assignment.weight, mod.cluster_centers]))
     for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, atol=0, rtol=0)
+        torch.testing.assert_close(a, b, atol=1e-6 * b.abs().max().item(), rtol=0)
 
 
 def test_bare_wrapper_refuses_to_cut_the_graph():
@@ -157,3 +164,75 @@ def test_bare_wrapper_refuses_to_cut_the_graph():
         netvlad_aggregate_cuda(x, logits, c)
     VladAggregateFn.apply(x, logits, c).sum().backward()
     assert c.grad is not None
+
+
+@pytest.mark.parametrize("logit_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,d,k", [(2, 12, 64, 8), (3, 20, 32, 4), (1, 7, 16, 8), (4, 5, 8, 4)])
+def test_closed_form_backward_matches_autograd_and_jax(b, n, d, k, logit_dtype):
+    """``vlad_aggregate_backward`` (the closed form K1's backward kernel
+    implements) against torch autograd of ``vlad_aggregate`` and against
+    ``jax.vjp`` of ``vlad_aggregate_fused`` (the Pallas forward in interpret
+    mode, JAX's ``_fused_bwd``). fp32 gradients: within 1e-6 of their
+    largest entry against autograd (the same fp32 arithmetic in another
+    order, measured <= 2e-7) and 1e-5 against JAX (another framework's
+    summation order through two normalizations, as above). A bf16 logits
+    gradient is the fp32 one rounded to bf16 on each side, so entries may
+    differ by one bf16 ulp (2^-8 relative), held to 2^-7."""
+    x, logits, centers = _inputs(8 + b + n, b, n, d, k)
+    g = np.random.default_rng(9).standard_normal((b, d * k)).astype(np.float32)
+    dtype = getattr(torch, logit_dtype)
+    args = (torch.from_numpy(x), torch.from_numpy(logits).to(dtype), torch.from_numpy(centers))
+    got = vlad_aggregate_backward(*args, torch.from_numpy(g))
+    assert [t.dtype for t in got] == [torch.float32, dtype, torch.float32]
+    ins = [t.clone().requires_grad_() for t in args]
+    autograd = torch.autograd.grad(vlad_aggregate(*ins), ins, torch.from_numpy(g))
+    jl = jnp.asarray(logits).astype(logit_dtype)
+    _, vjp = jax.vjp(vlad_aggregate_fused, jnp.asarray(x), jl, jnp.asarray(centers))
+    jax_grads = [np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(g))]
+    for name, a, ref, jref in zip(("features", "logits", "centers"), got, autograd, jax_grads):
+        a, ref = a.float().numpy(), ref.float().numpy()
+        assert a.shape == ref.shape == jref.shape
+        if name == "logits" and logit_dtype == "bfloat16":
+            np.testing.assert_allclose(a, ref, rtol=2**-7, atol=1e-6 * np.abs(ref).max())
+            np.testing.assert_allclose(a, jref, rtol=2**-7, atol=1e-6 * np.abs(jref).max())
+        else:
+            np.testing.assert_allclose(a, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+            np.testing.assert_allclose(a, jref, rtol=0, atol=1e-5 * np.abs(jref).max())
+
+
+@pytest.mark.parametrize("logit_dtype", [torch.float32, torch.bfloat16])
+def test_function_backward_on_cpu_is_the_closed_form(logit_dtype):
+    """On CPU tensors ``VladAggregateFn`` runs ``vlad_aggregate`` forward and
+    ``vlad_aggregate_backward`` backward, the same bits, and launches no
+    kernel; gradients that are not asked for come back as None."""
+    x, logits, centers = _inputs(10, 3, 9, 16, 8)
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal((3, 16 * 8)).astype(np.float32))
+    args = (torch.from_numpy(x), torch.from_numpy(logits).to(logit_dtype),
+            torch.from_numpy(centers))
+    before = (netvlad_aggregate_cuda.launches, netvlad_backward_cuda.launches)
+    ins = [t.clone().requires_grad_() for t in args]
+    out = VladAggregateFn.apply(*ins)
+    torch.testing.assert_close(out, vlad_aggregate(*args), atol=0, rtol=0)
+    got = torch.autograd.grad(out, ins, g)
+    for a, want in zip(got, vlad_aggregate_backward(*args, g)):
+        torch.testing.assert_close(a, want, atol=0, rtol=0)
+    only_centers = [args[0], args[1], args[2].clone().requires_grad_()]
+    out = VladAggregateFn.apply(*only_centers)
+    assert out.grad_fn.next_functions[0][0] is None and out.grad_fn.next_functions[1][0] is None
+    torch.testing.assert_close(torch.autograd.grad(out, only_centers[2], g)[0],
+                               vlad_aggregate_backward(*args, g)[2], atol=0, rtol=0)
+    assert (netvlad_aggregate_cuda.launches, netvlad_backward_cuda.launches) == before
+
+
+def test_fused_entry_takes_the_function_only_where_a_graph_is_recorded():
+    """``vlad_aggregate_fused``: the bare forward (no residual, no graph)
+    under no_grad or when nothing requires grad; ``VladAggregateFn`` when
+    autograd records a graph."""
+    x, logits, centers = (torch.from_numpy(a) for a in _inputs(12, 2, 6, 16, 4))
+    assert torch_vlad_aggregate_fused(x, logits, centers).grad_fn is None
+    c = centers.clone().requires_grad_()
+    with torch.no_grad():
+        assert torch_vlad_aggregate_fused(x, logits, c).grad_fn is None
+    out = torch_vlad_aggregate_fused(x, logits, c)
+    assert "VladAggregateFn" in type(out.grad_fn).__name__
+    torch.testing.assert_close(out, vlad_aggregate(x, logits, centers), atol=0, rtol=0)

@@ -3,8 +3,10 @@
 The port's plain ``wms_loss`` is held to JAX ``losses/ms.py::wms_loss`` and
 to K3's Pallas kernel in interpret mode (as ``tests/test_wms_kernel.py``
 runs it here), on value and on the gradient with respect to the
-embeddings, at B = 50 and D = 64 in fp32. K3 itself is held to the plain
-version in ``test_torch_cuda.py`` and ``chip_smoke.py``, on a card.
+embeddings, at B = 50 and D = 64 in fp32. K3's launch plan (D-chunks over
+the Gram's upper triangle, one workspace) is checked here; K3 itself is
+held to the plain version in ``test_torch_cuda.py`` and ``chip_smoke.py``,
+on a card.
 
 Tolerances: the two frameworks sum the Gram product and the row terms in
 other orders, so the losses agree to ~1e-7 relative and the gradients to
@@ -26,8 +28,10 @@ from soft_contrastive_learning_torch.losses.ms import wms_loss
 from soft_contrastive_learning_torch.ops.kernels.wms import (
     WmsLossFn,
     plan_chunks,
+    tile_pairs,
     wms_loss_cuda,
     wms_loss_fused,
+    workspace_layout,
 )
 
 torch.set_num_threads(1)  # tier-1 runs several workers on one host
@@ -170,12 +174,33 @@ def test_bare_wrapper_refuses_to_cut_the_graph():
 
 @pytest.mark.parametrize("b,d", [(50, 32768), (100, 32768), (1024, 512), (7, 33), (3, 1)])
 def test_gram_chunks_cover_d_and_fill_the_card(b, d):
+    """K3's Gram phase walks (tile pair of the upper triangle, 128-column
+    chunk) items: the chunks cover D, the pairs are the triangle's, and at
+    the flagship's B=50, D=32,768 the one 64-row tile pair's 256 chunks give
+    every one of the H100's 132 SMs at least one item."""
     n, cols = plan_chunks(b, d)
-    assert cols % 32 == 0 and (n - 1) * cols < d <= n * cols
-    assert cols >= 256 or n == 1
-    tiles = (-(-b // 32)) ** 2
-    # a grid of at least one block per SM, unless D is cut at the minimum chunk
-    assert tiles * n >= 132 or n == -(-d // 256)
+    assert cols == 128 and (n - 1) * cols < d <= n * cols
+    tiles = -(-b // 64)
+    assert tile_pairs(b) == tiles * (tiles + 1) // 2 == len(
+        [(i, j) for i in range(tiles) for j in range(i, tiles)])
+    if (b, d) == (50, 32768):
+        assert (tile_pairs(b), n) == (1, 256) and tile_pairs(b) * n >= 132
+
+
+@pytest.mark.parametrize("b,d", [(50, 32768), (100, 32768), (1024, 512), (7, 33)])
+def test_workspace_is_one_buffer_in_the_kernel_s_order(b, d):
+    """One allocation a call: the Gram partials (tile pair, chunk, 64 x 64),
+    the Gram (B, B), the B row terms and the loss, back to back in the order
+    ``csrc/wms.cu`` reads them."""
+    n, _ = plan_chunks(b, d)
+    layout = workspace_layout(b, d)
+    assert layout["part"] == 0
+    assert layout["gram"] == n * tile_pairs(b) * 64 * 64
+    assert layout["terms"] == layout["gram"] + b * b
+    assert layout["out"] == layout["terms"] + b and layout["total"] == layout["out"] + 1
+    source = (Path(__file__).resolve().parents[1] / "soft_contrastive_learning_torch" / "ops"
+              / "kernels" / "csrc" / "wms.cu").read_text()
+    assert "// ws: part (pairs, n_chunks, 64 x 64) | gram (B, B) | terms (B) | out (1)" in source
 
 
 def _card_inputs(b, d, seed):
