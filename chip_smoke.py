@@ -12,20 +12,26 @@ failure:
    with nvcc, one process per source, all at once; print each kernel
    function's registers, spills and static shared memory (ptxas), the
    probe tiles' and K4's dynamic shared memory and K4's cluster size, K1's
-   shared memory per block (forward and backward) and cluster size, and
-   (where cuobjdump is present) the wgmma (HGMMA) and TMA-load (UTMALDG)
-   instructions in each library, which probe_gemm and winograd must hold
-   (and netvlad the TMA loads); wms must hold one kernel function (K3 is one
-   launch);
+   shared memory per block (forward and backward) and cluster size, K2's
+   ring stages and shared memory, and (where cuobjdump is present) the wgmma
+   (HGMMA for floating point, IGMMA for integers), TMA-load (UTMALDG) and
+   mma.sync (HMMA, IMMA) instructions in each library: probe_gemm, winograd
+   and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA (int8
+   on wgmma), netvlad the TMA loads; wms must hold one kernel function (K3 is
+   one launch), and no topk kernel may spill;
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
    plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
    bf16 logits, within 1e-6; timed at both batches, the device's time apart
    from the host's;
-4. K2 (streaming top-k) against its plain version at Q=64, R=66,048,
+4. K2 (streaming top-k: 3xTF32 on wgmma fed by TMA, persistent blocks with
+   running lists, a merge) against its plain version at Q=64, R=66,048,
    D=32,768, k=5 and k=128, on an index with duplicated rows, and with
    R < k. Inputs are multiples of 1/8 in [-1, 1], so every dot product is
-   exact in fp32 and ids and distances must agree exactly, ties included;
+   exact in fp32 and under the split (no bits below tf32's), and ids must be
+   identical and distances within 1e-6, ties included; then timed at k=1, 5
+   and 128 (Q=64) and at Q=256, k=5, beside the plain version and the bound
+   (bytes; the earlier fp32-FMA bound printed once beside it);
 5. K3 (fused wms loss) against its plain version at B=50, D=32,768 (the
    flagship), B=100, D=32,768 and B=1,024, D=512 (where the TPU kernel did
    not compile), mining on and off, on inputs where mining moves the loss:
@@ -55,8 +61,8 @@ failure:
    bf16 conv at B=50 (conv4_2 with the fused ReLU, conv2_2 without), within
    0.05 of each gradient's largest entry (the cotangent comes from the
    Winograd forward), and forward + backward timed against plain autograd;
-9. the probes' product kernels (probe_gemm: bf16 on wgmma fed by TMA, int8
-   on mma.sync) against their plain version:
+9. the probes' product kernels (probe_gemm: bf16 and int8 on wgmma fed by
+   TMA, int8 after a transpose kernel) against their plain version:
    bit-equal on operands whose sums are exact (multiples of 1/8; int8) at
    every problem the probe scripts launch (the resident and blocked shapes
    of perf/mxu_probe.py, (8192, 4096) @ (4096, 8192), the eight of
@@ -64,7 +70,8 @@ failure:
    end in a ragged tile), with the chosen and with every dividing tile
    shape, for bf16 -> fp32, bf16 -> bf16 and int8 -> int32; within a stated
    tolerance on normals; then its times per tile shape beside torch.matmul /
-   torch._int_mm and the bound, and at the eight shapes of matmul_probe.py;
+   torch._int_mm and the bound, the int8 transpose timed apart, and at the
+   eight shapes of matmul_probe.py;
 10. K4 cut short at each stage (dma, transform, matmul, full) against
    winograd_stage_plain at conv2_2 and conv4_2 (B=64), conv4_2 at B=50 (a
    ragged block) and conv2_2 at B=256; the full stage bit-equal to K4's
@@ -78,7 +85,10 @@ failure:
    the streamed K2 path, search 64 queries of which 16 are index images
    (each must come back at rank 0), and check that both kernels were
    launched on that path; then hold the served descriptors against an fp32
-   plain-PyTorch model and the served search against K2's plain version;
+   plain-PyTorch model and the served search against the exact (fp64)
+   search, squared distances within 1e-5 (the plain version's own fp32 error
+   is printed beside), and time /search (embed of the queries and one K2
+   launch);
 13. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
    K1 launch per batch, descriptors at cosine >= 0.999 to the standard
    configuration's and >= 0.99 to the fp32 plain model's, and the model's
@@ -108,8 +118,8 @@ failure:
    line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
-H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 989 TFLOP/s bf16 and
-1,979 TOP/s int8 on them, 3.35 TB/s).
+H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 495 TFLOP/s tf32, 989
+TFLOP/s bf16 and 1,979 TOP/s int8 on them, 3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -147,13 +157,16 @@ def phase_build(torch, report):
     """Build every kernel library (one nvcc per source, all at once), then
     print per kernel function what ptxas said (registers, spills, static
     shared memory), the dynamic shared memory and cluster of the rebuilt
-    kernels, and, where cuobjdump is present, how many HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions each library's SASS holds: probe_gemm
-    and winograd must hold both."""
+    kernels, and, where cuobjdump is present, how many HGMMA and IGMMA
+    (wgmma, floating point and integer), UTMALDG (TMA load) and HMMA / IMMA
+    (mma.sync) instructions each library's SASS holds: probe_gemm, winograd
+    and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA. No
+    topk kernel may spill."""
     import shutil
 
     from soft_contrastive_learning_torch.ops import winograd as plain_winograd
-    from soft_contrastive_learning_torch.ops.kernels import _build, netvlad, probe_gemm, winograd
+    from soft_contrastive_learning_torch.ops.kernels import (
+        _build, netvlad, probe_gemm, topk, winograd)
 
     seconds = _build.build()
     print(f"build: {_build.kernel_names()} in {seconds:.1f} s (0 = already built)")
@@ -177,12 +190,17 @@ def phase_build(torch, report):
         if cuobjdump:
             text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                                   capture_output=True, text=True, timeout=120).stdout
-            sass = {op: text.count(op) for op in ("HGMMA", "UTMALDG", "HMMA", "IMMA")}
+            sass = {op: text.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")}
             print(f"sass {name}: {sass}")
-            if name in ("probe_gemm", "winograd") and not (sass["HGMMA"] and sass["UTMALDG"]):
+            if name in ("probe_gemm", "winograd", "topk") and not (sass["HGMMA"]
+                                                                   and sass["UTMALDG"]):
                 fail(f"{name}: the built library holds no wgmma or no TMA load ({sass})")
+            if name == "probe_gemm" and (sass["IMMA"] or not sass["IGMMA"]):
+                fail(f"probe_gemm: int8 is not on integer wgmma alone ({sass})")
             if name == "netvlad" and not sass["UTMALDG"]:
                 fail(f"netvlad: the built library holds no TMA load ({sass})")
+        if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
+            fail(f"topk: a kernel spills registers: {funcs}")
         if name == "wms" and len(funcs) != 1:
             fail(f"wms: {len(funcs)} kernel functions, expected one (K3 is one launch): "
                  f"{[f['function'] for f in funcs]}")
@@ -214,7 +232,14 @@ def phase_build(torch, report):
               f"{n} {plain_winograd.block_rows(h, w)}x{32 // plain_winograd.block_rows(h, w)}"
               for n, (h, w) in (("conv2", (90, 120)), ("conv3", (45, 60)), ("conv4", (22, 30)),
                                 ("conv5", (11, 15)))))
+    k2 = topk._lib()
+    k2_ring = {k: (k2.scl_topk_stages(k), k2.scl_topk_smem_bytes(k)) for k in (5, 128)}
+    print("K2: clusters of 2 blocks sharing the query loads by TMA multicast, "
+          + ", ".join(f"k={k}: {st} ring stages, {sm} bytes of dynamic shared memory a block"
+                      for k, (st, sm) in k2_ring.items()))
     report["build"] = dict(seconds=seconds, libraries=out, probe_gemm_tiles=tiles,
+                           k2={f"k{k}": dict(stages=st, smem=sm)
+                               for k, (st, sm) in k2_ring.items()},
                            k1=dict(cluster=k1.scl_netvlad_cluster_blocks(), smem=k1_smem,
                                    resident_clusters=k1_active),
                            k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem))
@@ -314,21 +339,37 @@ def phase_k2(torch, report):
     # fewer refs than k: (inf, -1) padding
     err = max(err, compare("R=100 < k=128 D=512", q[:, :512].contiguous(), base[:100], 128)[1])
 
-    k = 5
-    ms = common.time_ms(lambda: topk_l2_cuda(q, r, k), 5)
-    plain_ms = common.time_ms(lambda: topk_l2_stream_plain(q, r, k), 5)
-    ms128 = common.time_ms(lambda: topk_l2_cuda(q, r, 128), 5)
-    flops = 2 * nq * n_refs * d + 2 * n_refs * d
-    bound_ms, bound_by = common.bound_ms(flops, 4 * (n_refs * d + nq * d) + 12 * nq * k)
-    print(f"K2 Q={nq} R={n_refs} D={d}: kernel k=5 {ms:.3f} ms, k=128 {ms128:.3f} ms, "
-          f"plain k=5 {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    # a second chunk's worth of queries: four query tiles over the same refs
+    q256 = eighths(torch, gen, (256, d))
+    err = max(err, compare(f"Q=256 R={n_refs} D={d} k=5", q256, r, 5)[1])
+
+    by_k = {kk: common.time_ms(lambda: topk_l2_cuda(q, r, kk), 5) for kk in (1, 5, 128)}
+    plain_ms = common.time_ms(lambda: topk_l2_stream_plain(q, r, 5), 5)
+    ms256 = common.time_ms(lambda: topk_l2_cuda(q256, r, 5), 5)
+
+    def bounds(nq_, k_):
+        """(bound, by) for 3xTF32 on the tensor cores, and the earlier
+        kernel's fp32-FMA bound on the same bytes."""
+        nbytes = 4 * (n_refs * d + nq_ * d) + 12 * nq_ * k_
+        return (common.bound_ms(6 * nq_ * n_refs * d, nbytes, common.TF32_FLOPS),
+                common.bound_ms(2 * nq_ * n_refs * d + 2 * n_refs * d, nbytes))
+
+    (bound_ms, bound_by), (old_ms, old_by) = bounds(nq, 5)
+    (b256, b256_by), _ = bounds(256, 5)
+    print(f"K2 Q={nq} R={n_refs} D={d}: kernel k=1 {by_k[1]:.3f} ms, k=5 {by_k[5]:.3f} ms, "
+          f"k=128 {by_k[128]:.3f} ms; plain k=5 {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+          f"({bound_by}; 3xTF32 on the tensor cores; the earlier fp32-FMA kernel's bound: "
+          f"{old_ms:.3f} ms, {old_by})")
+    print(f"K2 Q=256 R={n_refs} D={d} k=5: kernel {ms256:.3f} ms, bound {b256:.3f} ms "
+          f"({b256_by})")
     report["K2"] = dict(
         name="topk_l2", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/topk.cu",
         replaces="soft_contrastive_learning_tpu/ops/pallas/topk_kernel.py:41",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None)
-    del q, r
+        max_abs_err=err, ms=by_k[5], plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, ms_by_k=by_k, fp32_fma_bound_ms=old_ms,
+        q256=dict(ms=ms256, bound_ms=b256, bound_by=b256_by))
+    del q, q256, r
     torch.cuda.empty_cache()
 
 
@@ -418,23 +459,51 @@ def phase_serve(torch, np, report, shared):
     print(f"serve: 16/16 index images at rank 0, self-distance max {dists[:16, 0].max():.3g}, "
           f"nearest other {dists[:16, 1].min():.3f}")
 
-    # the served search against K2's plain version on the same inputs
-    # Scores differ in the last bits (other summation order), so compare
-    # squared distances, and allow id swaps only between neighbours whose
-    # squared distances are within 1e-5 (rank k+1 included).
+    # the served search against the exact squared distances on the same
+    # inputs: fp64 over every ref. The plain version's fp32 sums over D =
+    # 32,768 are themselves up to ~1.4e-5 off in squared distance on these
+    # queries, more than the gate, so the gate's reference is the exact
+    # ranking (the plain version's distance from it and from the kernel is
+    # printed beside). Ids may differ from it only between neighbours whose
+    # exact squared distances are within 1e-5 (rank k+1 included).
     q = torch.from_numpy(service.embed(query_imgs)).cuda()
     got_d, got_i = topk_l2_cuda(q, index, k)
-    want_d, want_i = topk_l2_stream_plain(q, index, k + 1)
-    got_sq, want_sq = (got_d ** 2).cpu().numpy(), (want_d ** 2).cpu().numpy()
+    plain_d, _ = topk_l2_stream_plain(q, index, k)
+    q64 = q.double()
+    exact = torch.empty((len(q), n_rows), dtype=torch.float64, device="cuda")
+    for s in range(0, n_rows, 4096):
+        r64 = index[s : s + 4096].double()
+        exact[:, s : s + 4096] = ((q64 * q64).sum(1, keepdim=True) - 2.0 * (q64 @ r64.T)
+                                  + (r64 * r64).sum(1)[None, :])
+    want_sq, want_i = torch.sort(exact, dim=1, stable=True)
+    want_sq, want_i = want_sq[:, : k + 1].cpu().numpy(), want_i[:, : k + 1]
+    del exact, r64
+    got_sq = (got_d.double() ** 2).cpu().numpy()
+    plain_sq = (plain_d.double() ** 2).cpu().numpy()
     e = np.abs(got_sq - want_sq[:, :k]).max()
     differ = (got_i != want_i[:, :k]).cpu().numpy()
     steps = np.abs(np.diff(want_sq, axis=1))  # (Q, k): gap to the next rank
     gaps = np.minimum(np.concatenate([np.full((len(steps), 1), np.inf), steps[:, :-1]], 1),
                       steps)
     if e > 1e-5 or (differ & (gaps > 1e-5)).any():
-        fail(f"served K2 vs plain: sq-dist err {e}, {differ.sum()} ids differ outside near-ties")
-    print(f"serve: K2 vs plain on the served queries: max sq-dist err {e:.3g}, "
-          f"{differ.sum()} of {differ.size} ids differ (near-ties within 1e-5 only)")
+        fail(f"served K2 vs exact: sq-dist err {e}, {differ.sum()} ids differ outside near-ties")
+    plain_e = np.abs(plain_sq - want_sq[:, :k]).max()
+    print(f"serve: K2 vs the exact (fp64) search on the served queries: max sq-dist err {e:.3g}, "
+          f"{differ.sum()} of {differ.size} ids differ (near-ties within 1e-5 only); the plain "
+          f"version's max sq-dist err to the exact search {plain_e:.3g}, to K2 "
+          f"{np.abs(plain_sq - got_sq).max():.3g}")
+
+    # /search latency: the 64 queries' embed and one K2 launch, host clock
+    # from the images to the results (numpy), after the search above
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        service.search(query_imgs, k=k)
+        runs.append(1e3 * (time.perf_counter() - t0))
+    search = dict(ms=statistics.median(runs), runs=runs,
+                  k2_ms=common.time_ms(lambda: topk_l2_cuda(q, index, k), 3))
+    print(f"serve: /search of {len(query_imgs)} images, k={k}: {search['ms']:.3f} ms (median "
+          f"of 3: {', '.join(f'{t:.3f}' for t in runs)}); its K2 launch {search['k2_ms']:.3f} ms")
 
     # served bf16 descriptors against an fp32 plain-PyTorch model (no kernels)
     ref_cfg = ModelConfig(compute_dtype="float32", use_kernels=False)
@@ -467,7 +536,7 @@ def phase_serve(torch, np, report, shared):
     service.embed(index_imgs)
     e2e_s = time.perf_counter() - t0
     report["serve"] = dict(embed_img_s=512 / e2e_s, model_img_s=64e3 / embed_ms,
-                           model_ms_per_batch64=embed_ms)
+                           model_ms_per_batch64=embed_ms, search=search)
     print(f"serve: embed {512 / e2e_s:.1f} img/s end to end (service.embed, 512 images), "
           f"model alone {64e3 / embed_ms:.1f} img/s ({embed_ms:.3f} ms per batch of 64)")
 
@@ -908,7 +977,7 @@ def phase_probe_gemm(torch, report):
     within twice the measured difference of the two fp32 results, of which
     they are the roundings)."""
     from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
-        CONFIGS, probe_gemm, probe_gemm_plain)
+        CONFIGS, probe_gemm, probe_gemm_plain, transpose_s8)
     from soft_contrastive_learning_torch.perf import common, matmul_probe, mxu_probe, mxu_probe2
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -955,7 +1024,7 @@ def phase_probe_gemm(torch, report):
             del a, b
     print(f"P_gemm exact inputs: {checks} comparisons bit-equal to the plain version at the "
           f"{len(problems)} problems of the probe scripts (chosen and every dividing tile shape; "
-          "bf16->fp32, bf16->bf16 on wgmma, int8->int32 on mma.sync; ragged rows, batch 16 and "
+          "bf16->fp32, bf16->bf16 and int8->int32 on wgmma; ragged rows, batch 16 and "
           "unrolled included)")
 
     err = 0.0
@@ -994,6 +1063,15 @@ def phase_probe_gemm(torch, report):
                      for config in range(len(CONFIGS[in_dtype]))]
         if key == "bf16":
             plain_ms = common.time_ms(lambda: probe_gemm_plain(a, b, out_dtype), 2)
+        else:  # the int8 call's first kernel, B's transpose, alone
+            if not torch.equal(transpose_s8(b)[0], b.t()):
+                fail("transpose_s8 is not the transpose of B")
+            t_ms = common.time_ms(lambda: transpose_s8(b), args.reps)
+            rows["int8_transpose"] = dict(ms=t_ms, bound_ms=2 * k * n / common.HBM_BYTES_PER_S
+                                          * 1e3, bound_by="bytes")
+            print(f"P_gemm int8 transpose of B ({k},{n}) -> ({n},{k}): {t_ms:.4f} ms, inside "
+                  f"every int8 call above (bound {rows['int8_transpose']['bound_ms']:.4f} ms, "
+                  "bytes)")
         del a, b
     args.reps = 50
     rows["products"] = []
@@ -1008,6 +1086,10 @@ def phase_probe_gemm(torch, report):
     print(f"P_gemm ({m},{k})@({k},{n}) bf16: best tile {best['label']} {best['ms']:.4f} ms = "
           f"{best['rate']:.1f} TFLOP/s, torch.matmul {best['control_ms']:.4f} ms, plain (fp32 "
           f"matmul + cast) {plain_ms:.3f} ms, bound {best['bound_ms']:.4f} ms")
+    best8 = min(rows["int8"], key=lambda r: r["ms"])
+    print(f"P_gemm ({m},{k})@({k},{n}) int8: best tile {best8['label']} {best8['ms']:.4f} ms = "
+          f"{best8['rate']:.1f} TOP/s (transpose included), torch._int_mm "
+          f"{best8['control_ms']:.4f} ms, bound {best8['bound_ms']:.4f} ms")
     report["P_gemm"] = dict(
         name="probe_gemm", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/probe_gemm.cu",
@@ -1547,6 +1629,9 @@ def main() -> int:
     print(json.dumps({"train": report["train"], "train_winograd": report["train_winograd"],
                       "K1_backward": report["K1_backward"],
                       "K4_backward": report["K4_backward"]}))
+    print(json.dumps({"K2_times": {key: report["K2"][key] for key in (
+                          "ms_by_k", "fp32_fma_bound_ms", "q256")},
+                      "K2_search": report["serve"]["search"]}))
     print(json.dumps({"K1_by_batch": report["K1"]["by_batch"],
                       "K1_bwd_call": {key: report["K1_bwd"][key] for key in ("device_ms", "host_ms")},
                       "K3_call": {key: report["K3"][key] for key in (

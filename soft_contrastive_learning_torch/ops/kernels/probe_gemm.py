@@ -7,12 +7,14 @@ Replaces the Pallas kernels of the probe scripts under ``perf/``
 ``matmul_probe.py::probe``), which are one function, ``C[z] = A[z] . B[z]``,
 asked at different shapes, types and blockings. The kernels are in
 ``csrc/probe_gemm.cu``; its source note gives the bound and the design:
-bf16 operands (fp32 sums, an fp32 or bf16 result) go through ``wgmma`` fed
-by TMA, int8 operands (an exact int32 result) through ``mma.sync``. Tile
-shapes are a short compiled list per type (``CONFIGS``), chosen by argument.
-M may be ragged (the kernels mask the last tile); N and K must be multiples
-of the tile's BN and BK, and TMA takes bf16 operands only at 16-byte-aligned
-addresses with rows a multiple of 16 bytes apart.
+both types go through ``wgmma`` fed by TMA, bf16 operands with fp32 sums
+(an fp32 or bf16 result), int8 operands with exact int32 sums, after a
+hand-written transpose of B into an (N, K) scratch (``wgmma`` takes int8
+only K-major). Tile shapes are a short compiled list per type
+(``CONFIGS``), chosen by argument. M may be ragged (the kernels mask the
+last tile); N and K must be multiples of the tile's BN and BK, and TMA
+takes operands only at 16-byte-aligned addresses with rows a multiple of
+16 bytes apart.
 
 It is a measuring instrument, not a layer of the model: the scripts in
 ``soft_contrastive_learning_torch/perf/`` time it beside ``torch.matmul`` /
@@ -32,13 +34,14 @@ import torch
 from soft_contrastive_learning_torch.ops.kernels import _build
 
 # (BM, BN, BK) of csrc/probe_gemm.cu's tile shapes per operand type, checked
-# against the library when it loads: bf16 on wgmma + TMA, int8 on mma.sync
+# against the library when it loads; both on wgmma + TMA, BK one swizzle row
+# of 128 bytes, or of 64 in two int8 tiles (K = 192 takes only those)
 CONFIGS: Dict[torch.dtype, Tuple[Tuple[int, int, int], ...]] = {
     torch.bfloat16: ((128, 256, 64), (128, 128, 64), (128, 64, 64)),
-    torch.int8: ((64, 64, 32), (128, 128, 32), (128, 256, 32), (256, 128, 64)),
+    torch.int8: ((128, 256, 128), (128, 256, 64), (128, 128, 128), (128, 64, 64)),
 }
-ROUTES = {torch.bfloat16: "wgmma", torch.int8: "mma.sync"}
-_PREFERENCE = {torch.bfloat16: (0, 1, 2), torch.int8: (2, 3, 1, 0)}  # largest tiles first
+ROUTES = {torch.bfloat16: "wgmma", torch.int8: "wgmma"}
+_PREFERENCE = {torch.bfloat16: (0, 1, 2), torch.int8: (0, 1, 2, 3)}  # largest tiles first
 _MIN_BLOCKS = 132  # one block per SM of the H100
 _OUT_DTYPES = {torch.bfloat16: (torch.float32, torch.bfloat16), torch.int8: (torch.int32,)}
 
@@ -47,8 +50,11 @@ _OUT_DTYPES = {torch.bfloat16: (torch.float32, torch.bfloat16), torch.int8: (tor
 def _lib() -> ctypes.CDLL:
     lib = _build.load("probe_gemm")
     fn = lib.scl_probe_gemm
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.scl_probe_transpose_s8.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    lib.scl_probe_transpose_s8.restype = ctypes.c_int
     lib.scl_probe_gemm_num_configs.argtypes = [ctypes.c_int]
     lib.scl_probe_gemm_num_configs.restype = ctypes.c_int
     lib.scl_probe_gemm_config.argtypes = [ctypes.c_int] * 3
@@ -115,9 +121,8 @@ def plan_launch(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...], dtype: torch
     """The tile shape a launch on contiguous operands of these shapes and
     addresses would take (``config``, default ``choose_config``); raises on
     what the kernel does not take: an empty operand, a tile that does not
-    divide N and K, a grid past its limits, and for bf16 (TMA) an operand
-    base that is not 16-byte aligned or rows not a multiple of 16 bytes
-    apart."""
+    divide N and K, a grid past its limits, and (TMA) an operand base that
+    is not 16-byte aligned or rows not a multiple of 16 bytes apart."""
     z = shape_a[0] if len(shape_a) == 3 else 1
     m, k, n = shape_a[-2], shape_a[-1], shape_b[-1]
     if min(z, m, n, k) <= 0:
@@ -132,17 +137,14 @@ def plan_launch(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...], dtype: torch
     if n % bn or k % bk:
         raise ValueError(f"tile shape {configs[config]} needs N % {bn} == 0 and K % {bk} == 0; "
                          f"got N={n}, K={k}")
-    if dtype == torch.bfloat16:
-        if a_ptr % 16 or b_ptr % 16:
-            raise ValueError(f"probe_gemm: TMA needs 16-byte-aligned operands; a at {a_ptr:#x}, "
-                             f"b at {b_ptr:#x}")
-        if (2 * k) % 16 or (2 * n) % 16:
-            raise ValueError(f"probe_gemm: TMA needs rows a multiple of 16 bytes apart; got "
-                             f"K={k}, N={n} bf16 values")
-    # grid: bf16 (tiles, 1, Z); int8 (N / BN, row tiles, Z)
-    rows_y = 1 if dtype == torch.bfloat16 else -(-m // bm)
-    blocks_x = -(-m // bm) * (n // bn) if dtype == torch.bfloat16 else n // bn
-    if z > 65535 or rows_y > 65535 or blocks_x >= 2**31 or max(m, n, k) >= 2**31 \
+    if a_ptr % 16 or b_ptr % 16:
+        raise ValueError(f"probe_gemm: TMA needs 16-byte-aligned operands; a at {a_ptr:#x}, "
+                         f"b at {b_ptr:#x}")
+    if (dtype.itemsize * k) % 16 or (dtype.itemsize * n) % 16:
+        raise ValueError(f"probe_gemm: TMA needs rows a multiple of 16 bytes apart; got "
+                         f"K={k}, N={n} {dtype} values")
+    blocks_x = -(-m // bm) * (n // bn)  # grid (tiles, 1, Z)
+    if z > 65535 or blocks_x >= 2**31 or max(m, n, k) >= 2**31 \
             or max(z * m * k, z * k * n, z * m * n) >= 2**62:
         raise ValueError(f"probe_gemm: grid out of range for {tuple(shape_a)} @ {tuple(shape_b)}")
     return config
@@ -168,9 +170,13 @@ def probe_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
     lib = _lib()
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)
+    # int8: B's transpose, (Z, N, K), written by the call's first kernel
+    bt = torch.empty((z, n, k), dtype=torch.int8, device=a.device) if a.dtype == torch.int8 \
+        else None
     with torch.cuda.device(a.device):
         err = lib.scl_probe_gemm(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), z, m, n, k,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), 0 if bt is None else bt.data_ptr(),
+            z, m, n, k,
             int(a.dtype == torch.int8), int(out_dtype == torch.bfloat16), config,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "probe_gemm")
@@ -179,3 +185,27 @@ def probe_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype
 
 
 probe_gemm.launches = 0
+
+
+def transpose_s8(b: torch.Tensor) -> torch.Tensor:
+    """The int8 path's first kernel alone, to time it apart from the product:
+    b (K, N) or (Z, K, N) int8, contiguous, K and N multiples of 64 -> its
+    transpose (Z, N, K) (Z = 1 for a 2-D b). The plain ``transpose`` for a
+    CPU tensor. ``probe_gemm`` runs the same kernel inside its call."""
+    if b.dtype != torch.int8 or b.ndim not in (2, 3) or not b.is_contiguous():
+        raise ValueError(f"transpose_s8 takes a contiguous (Z, K, N) int8 tensor, got "
+                         f"{tuple(b.shape)} {b.dtype}")
+    b3 = b if b.ndim == 3 else b[None]
+    z, k, n = b3.shape
+    if b.device.type == "cpu":
+        return b3.transpose(1, 2).contiguous()
+    if b.device.type != "cuda" or k % 64 or n % 64 or b.data_ptr() % 16:
+        raise ValueError(f"transpose_s8: K={k} and N={n} must be multiples of 64 and b a "
+                         f"16-byte-aligned CUDA tensor")
+    bt = torch.empty((z, n, k), dtype=torch.int8, device=b.device)
+    lib = _lib()
+    with torch.cuda.device(b.device):
+        err = lib.scl_probe_transpose_s8(b3.data_ptr(), bt.data_ptr(), z, k, n,
+                                         torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "transpose_s8")
+    return bt

@@ -14,6 +14,7 @@ from soft_contrastive_learning_torch.core.config import resolve_device
 
 # H100 SXM, dense rates at the full power limit (NVIDIA's data sheet)
 FP32_FLOPS = 67e12  # outside the tensor cores
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
@@ -30,7 +31,7 @@ NOT_CARRIED = {
                   "instantiation up to 227 KB; the larger-block sweep is this tile sweep)",
     "acc_bf16": "bf16 accumulator: n/a (the tensor cores add bf16 products in fp32)",
     "pl_dot": "pl.dot against jnp.dot: n/a (one lowering per type here: wgmma fed by TMA for "
-              "bf16, mma.sync through nvcuda::wmma for int8)",
+              "bf16, and for int8 after a transpose of B into the K-major layout wgmma takes)",
 }
 
 

@@ -30,8 +30,14 @@ from soft_contrastive_learning_torch.ops.kernels.probe_gemm import (
     choose_config,
     probe_gemm,
     probe_gemm_plain,
+    transpose_s8,
 )
-from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda, topk_l2_stream_plain
+from soft_contrastive_learning_torch.ops.kernels.topk import (
+    tf32_split,
+    topk_l2_3xtf32_plain,
+    topk_l2_cuda,
+    topk_l2_stream_plain,
+)
 from soft_contrastive_learning_torch.ops.kernels.winograd import (
     WinogradConvFn,
     direct_conv,
@@ -117,6 +123,99 @@ def test_k2_matches_plain(cuda, q_n, r_n, d, k):
     want_d, want_i = topk_l2_stream_plain(q, r, k)
     assert torch.equal(got_i, want_i)
     torch.testing.assert_close(got_d, want_d, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("r_n", [50, 1000, 33025])
+@pytest.mark.parametrize("k", [1, 5, 128])
+@pytest.mark.parametrize("q_n", [1, 64, 70, 256])
+def test_k2_across_query_tiles_and_block_counts(cuda, q_n, k, r_n):
+    """Exact inputs with duplicated rows, ids and distances equal to the
+    plain version's: 1 to 4 query tiles of 64 (70: a second tile of 6), R
+    ragged against the 128-row tile, below one tile (50: one block of the
+    cluster pair has no tile) and over more tiles than blocks (33,025: 259
+    tiles, a run of several pairs a cluster)."""
+    rng = np.random.default_rng(q_n * k + r_n)
+    q = _eighths(rng, (q_n, 256), cuda)
+    r = _eighths(rng, (r_n, 256), cuda)
+    r[r_n // 2 :] = r[: r_n - r_n // 2].clone()
+    before = topk_l2_cuda.launches
+    got_d, got_i = topk_l2_cuda(q, r, k)
+    torch.cuda.synchronize()
+    assert topk_l2_cuda.launches == before + 1
+    want_d, want_i = topk_l2_stream_plain(q, r, k)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, atol=0, rtol=0)
+
+
+def test_k2_at_d_4100(cuda):
+    """D = 4,100: 128 whole 32-column stages and one of 4 columns, the rest
+    of its box zero-filled by TMA; two query tiles, k at its maximum."""
+    rng = np.random.default_rng(4100)
+    q = _eighths(rng, (70, 4100), cuda)
+    r = _eighths(rng, (2000, 4100), cuda)
+    got_d, got_i = topk_l2_cuda(q, r, 128)
+    want_d, want_i = topk_l2_stream_plain(q, r, 128)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, atol=0, rtol=0)
+
+
+def test_k2_reads_the_low_mantissa_bits(cuda):
+    """Inputs with bits in the 13 positions below tf32's. Refs equal in
+    their tf32 part rank by their low bits alone: the kernel's ids are the
+    3xTF32 emulation's (and the plain version's), which the hi product alone
+    would rank all equal. On normals, whose every element has low bits, ids
+    equal the emulation's outside near-ties (within 1e-5 in squared
+    distance) and distances agree within 1e-5 relative."""
+    d, n = 256, 3000
+    s = np.random.default_rng(6).permutation(n) % 64
+    r = torch.from_numpy(0.5 + s[:, None] * 2.0**-17 + np.zeros((n, d))).float().to(cuda)
+    assert (tf32_split(r)[0] == 0.5).all()
+    q = torch.ones((5, d), device=cuda)
+    got_d, got_i = topk_l2_cuda(q, r, 128)
+    want_d, want_i = topk_l2_3xtf32_plain(q.cpu(), r.cpu(), 128)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_i, topk_l2_stream_plain(q, r, 128)[1])
+    assert not torch.equal(want_i, topk_l2_stream_plain(q.cpu(), tf32_split(r)[0].cpu(), 128)[1])
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((64, 512), generator=gen, device=cuda)
+    r = torch.randn((5000, 512), generator=gen, device=cuda)
+    got_d, got_i = topk_l2_cuda(q, r, 20)
+    want_d, want_i = topk_l2_3xtf32_plain(q.cpu(), r.cpu(), 21)
+    got_sq, want_sq = got_d.cpu().double() ** 2, want_d.double() ** 2
+    steps = (want_sq[:, 1:] - want_sq[:, :-1]).abs()
+    inf = torch.full((64, 1), float("inf"), dtype=torch.float64)
+    gaps = torch.minimum(torch.cat([inf, steps[:, :-1]], 1), steps)
+    scale = want_sq.max().item()
+    differ = got_i.cpu() != want_i[:, :20]
+    assert not (differ & (gaps > 1e-5 * scale)).any()
+    torch.testing.assert_close(got_d.cpu(), want_d[:, :20], atol=0, rtol=1e-5)
+
+
+def test_k2_on_unit_vectors_at_the_descriptor_width(cuda):
+    """The served search's gate on descriptors' geometry: unit vectors at
+    D = 32,768, so the products run over 1,024 stages. Squared distances
+    within 1e-5 of the exact ones (fp64; the plain version's fp32 sums are
+    themselves ~1e-5 off at this width), ids equal to the exact ranking's
+    outside near-ties within 1e-5; 8 of the queries are refs, found at rank
+    0."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    r = torch.randn((3000, 32768), generator=gen, device=cuda)
+    r = r / r.norm(dim=1, keepdim=True)
+    q = torch.randn((64, 32768), generator=gen, device=cuda)
+    q[:8] = r[::375]
+    q = q / q.norm(dim=1, keepdim=True)
+    got_d, got_i = topk_l2_cuda(q, r, 5)
+    q64, r64 = q.double(), r.double()
+    exact = (q64 * q64).sum(1, keepdim=True) - 2.0 * (q64 @ r64.T) + (r64 * r64).sum(1)[None, :]
+    want_sq, want_i = torch.sort(exact, dim=1, stable=True)
+    want_sq, want_i = want_sq[:, :6], want_i[:, :6]
+    assert (got_d.double() ** 2 - want_sq[:, :5]).abs().max().item() <= 1e-5
+    steps = (want_sq[:, 1:] - want_sq[:, :-1]).abs()
+    inf = torch.full((64, 1), float("inf"), dtype=torch.float64, device=cuda)
+    gaps = torch.minimum(torch.cat([inf, steps[:, :-1]], 1), steps)
+    assert not ((got_i != want_i[:, :5]) & (gaps > 1e-5)).any()
+    assert torch.equal(got_i[:8, 0], torch.arange(0, 3000, 375, device=cuda))
 
 
 def test_k2_refuses_what_it_does_not_take(cuda):
@@ -527,12 +626,31 @@ def test_every_wgmma_tile_is_bit_equal_at_ragged_m(cuda, m, out_dtype):
         assert got.dtype == out_dtype and torch.equal(got, want), config
 
 
+@pytest.mark.parametrize("m", [1, 127, 129, 240, 1000])
+def test_every_int8_tile_is_bit_equal_at_ragged_m(cuda, m):
+    """Each int8 tile shape (wgmma fed by TMA, after the transpose of B) on
+    any int8 values, batched, with M not a multiple of the 128-row tile."""
+    a, b = _gemm_operands(cuda, (3, m, 256), (3, 256, 256), torch.int8, exact=True)
+    want = probe_gemm_plain(a, b, torch.int32)
+    for config in range(len(CONFIGS[torch.int8])):
+        got = probe_gemm(a, b, torch.int32, config)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), config
+
+
+def test_transpose_s8_is_the_transpose(cuda):
+    """The int8 path's first kernel alone, as ``chip_smoke.py`` times it."""
+    b = _gemm_operands(cuda, (1, 64), (2, 192, 320), torch.int8, exact=True)[1]
+    assert torch.equal(transpose_s8(b), b.transpose(1, 2).contiguous())
+    assert torch.equal(transpose_s8(b[0].contiguous())[0], b[0].t())
+
+
 def test_choose_config_routes_by_type(cuda):
-    """bf16 takes a wgmma tile (BK 64), int8 an mma.sync one, on the card as
-    on the CPU."""
+    """bf16 takes a bf16 wgmma tile (BK 64), int8 an int8 wgmma one (BK 128
+    at the large problem), on the card as on the CPU."""
     assert CONFIGS[torch.bfloat16][choose_config(8192, 8192, 4096)] == (128, 256, 64)
     assert CONFIGS[torch.int8][choose_config(8192, 8192, 4096, dtype=torch.int8)] == \
-        (128, 256, 32)
+        (128, 256, 128)
 
 
 @pytest.mark.parametrize("b,h,w,c,f", [(2, 11, 15, 256, 128), (50, 22, 30, 512, 512),

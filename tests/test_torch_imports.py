@@ -63,7 +63,11 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert names == ["netvlad", "probe_gemm", "topk", "winograd", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
-    assert "int scl_topk_l2(" in text["topk"] and "scl_topk_chunk_rows" in text["topk"]
+    assert "int scl_topk_l2(" in text["topk"] and "int scl_topk_num_lists(" in text["topk"]
+    # K2's products are its own: tf32 wgmma with A from registers, fed by TMA
+    # (the query tiles multicast across the cluster), hi/lo split by bit masks
+    assert "wgmma_m64n64k8_tf32_rs" in text["topk"] and "tma_load_2d" in text["topk"]
+    assert "tma_load_3d_multicast" in text["topk"] and "0xffffe000u" in text["topk"]
     # K3 is one kernel; its only atomics count the grid barrier's and the
     # last block's arrivals (no float atomics: the same bits every run)
     assert "int scl_wms_loss(" in text["wms"] and text["wms"].count("__global__") == 1
@@ -82,10 +86,11 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert "int scl_winograd_stage(" in text["winograd"]
     assert text["winograd"].count("__global__") == 2  # the weight transform and K4
     assert "if constexpr (STAGE" in text["winograd"]
-    # the probes' product is the kernels' own: bf16 on wgmma fed by TMA, int8
-    # on mma fed by cp.async
+    # the probes' product is the kernels' own: bf16 and int8 on wgmma fed by
+    # TMA, int8 after the kernel's own transpose of B
     gemm = text["probe_gemm"]
-    assert "int scl_probe_gemm(" in gemm and "mma_sync" in gemm and "cp.async" in gemm
+    assert "int scl_probe_gemm(" in gemm and "wgmma_m64n256k32_s8" in gemm
+    assert "transpose_kernel" in gemm and "mma_sync" not in gemm and "cp.async" not in gemm
     assert "wgmma_m64n256k16" in gemm and "tma_load_3d" in gemm and "setmaxnreg" in gemm
     assert "signed char" in gemm and "__nv_bfloat16" in gemm
     assert not any(lib in t.lower() for t in (gemm, sm90) for lib in ("cublas", "cudnn", "cutlass",

@@ -202,21 +202,27 @@ def test_probe_gemm_refuses_what_it_does_not_take():
 
 
 def test_choose_config_takes_wgmma_tiles_for_bf16_and_mma_sync_tiles_for_int8():
-    """bf16 chooses among the wgmma tiles (128 rows, K steps of 64 bf16 =
-    one 128-byte swizzle row), int8 among the mma.sync ones; both lists are
-    what the library is checked against when it loads."""
-    assert ROUTES == {torch.bfloat16: "wgmma", torch.int8: "mma.sync"}
+    """bf16 chooses among the bf16 wgmma tiles (128 rows, K steps of 64 bf16
+    = one 128-byte swizzle row), int8 among the int8 wgmma tiles (K steps of
+    128 int8 = one 128-byte swizzle row, or 64 with the 64-byte swizzle);
+    both lists are what the library is checked against when it loads. (The
+    name predates int8 on wgmma: int8 took mma.sync.)"""
+    assert ROUTES == {torch.bfloat16: "wgmma", torch.int8: "wgmma"}
     assert CONFIGS[torch.bfloat16] == ((128, 256, 64), (128, 128, 64), (128, 64, 64))
-    assert CONFIGS[torch.int8] == ((64, 64, 32), (128, 128, 32), (128, 256, 32), (256, 128, 64))
+    assert CONFIGS[torch.int8] == ((128, 256, 128), (128, 256, 64), (128, 128, 128), (128, 64, 64))
     for m, n, k, z in ((8192, 8192, 4096, 1), (4096, 4096, 2048, 1), (512, 512, 512, 1),
                        (1024, 128, 128, 16), (360, 256, 256, 16), (16384, 128, 128, 1)):
         assert CONFIGS[torch.bfloat16][choose_config(m, n, k, z)][2] == 64
         assert choose_config(m, n, k, z, torch.int8) in range(len(CONFIGS[torch.int8]))
-    assert CONFIGS[torch.int8][choose_config(8192, 8192, 4096, dtype=torch.int8)] == (128, 256, 32)
-    # K = 96: an mma.sync tile (BK 32) divides it, no wgmma tile does
-    assert CONFIGS[torch.int8][choose_config(512, 256, 96, dtype=torch.int8)][2] == 32
-    with pytest.raises(ValueError, match="no tile shape"):
-        choose_config(512, 256, 96)
+    assert CONFIGS[torch.int8][choose_config(8192, 8192, 4096, dtype=torch.int8)] == \
+        (128, 256, 128)
+    # K = 192: only the BK 64 int8 tiles divide it; N = 320 only the narrowest
+    assert CONFIGS[torch.int8][choose_config(1000, 320, 192, 3, torch.int8)] == (128, 64, 64)
+    assert CONFIGS[torch.int8][choose_config(8192, 8192, 192, dtype=torch.int8)] == (128, 256, 64)
+    # K = 96: no tile of either type divides it
+    for dtype in (torch.bfloat16, torch.int8):
+        with pytest.raises(ValueError, match="no tile shape"):
+            choose_config(512, 256, 96, dtype=dtype)
 
 
 @pytest.mark.parametrize("shape_a,shape_b,dtype,config,ptrs,match", [
@@ -228,6 +234,8 @@ def test_choose_config_takes_wgmma_tiles_for_bf16_and_mma_sync_tiles_for_int8():
     ((0, 256), (256, 256), torch.bfloat16, None, (0, 0), "non-empty"),
     ((70000, 64, 64), (70000, 64, 64), torch.bfloat16, None, (0, 0), "grid out of range"),
     ((512, 48), (48, 64), torch.int8, None, (0, 0), "no tile shape"),
+    ((512, 256), (256, 256), torch.int8, None, (8, 0), "16-byte-aligned"),
+    ((512, 256), (256, 256), torch.int8, None, (0, 4), "16-byte-aligned"),
 ])
 def test_probe_gemm_refuses_before_any_build(shape_a, shape_b, dtype, config, ptrs, match):
     """What TMA and the tiles cannot take is refused from shapes and
@@ -237,9 +245,10 @@ def test_probe_gemm_refuses_before_any_build(shape_a, shape_b, dtype, config, pt
 
 
 def test_probe_gemm_plans_what_it_takes():
-    # int8 has no TMA: any address its 16-byte copies take is the caller's
+    # both types load by TMA: 16-byte-aligned operands (misaligned ones are
+    # refused above)
     assert plan_launch((16, 240, 128), (16, 128, 128), torch.bfloat16) == 2
-    assert plan_launch((512, 256), (256, 256), torch.int8, None, 8, 0) in range(4)
+    assert plan_launch((512, 256), (256, 256), torch.int8, None, 16, 0) in range(4)
 
 
 # ---------------------------------------------------------------- P6
