@@ -114,8 +114,41 @@ failure:
    (10 per forward: steps, mining embeds, evals), the same checks, the
    standard epoch's first batch within 1e-2 relative of the standard
    configuration's loss, and the step timed against it in turns;
-16. print the serve, train, probe and kernel JSON lines, then the result
-   line.
+16. train_files: the same toy city written as the prep pipeline's tree
+   (shuffled/, anchors/, clusters/, PNGs) with the port's writer, and `cli
+   train` from it on the host feed (no device image pool: decoded on 8
+   threads, built ahead by the Prefetcher) for 20 steps (the anchor list cut
+   to 40) from the trained weights with fused wms: steps, refreshes, exact
+   K1/K1_bwd/K3 counts, finite losses; the first batch's pixels byte for
+   byte the toy-city source's and its loss the pooled step's on the same
+   sample (1e-5 relative at fp32, 1e-4 at bf16); a fresh Trainer resumed
+   from the part checkpoint of step 10 on the host feed within 10x the
+   run-to-run floor (at least 1e-6) of the uninterrupted run, on its
+   batches; decode img/s (as written, and every row Paeth) and the host-fed
+   step beside the pooled one;
+17. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+   and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
+   for the three sets (fp32) and the queries as fp16: K1 once per batch of
+   32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
+   fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
+   end, the card's busy share (CUDA events around every embed) and decode
+   img/s;
+18. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+   N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
+   top-1 within 25 m at l0.0_dim256, the curves by
+   correctly_localized_curve (`cli roc` draws them where matplotlib is);
+19. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+   rows of its per-column normal to 250,000 rows, `top_n_single` at
+   spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
+   each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
+   search on the card (the whitened rows' |q|^2 is tens of times the
+   top-1's squared distance, which the fp32 formula cancels; the error
+   relative to the top-1 is printed beside the plain version's), ids
+   differing only at near-ties within that; the repaired D = 66 at 200,001
+   rows of eighths equal to the plain version; K2 timed at both widths
+   beside the dense topk_l2, the plain version and the bounds;
+20. print the new paths', serve, train, probe and kernel JSON lines, then
+   the result line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
 H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 495 TFLOP/s tf32, 989
@@ -412,6 +445,26 @@ def blocky_images(rng, n: int):
     return rng.integers(0, 256, (n, 12, 16, 3), dtype="uint8").repeat(15, 1).repeat(15, 2)
 
 
+def exact_search(torch, q, refs, k, rows=16384):
+    """The exact ranking: fp64 squared distances of ``q`` to every ref on
+    the card, ``rows`` refs at a time. Returns the k + 1 nearest (squared
+    distances, ids) and each rank's gap to its nearer neighbouring rank,
+    the margin within which two ids may swap."""
+    q64 = q.double()
+    q_sq = (q64 * q64).sum(1, keepdim=True)
+    exact = torch.empty((len(q), len(refs)), dtype=torch.float64, device="cuda")
+    for s in range(0, len(refs), rows):
+        r64 = refs[s : s + rows].double()
+        exact[:, s : s + rows] = q_sq - 2.0 * (q64 @ r64.T) + (r64 * r64).sum(1)[None, :]
+    want_sq, want_i = torch.sort(exact, dim=1, stable=True)
+    want_sq, want_i = want_sq[:, : k + 1], want_i[:, : k + 1]
+    del exact
+    steps = (want_sq[:, 1:] - want_sq[:, :-1]).abs()  # (Q, k): gap to the next rank
+    inf = torch.full((len(q), 1), float("inf"), dtype=torch.float64, device="cuda")
+    gaps = torch.minimum(torch.cat([inf, steps[:, :-1]], 1), steps)
+    return want_sq, want_i, gaps
+
+
 def phase_serve(torch, np, report, shared):
     from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.core.config import ModelConfig
@@ -469,29 +522,18 @@ def phase_serve(torch, np, report, shared):
     q = torch.from_numpy(service.embed(query_imgs)).cuda()
     got_d, got_i = topk_l2_cuda(q, index, k)
     plain_d, _ = topk_l2_stream_plain(q, index, k)
-    q64 = q.double()
-    exact = torch.empty((len(q), n_rows), dtype=torch.float64, device="cuda")
-    for s in range(0, n_rows, 4096):
-        r64 = index[s : s + 4096].double()
-        exact[:, s : s + 4096] = ((q64 * q64).sum(1, keepdim=True) - 2.0 * (q64 @ r64.T)
-                                  + (r64 * r64).sum(1)[None, :])
-    want_sq, want_i = torch.sort(exact, dim=1, stable=True)
-    want_sq, want_i = want_sq[:, : k + 1].cpu().numpy(), want_i[:, : k + 1]
-    del exact, r64
-    got_sq = (got_d.double() ** 2).cpu().numpy()
-    plain_sq = (plain_d.double() ** 2).cpu().numpy()
-    e = np.abs(got_sq - want_sq[:, :k]).max()
-    differ = (got_i != want_i[:, :k]).cpu().numpy()
-    steps = np.abs(np.diff(want_sq, axis=1))  # (Q, k): gap to the next rank
-    gaps = np.minimum(np.concatenate([np.full((len(steps), 1), np.inf), steps[:, :-1]], 1),
-                      steps)
+    want_sq, want_i, gaps = exact_search(torch, q, index, k, rows=4096)
+    got_sq, plain_sq = got_d.double() ** 2, plain_d.double() ** 2
+    e = (got_sq - want_sq[:, :k]).abs().max().item()
+    differ = got_i != want_i[:, :k]
     if e > 1e-5 or (differ & (gaps > 1e-5)).any():
-        fail(f"served K2 vs exact: sq-dist err {e}, {differ.sum()} ids differ outside near-ties")
-    plain_e = np.abs(plain_sq - want_sq[:, :k]).max()
+        fail(f"served K2 vs exact: sq-dist err {e}, {int(differ.sum())} ids differ outside "
+             "near-ties")
+    plain_e = (plain_sq - want_sq[:, :k]).abs().max().item()
     print(f"serve: K2 vs the exact (fp64) search on the served queries: max sq-dist err {e:.3g}, "
-          f"{differ.sum()} of {differ.size} ids differ (near-ties within 1e-5 only); the plain "
-          f"version's max sq-dist err to the exact search {plain_e:.3g}, to K2 "
-          f"{np.abs(plain_sq - got_sq).max():.3g}")
+          f"{int(differ.sum())} of {differ.numel()} ids differ (near-ties within 1e-5 only); the "
+          f"plain version's max sq-dist err to the exact search {plain_e:.3g}, to K2 "
+          f"{(plain_sq - got_sq).abs().max().item():.3g}")
 
     # /search latency: the 64 queries' embed and one K2 launch, host clock
     # from the images to the results (numpy), after the search above
@@ -1244,14 +1286,65 @@ def toy_city():
     return KeptToyCity(num_points=120, radius=150.0, img_h=180, img_w=240)
 
 
+def instrument(torch, tr, pooled=True):
+    """Wrap a trainer's step (``train_step_pooled``, or the host-fed
+    ``train_step``), sampler, eval hooks and checkpoint writes: every step
+    timed on the device (``tr.step_events``) and its call on the host clock
+    (``tr.step_calls``), the first batch kept (``tr.first_batch``), the
+    image indices of every sample drawn (``tr.drawn``), and the seconds of
+    the eval hooks and the checkpoint writes (``tr.timing``)."""
+    attr = "train_step_pooled" if pooled else "train_step"
+    step, sample = getattr(tr, attr), tr._sample
+    tr.drawn, tr.step_events, tr.step_calls, tr.first_batch = [], [], [], {}
+    tr.timing = {"eval_s": 0.0, "save_s": 0.0}
+
+    def recording_sample(*args):
+        out = sample(*args)
+        tr.drawn.append(None if out is None else tuple(out.indices.reshape(-1).tolist()))
+        return out
+
+    def timed_step(state, batch, *pool):
+        if not tr.first_batch:
+            tr.first_batch.update({k: v.clone() if torch.is_tensor(v) else v
+                                   for k, v in batch.items()})
+        tr.step_calls.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch, *pool)
+        end.record()
+        tr.step_events.append((start, end))
+        return out
+
+    tr._sample = recording_sample
+    setattr(tr, attr, timed_step)
+    run_eval, save = tr._run_eval, tr.ckpts.save
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(*args, **kwargs)
+        tr.timing["save_s"] += time.perf_counter() - t
+
+    def timed_eval(*args):  # the rolling save inside it counts as a save
+        torch.cuda.synchronize()
+        t, saved = time.perf_counter(), tr.timing["save_s"]
+        run_eval(*args)
+        torch.cuda.synchronize()
+        tr.timing["eval_s"] += time.perf_counter() - t - (tr.timing["save_s"] - saved)
+
+    tr.ckpts.save = timed_save
+    tr._run_eval = timed_eval
+    return tr
+
+
 def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=None,
                 resume=None):
     """One epoch through Trainer.train() from ``params``, every step timed
     on the device; fails unless the kernels launched ``expect`` times on it.
     ``out_dir``: a run directory that outlives the call (default: a
     temporary one); ``resume``: the checkpoint role to take up from it first.
-    Returns the trainer (``tr.drawn``: the image indices of every sample
-    drawn), per-step losses and ms, the epoch's
+    Returns the trainer (``instrument``: ``tr.drawn``, the image indices of
+    every sample drawn), per-step losses and ms, the epoch's
     wall seconds and how many of them the eval hooks took (they render the
     held-out city's images on the host) and the checkpoint writes took, the
     pool set-up seconds, each
@@ -1262,49 +1355,7 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=No
         tr = Trainer(cfg, source, out_dir=out_dir or tmp_dir, device="cuda", params=params)
         if resume is not None and not tr.resume_latest(resume):
             fail(f"{path}: no '{resume}' checkpoint to resume from in {out_dir}")
-        step, events, first = tr.train_step_pooled, [], {}
-        sample, tr.drawn = tr._sample, []
-
-        def recording_sample(*args):
-            out = sample(*args)
-            tr.drawn.append(None if out is None else tuple(out.indices.reshape(-1).tolist()))
-            return out
-
-        tr._sample = recording_sample
-
-        def timed_step(state, batch, pool):
-            if not first:
-                first.update({k: v.clone() if torch.is_tensor(v) else v
-                              for k, v in batch.items()})
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(state, batch, pool)
-            end.record()
-            events.append((start, end))
-            return out
-
-        tr.train_step_pooled = timed_step
-        run_eval, eval_s = tr._run_eval, [0.0]
-        # the checkpoint writes (a part one at anchors 0 and RESUME_ANCHOR, the
-        # rolling one inside the eval, one at the epoch's end), timed apart
-        save, save_s = tr.ckpts.save, [0.0]
-
-        def timed_save(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            save(*args, **kwargs)
-            save_s[0] += time.perf_counter() - t
-
-        tr.ckpts.save = timed_save
-
-        def timed_eval(*args):
-            torch.cuda.synchronize()
-            t, saved = time.perf_counter(), save_s[0]
-            run_eval(*args)
-            torch.cuda.synchronize()
-            eval_s[0] += time.perf_counter() - t - (save_s[0] - saved)
-
-        tr._run_eval = timed_eval  # the rolling save inside it counts as a save
+        instrument(torch, tr, pooled=cfg.device_image_pool)
         t0 = time.perf_counter()  # set-up: render the city into the card's image pool
         tr._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))
         pool_s = time.perf_counter() - t0
@@ -1314,13 +1365,19 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=No
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
         launches = counts.read(expect)
-        losses = [r["value"] for r in tr.writers["local"].read_all() if r["tag"] == "loss"]
+        losses = run_losses(tr)
         evals = {f"{role}/{r['tag']}@{r['step']}": r["value"] for role in ("other", "local")
                  for r in tr.writers[role].read_all()
                  if r["tag"] not in ("learning_rate",) and (role, r["tag"]) != ("local", "loss")}
         tr.close()
-    step_ms = [s.elapsed_time(e) for s, e in events]
-    return tr, losses, step_ms, (epoch_s, eval_s[0], save_s[0]), pool_s, launches, evals, first
+    step_ms = [s.elapsed_time(e) for s, e in tr.step_events]
+    return (tr, losses, step_ms, (epoch_s, tr.timing["eval_s"], tr.timing["save_s"]), pool_s,
+            launches, evals, tr.first_batch)
+
+
+def run_losses(tr):
+    """The training losses a run wrote to metrics_local.jsonl, in order."""
+    return [r["value"] for r in tr.writers["local"].read_all() if r["tag"] == "loss"]
 
 
 def check_epoch(torch, np, label, tr, params, losses, evals):
@@ -1574,6 +1631,540 @@ def phase_train_winograd(torch, np, report, shared):
         first_batch_rel_to_standard=rel, first_loss=losses[0], last_loss=losses[-1], evals=evals)
 
 
+# ---------------------------------------------------------------- file-fed training
+FILE_SETS = ("train_ref", "train_query", "test_ref", "test_query")
+FILES_ANCHORS = 40  # the file-fed epoch is cut to its first 40 anchors: 20 steps
+FILES_RESUME_STEP = 10  # a part checkpoint at anchor 20, a refresh boundary
+# kernel launches of the 20-step epoch: 2 refreshes of 3 embeds of 50, the
+# eval hooks at step 0 (2 held-out loss batches, 4 embeds)
+FILES_FORWARDS = 20 + 2 * 3 + 2 + 4
+
+
+def files_train_args(roots, out_root, out_folder):
+    """``cli train`` from the prep tree ``roots``: the flagship from the
+    trained weights with fused wms, the host feed (no device image pool),
+    and the toy epochs' cadence (mining every 20 anchors over a cache of
+    100, the eval hooks once, before the first step), a part checkpoint
+    every 20 anchors."""
+    from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
+
+    return ["train", "--img_root", roots["img_root"], "--shuffled_root", roots["shuffled_root"],
+            "--anchor_root", roots["anchor_root"], "--loc_ref_root", roots["loc_ref_root"],
+            "--loss", "wms", "--fused_wms", "True", "--device_image_pool", "False",
+            "--checkpoint", str(TRAINED_PARAMS_PATH), "--max_epoch", "1",
+            "--mining_step", "20", "--mining_cache_size", "100", "--eval_step", "1000",
+            "--save_step", "20", "--num_eval_queries", "4", "--eval_ref_r", "10",
+            "--out_root", out_root, "--out_folder", out_folder]
+
+
+def decode_rate(np, paths, workers):
+    """Images per second decoding ``paths`` with the port's PNG decoder on
+    ``workers`` threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch.utils.io import load_img
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        n = sum(1 for _ in ex.map(load_img, paths))
+    return n / (time.perf_counter() - t0)
+
+
+def paeth_copies(np, paths, out_dir):
+    """The same images written with the Paeth filter on every row (the
+    filter that does not vectorize along a row)."""
+    from soft_contrastive_learning_torch.utils.io import FILTER_PAETH, load_img, save_img
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = []
+    for i, p in enumerate(paths):
+        out.append(str(out_dir / f"{i:05d}.png"))
+        save_img(load_img(p), out[-1], filters=FILTER_PAETH)
+    return out
+
+
+def phase_train_files(torch, np, report, shared):
+    """The toy city of the training phases written as the prep pipeline's
+    tree with the port's PNG writer, and ``cli train`` from it on the host
+    feed: 20 steps (the anchor list cut to 40) from the trained weights,
+    decoded on the trainer's 8 threads and built ahead by its Prefetcher.
+    Gates: steps, refreshes, exact K1/K1_bwd/K3 counts, finite losses; the
+    first batch's pixels byte for byte the toy-city source's; its loss the
+    pooled toy-city step's on the same sample (1e-5 relative at fp32, 1e-4
+    at bf16); a fresh Trainer resumed from the part checkpoint of step 10 on
+    the host feed within 10x the run-to-run floor (at least 1e-6) of the
+    uninterrupted run, on the same batches."""
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from soft_contrastive_learning_torch.data.corpus import write_prep_tree
+    from soft_contrastive_learning_torch.data.pipeline import (
+        FilesystemSource, load_images_standard)
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.train import trainer as trainer_mod
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+
+    source, params = shared["source"], shared["train_params"]
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    t0 = time.perf_counter()
+    roots = write_prep_tree(source, str(root / "prep"), FILE_SETS, anchor_r=1, cluster_r=10,
+                            max_anchors=FILES_ANCHORS)
+    write_s = time.perf_counter() - t0
+    pngs = sorted(str(p) for p in Path(roots["img_root"]).rglob("*.png"))
+    decode = {"sub_8_threads": decode_rate(np, pngs, 8), "sub_1_thread": decode_rate(np, pngs, 1)}
+    paeth = paeth_copies(np, pngs[:64], root / "paeth")
+    decode.update(paeth_8_threads=decode_rate(np, paeth, 8),
+                  paeth_1_thread=decode_rate(np, paeth, 1))
+    print(f"train_files: wrote {len(pngs)} PNGs of the toy city as a prep tree in {write_s:.2f} s; "
+          f"decode {decode['sub_8_threads']:.1f} img/s on 8 threads, "
+          f"{decode['sub_1_thread']:.1f} on one (as written: Sub filter); every row Paeth: "
+          f"{decode['paeth_8_threads']:.1f} / "
+          f"{decode['paeth_1_thread']:.1f} img/s")
+
+    args = files_train_args(roots, str(root / "runs"), "a")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(args))
+    made = []
+
+    class Recording(trainer_mod.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(instrument(torch, self, pooled=False))
+
+    counts = LaunchCounts(report, "train_files")
+    real = trainer_mod.Trainer
+    trainer_mod.Trainer = Recording
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer = real
+    launches = counts.read({"K1": FILES_FORWARDS, "K1_bwd": 20, "K3": 20 + 2})
+    (tr,) = made
+    losses = run_losses(tr)
+    if rc != 0 or tr.global_step != 20 or tr.mining.refresh_count != 2 or len(losses) != 20:
+        fail(f"train_files: rc {rc}, {tr.global_step} steps, {tr.mining.refresh_count} refreshes, "
+             f"{len(losses)} losses; expected 0, 20, 2, 20")
+    if not np.isfinite(losses).all():
+        fail(f"train_files: non-finite losses {losses}")
+
+    # the first batch: the files' pixels against the toy-city source's
+    meta = source.epoch_meta(cfg.local_ref_set, 0)
+    keys = [(meta["date"][i], meta["folder"][i], meta["t"][i]) for i in tr.drawn[0]]
+    want = load_images_standard(source, keys, cfg)
+    got = tr.first_batch["images"].cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"train_files: the first batch's pixels differ from the toy city's "
+             f"({got.shape} vs {want.shape}, {int((got != want).sum())} bytes)")
+    # its loss: the host-fed step against the pooled step on the toy city's
+    # images of the same sample, from the trained weights
+    batch = {k: v for k, v in tr.first_batch.items() if k != "images"}
+    pool = torch.from_numpy(want).cuda()
+    pooled = dict(batch, image_idx=torch.arange(len(want), device="cuda"))
+    rel = {}
+    for dtype in ("float32", "bfloat16"):
+        c = TrainConfig(model=ModelConfig(compute_dtype=dtype), loss=LossConfig(fused_wms=True))
+        loss_fn = build_loss(c.loss, c.tuples, c.tuples_per_batch)
+        got_loss = []
+        for image_pool in (False, True):
+            model = EmbeddingNet(c.model)
+            model.load_state_dict(params)
+            step = build_train_step(c, loss_fn, image_pool=image_pool)
+            state = init_train_state(c, model.cuda())
+            out = step(state, pooled, pool) if image_pool else step(state, dict(tr.first_batch))
+            got_loss.append(out[1]["loss"].item())
+        rel[dtype] = abs(got_loss[0] - got_loss[1]) / abs(got_loss[1])
+        print(f"train_files parity {dtype}: first-batch loss host-fed from the files "
+              f"{got_loss[0]:.8f}, pooled from the toy city {got_loss[1]:.8f} "
+              f"(rel {rel[dtype]:.3g})")
+    rel["run_first_loss"] = abs(losses[0] - got_loss[1]) / abs(got_loss[1])
+    if rel["float32"] > 1e-5 or rel["bfloat16"] > 1e-4 or rel["run_first_loss"] > 1e-4:
+        fail(f"train_files: the file-fed first batch's loss departs from the pooled path's: {rel}")
+
+    # stop and resume on the host feed: a second uninterrupted run (the
+    # floor), then a fresh Trainer from the part checkpoint of step 10
+    files = FilesystemSource(**roots)
+    again, again_losses, *_ = train_epoch(
+        torch, np, report, "train_files_again", cfg, params, files,
+        {"K1": FILES_FORWARDS, "K1_bwd": 20, "K3": 22}, out_dir=str(root / "runs" / "again"))
+    part = Path("checkpoints") / "part" / str(FILES_RESUME_STEP)
+    run_a = root / "runs" / "a"
+    if not (run_a / part / "state.pt").exists():
+        fail(f"train_files: no part checkpoint at step {FILES_RESUME_STEP}: "
+             f"{sorted(str(p) for p in run_a.rglob('*.pt'))}")
+    (root / "runs" / "b" / part).parent.mkdir(parents=True)
+    shutil.copytree(run_a / part, root / "runs" / "b" / part)
+    resumed, resumed_losses, *_ = train_epoch(
+        torch, np, report, "train_files_resumed", cfg, None, files,
+        {"K1": 10 + 3, "K1_bwd": 10, "K3": 10}, out_dir=str(root / "runs" / "b"), resume="part")
+    final = tr.state.model.state_dict()
+    half = FILES_RESUME_STEP
+
+    def against_first(other, other_losses):
+        state = other.state.model.state_dict()
+        tail = np.asarray(losses[half:])
+        if len(other_losses) != len(tail) or not np.isfinite(other_losses).all():
+            fail(f"train_files: {len(other_losses)} losses after step {half}; expected {len(tail)}")
+        return dict(last_loss=float(abs(other_losses[-1] - tail[-1])),
+                    param=max((state[k] - final[k]).abs().max().item() for k in final),
+                    same_batches=other.drawn[-len(tail):] == tr.drawn[half:])
+
+    floor = against_first(again, again_losses[half:])
+    got_resume = against_first(resumed, resumed_losses)
+    gate = {key: max(10 * floor[key], 1e-6) for key in ("last_loss", "param")}
+    print(f"train_files_resumed: from part@{half} to step {resumed.global_step} on the host feed; "
+          f"against the uninterrupted run: {got_resume}; floor from a second run: {floor}; "
+          f"gates {gate}")
+    if resumed.global_step != 20 or not got_resume["same_batches"] \
+            or got_resume["last_loss"] > gate["last_loss"] or got_resume["param"] > gate["param"]:
+        fail(f"train_files_resumed: {resumed.global_step} steps, {got_resume} against the floor "
+             f"{floor}")
+
+    step_ms = [s.elapsed_time(e) for s, e in tr.step_events]
+    med = statistics.median(step_ms[1:])
+    # the host-fed step on the host clock: the median interval between two
+    # step calls (the intervals across the refresh at step 10 are the outliers)
+    wall_ms = 1e3 * statistics.median(t1 - t0 for t0, t1 in zip(tr.step_calls, tr.step_calls[1:]))
+    b = cfg.images_per_batch
+    run_s = epoch_s - tr.timing["eval_s"] - tr.timing["save_s"]
+    pooled_report = report["train"]
+    print(f"train_files: {tr.global_step} steps, {tr.mining.refresh_count} refreshes in "
+          f"{epoch_s:.2f} s (cli.main, set-up included), of which the eval hooks "
+          f"{tr.timing['eval_s']:.2f} s and the checkpoint writes {tr.timing['save_s']:.2f} s; "
+          f"launches {launches}; host-fed step {wall_ms:.3f} ms between step calls "
+          f"({1e3 * b / wall_ms:.1f} img/s), {med:.3f} ms between its CUDA events (median "
+          f"after the first); the pooled epoch's step {pooled_report['median_step_ms']:.3f} ms "
+          f"on the device, {pooled_report['epoch_img_s']:.1f} img/s end to end")
+    report["train_files"] = dict(
+        steps=tr.global_step, refreshes=tr.mining.refresh_count, images=len(pngs),
+        write_s=write_s, decode_img_s=decode, epoch_s=epoch_s, eval_s=tr.timing["eval_s"],
+        save_s=tr.timing["save_s"], median_step_ms=med, step_wall_ms=wall_ms,
+        step_wall_img_s=1e3 * b / wall_ms, first_step_ms=step_ms[0],
+        epoch_img_s=20 * b / run_s, pooled_median_step_ms=pooled_report["median_step_ms"],
+        pooled_epoch_img_s=pooled_report["epoch_img_s"], parity_rel=rel,
+        first_loss=losses[0], last_loss=losses[-1],
+        resume=dict(resumed_from_step=half, vs_uninterrupted=got_resume, floor=floor))
+    work.cleanup()
+
+
+# ---------------------------------------------------------------- the paper's pipeline
+# the rehearsal corpus's geometry cut in refs (3,000 -> 750); PCA and query
+# sets at the rehearsal's 4,400 and 300, so that whitening reaches D = 4,096
+# and the 250k-row search has the rehearsal's queries
+REHEARSAL_CUT = dict(n_ref=750, n_query=300, n_pca=4400)
+TOPN_DIMS = (64, 128, 256, 512, 1024)
+TOPN_WITHIN_25M = 90.0  # % of the toy queries whose top-1 is within 25 m at l0.0_dim256
+
+
+def phase_infer(torch, np, report, shared):
+    """The rehearsal's three sets (cut: 750 refs) rendered with the port's
+    PNG writer on 8 processes (set-up, timed apart), then ``cli infer`` for
+    each, float32, and the queries once more as float16: the committed
+    trained flagship at batch 32. Gates: K1 once per batch; dumps of shape
+    (N, 32,768), finite and unit-norm; on 64 ref images, cosine >= 0.99 to
+    the fp32 plain model; the float16 dump within 1e-3 of the float32 one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.data.corpus import rehearsal_sets, write_image_set
+    from soft_contrastive_learning_torch.evaluation import inference
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.utils.io import load_img, load_pickle
+
+    work = shared["corpus"] = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    img_root, csv_root, lv = root / "imgs", root / "lists", root / "lv"
+    sets = rehearsal_sets(**REHEARSAL_CUT)
+    t0 = time.perf_counter()
+    rel = {name: write_image_set(city, name, str(img_root), str(csv_root), workers=8)
+           for name, city in sets.items()}
+    render_s = time.perf_counter() - t0
+    n_images = sum(len(c) for c in sets.values())
+    sizes = ", ".join(f"{k} {len(v)}" for k, v in sets.items())
+    print(f"infer: rendered {n_images} images ({sizes}) as PNG on 8 processes in {render_s:.1f} s "
+          f"({n_images / render_s:.1f} img/s)")
+
+    events = []  # CUDA events around every embed: the card's busy time
+    real_build = inference.build_embed_step
+
+    def timed_build(model):
+        embed = real_build(model)
+
+        def timed(x):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = embed(x)
+            end.record()
+            events.append((start, end))
+            return out
+
+        return timed
+
+    runs = [(name, "wms", "float32") for name in ("toy_pca", "toy_ref", "toy_query")]
+    runs.append(("toy_query", "wms16", "float16"))
+    counts = LaunchCounts(report, "infer")
+    walls = {}
+    inference.build_embed_step = timed_build
+    try:
+        for name, out_name, dtype in runs:
+            t0 = time.perf_counter()
+            rc = cli.main(["infer", "--set", name, "--csv_root", str(csv_root), "--img_root",
+                           str(img_root), "--out_root", str(lv), "--out_name", out_name,
+                           "--dump_dtype", dtype])
+            torch.cuda.synchronize()
+            walls[f"{name}_{out_name}"] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"infer {name} ({dtype}): rc {rc}")
+    finally:
+        inference.build_embed_step = real_build
+    batches = sum(-(-len(sets[name]) // 32) for name, _, _ in runs)
+    launches = counts.read({"K1": batches})
+    busy_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    wall_s = sum(walls.values())
+
+    dumps = {}
+    for name, out_name, dtype in runs:
+        d = load_pickle(str(lv / f"{name}_{out_name}.pickle"))
+        n = len(sets[name])
+        if d.shape != (n, 32768) or d.dtype != np.dtype(dtype) or not np.isfinite(d).all():
+            fail(f"infer {name}: dump {d.shape} {d.dtype}, finite {np.isfinite(d).all()}")
+        norms = np.linalg.norm(d.astype(np.float64), axis=1)
+        if np.abs(norms - 1).max() > 1e-3:
+            fail(f"infer {name}: norms {norms.min()}..{norms.max()}")
+        dumps[f"{name}_{out_name}"] = d
+    f16_err = float(np.abs(dumps["toy_query_wms16"].astype(np.float32)
+                           - dumps["toy_query_wms"]).max())
+    ref_cfg = ModelConfig(compute_dtype="float32", use_kernels=False)
+    model = EmbeddingNet(ref_cfg)
+    model.load_state_dict(shared["train_params"])
+    model = model.cuda().eval()
+    imgs = np.stack([load_img(str(img_root / p)) for p in rel["toy_ref"][:64]])
+    with torch.inference_mode():
+        want = model(torch.from_numpy(imgs).cuda())[1].cpu().numpy()
+    cos = float((want * dumps["toy_ref_wms"][:64]).sum(1).min())
+    print(f"infer: launches {launches}; cosine to the fp32 plain model on 64 ref images {cos:.6f}; "
+          f"float16 dump within {f16_err:.3g} of the float32 one")
+    if cos < 0.99 or f16_err > 1e-3:
+        fail(f"infer: descriptors part from the fp32 plain model ({cos}) or the float16 dump "
+             f"from the float32 one ({f16_err})")
+
+    pngs = [str(img_root / p) for p in rel["toy_ref"][:256]]
+    decode = {"sub_8_threads": decode_rate(np, pngs, 8)}
+    paeth = paeth_copies(np, pngs[:64], root / "paeth")
+    decode["paeth_8_threads"] = decode_rate(np, paeth, 8)
+    rates = {k: len(sets[k.rsplit("_", 1)[0]]) / v for k, v in walls.items()}
+    print("infer: end to end (cli.main, the model's set-up included) "
+          + ", ".join(f"{k} {v:.1f} img/s" for k, v in rates.items())
+          + f"; the card busy {100 * busy_s / wall_s:.1f}% of the {wall_s:.1f} s "
+          f"({busy_s:.2f} s of embeds by CUDA events); decode alone "
+          f"{decode['sub_8_threads']:.1f} img/s on 8 threads as written (Sub), "
+          f"{decode['paeth_8_threads']:.1f} with every row Paeth")
+    report["infer"] = dict(images=n_images, render_s=render_s, walls=walls, img_s=rates,
+                           busy_share=busy_s / wall_s, busy_s=busy_s, cos_to_fp32=cos,
+                           f16_err=f16_err, decode_img_s=decode)
+    shared.update(lv=lv, csv_root=csv_root, sets=sets)
+
+
+def phase_topn(torch, np, report, shared):
+    """``cli topn`` over the dumps (whitening fitted on toy_pca; D up to
+    1,024, spacings 0, 0.3, 1 and 5 m, N = 25): 20 settings, all on the
+    dense path (750 refs). Gates: every setting written with the pickle's
+    six fields and their types; toy queries' top-1 within 25 m for >= 90% at
+    l0.0_dim256. ``cli roc`` draws the figure where matplotlib is installed;
+    the curves are computed with ``correctly_localized_curve`` either way."""
+    import importlib.util
+
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.evaluation.roc import correctly_localized_curve
+    from soft_contrastive_learning_torch.utils.io import load_pickle
+
+    lv, csv_root = shared["lv"], shared["csv_root"]
+    top_n = Path(shared["corpus"].name) / "top_n"
+    counts = LaunchCounts(report, "topn")
+    t0 = time.perf_counter()
+    rc = cli.main(["topn", "--pca_lv_pickle", str(lv / "toy_pca_wms.pickle"),
+                   "--ref_lv_pickle", str(lv / "toy_ref_wms.pickle"),
+                   "--query_lv_pickle", str(lv / "toy_query_wms.pickle"),
+                   "--ref_csv", str(csv_root / "toy_ref.csv"),
+                   "--query_csv", str(csv_root / "toy_query.csv"), "--out_root", str(top_n),
+                   "--dims", ",".join(map(str, TOPN_DIMS))])
+    torch.cuda.synchronize()
+    topn_s = time.perf_counter() - t0
+    launches = counts.read({})
+    settings = sorted(p.parent.name for p in top_n.glob("*/toy_query_wms.pickle"))
+    if rc != 0 or len(settings) != 4 * len(TOPN_DIMS):
+        fail(f"topn: rc {rc}, {len(settings)} settings written: {settings}")
+    curves = {}
+    for setting in settings:
+        got = load_pickle(str(top_n / setting / "toy_query_wms.pickle"))
+        types = [type(x).__name__ for x in got]
+        if types != ["list", "list", "ndarray", "list", "ndarray", "list"] \
+                or got[2].shape != (300, 25) or got[2].dtype != np.float32:
+            fail(f"topn {setting}: pickle fields {types}, top_f {np.shape(got[2])}")
+        top1 = np.asarray(got[1])[:, 0]
+        x, y = correctly_localized_curve(top1)  # % within each of 50 thresholds, 0-25 m
+        curves[setting] = dict(within_5m=float((top1 < 5).mean() * 100),
+                               within_10m=float((top1 < 10).mean() * 100),
+                               within_25m=float((top1 < 25).mean() * 100),
+                               curve_mean=float(y.mean()))
+    share = curves["l0.0_dim256"]["within_25m"]
+    print(f"topn: {len(settings)} settings in {topn_s:.2f} s (cli.main: one fit at D = "
+          f"{max(TOPN_DIMS)}, the transforms, 20 dense searches); launches {launches}; top-1 "
+          "within 5 / 10 / 25 m: " + "; ".join(
+              f"{k} {v['within_5m']:.1f}/{v['within_10m']:.1f}/{v['within_25m']:.1f}"
+              for k, v in curves.items()))
+    if share < TOPN_WITHIN_25M:
+        fail(f"topn: {share}% of the toy queries within 25 m at l0.0_dim256, below "
+             f"{TOPN_WITHIN_25M}%")
+    figure = None
+    if importlib.util.find_spec("matplotlib") is not None:
+        t0 = time.perf_counter()
+        if cli.main(["roc", "--top_n_root", str(top_n), "--out_root",
+                     str(top_n.parent / "figs"), "--queries", "toy_query"]) != 0:
+            fail("roc: no figure")
+        figure = time.perf_counter() - t0
+        print(f"roc: figure in {figure:.2f} s")
+    else:
+        print("roc: matplotlib is not installed here, so no figure; the curves above are "
+              "correctly_localized_curve's")
+    report["topn"] = dict(settings=len(settings), seconds=topn_s, curves=curves,
+                          roc_figure_s=figure)
+
+
+TOPN_ROWS = 250_000  # the Pittsburgh query condition's database size
+
+
+def phase_topn_250k(torch, np, report, shared):
+    """``top_n_single`` at spacing 0 over 250,000 refs, where evaluation/
+    topn.py takes K2: the whitened ref dump (fit on toy_pca at D = 4,096)
+    padded with seeded rows drawn from its per-column normal, far from every
+    query on the map; the 300 whitened queries; D = 256 and 4,096 (column
+    slices of the one transform). Gates: two K2 launches a width (256 + 44
+    queries); on 64 queries, squared distances within 1e-5 of the query's
+    |q|^2 from an fp64 search on the card (the error relative to the top-1
+    printed beside the plain fp32 version's), ids differing only at
+    near-ties within that; and the repair: D = 66 over 200,001 rows of
+    eighths, the plain version's ids and distances. Then K2 timed at both
+    widths beside the dense topk_l2, the plain version and its bounds."""
+    from soft_contrastive_learning_torch.evaluation.topn import _TILED_THRESHOLD, top_n_single
+    from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_stream_plain
+    from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_streamed
+    from soft_contrastive_learning_torch.pca.whiten import fit_pca
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.utils.io import load_csv, load_pickle
+    from soft_contrastive_learning_torch.utils.meta import get_xy
+
+    lv, csv_root = shared["lv"], shared["csv_root"]
+    n, d_max, k = TOPN_ROWS, 4096, 25
+    assert n > _TILED_THRESHOLD
+    t0 = time.perf_counter()
+    whitener = fit_pca(load_pickle(str(lv / "toy_pca_wms.pickle")), d_max, device="cuda")
+    ref_w = whitener.transform(load_pickle(str(lv / "toy_ref_wms.pickle")))
+    query_w = whitener.transform(load_pickle(str(lv / "toy_query_wms.pickle")))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    refs = torch.empty((n, d_max), dtype=torch.float32, device="cuda")
+    refs[: len(ref_w)] = ref_w
+    mu, sd = ref_w.mean(0), ref_w.std(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for s in range(len(ref_w), n, 16384):
+        e = min(s + 16384, n)
+        refs[s:e] = mu + sd * torch.randn((e - s, d_max), generator=gen, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    ref_xy = np.concatenate([get_xy(load_csv(str(csv_root / "toy_ref.csv"))),
+                             rng.uniform(1e5, 2e5, (n - len(ref_w), 2))])
+    query_xy = get_xy(load_csv(str(csv_root / "toy_query.csv")))
+    xy_d = np.linalg.norm(query_xy[:, None, :] - ref_xy[None, :, :], axis=-1)
+    geo = (xy_d, np.argmin(xy_d, axis=1))
+    ref_idx = list(range(n))
+
+    counts = LaunchCounts(report, "topn_250k")
+    results, walls = {}, {}
+    for d in (256, d_max):
+        t0 = time.perf_counter()
+        results[d] = top_n_single(refs[:, :d], query_w[:, :d], ref_xy, query_xy, 0.0, n=k,
+                                  ref_idx=ref_idx, geo=geo)
+        walls[d] = time.perf_counter() - t0
+    gen66 = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q66 = eighths(torch, gen66, (64, 66))
+    r66 = eighths(torch, gen66, (_TILED_THRESHOLD + 1, 66))
+    got66 = topk_l2_streamed(q66, r66, k)
+    torch.cuda.synchronize()
+    launches = counts.read({"K2": 2 + 2 + 1})
+    want66 = topk_l2_stream_plain(q66, r66, k)
+    err66 = (got66[0] - want66[0]).abs().max().item()
+    if not torch.equal(got66[1], want66[1]) or err66 > 1e-6 * want66[0].max().item():
+        fail(f"topn_250k: the padded D = 66 search departs from the plain version "
+             f"({int((got66[1] != want66[1]).sum())} ids, dist err {err66})")
+    del q66, r66
+
+    # against an fp64 search on the card. The whitened rows of another city
+    # than the fit's have |q|^2 tens of times their top-1 squared distance,
+    # and the fp32 formula |q|^2 - (2 q.r - |r|^2) cancels that much: the
+    # gate's scale is the query's |q|^2 (on the served unit vectors, 1), and
+    # the error relative to the top-1 is printed beside the plain version's
+    by_d = {}
+    for d, res in results.items():
+        got_i = torch.tensor(res[0][:64], device="cuda")
+        got_sq = torch.from_numpy(res[2][:64]).cuda().double() ** 2
+        q = query_w[:64, :d].contiguous()
+        plain_sq = topk_l2_stream_plain(q, refs[:, :d], k)[0].double() ** 2
+        want_sq, want_i, gaps = exact_search(torch, q, refs[:, :d], k)
+        q_sq = (q.double() ** 2).sum(1, keepdim=True)
+        tol = 1e-5 * q_sq
+        err = {}
+        for label, sq in (("k2", got_sq), ("plain", plain_sq)):
+            diff = (sq - want_sq[:, :k]).abs()
+            err[f"{label}_of_q_sq"] = (diff / q_sq).max().item()
+            err[f"{label}_of_top1"] = (diff / want_sq[:, :1]).max().item()
+        differ = got_i != want_i[:, :k]
+        if err["k2_of_q_sq"] > 1e-5 or (differ & (gaps > tol)).any():
+            fail(f"topn_250k D={d}: sq-dist err {err}, {int(differ.sum())} ids differ, "
+                 f"{int((differ & (gaps > tol)).sum())} outside near-ties")
+        top1 = np.asarray(res[1])[:, 0]
+        by_d[d] = dict(wall_s=walls[d], sq_err=err, ids_differ=int(differ.sum()),
+                       q_sq_over_top1=float((q_sq / want_sq[:, :1]).median()),
+                       within_25m=float((top1 < 25).mean() * 100),
+                       real_refs_at_rank0=float((np.asarray(res[0])[:, 0] < len(ref_w)).mean()))
+
+    for d in (256, d_max):
+        r_c = refs[:, :d].contiguous()
+        q_c = query_w[:, :d].contiguous()
+        ms = common.time_ms(lambda: topk_l2_streamed(q_c, r_c, k), 5)
+        dense_ms = common.time_ms(lambda: topk_l2(q_c, r_c, k), 3)
+        plain_ms = common.time_ms(lambda: topk_l2_stream_plain(q_c, r_c, k), 3)
+        nbytes = 4 * (n * d + len(q_c) * d) + 12 * len(q_c) * k
+        bound, bound_by = common.bound_ms(6 * len(q_c) * n * d, nbytes, common.TF32_FLOPS)
+        by_d[d].update(ms=ms, dense_ms=dense_ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by, bytes_bound_ms=1e3 * nbytes / common.HBM_BYTES_PER_S)
+        del r_c
+    for d, row in by_d.items():
+        e = row["sq_err"]
+        print(f"topn_250k D={d}: top_n_single {row['wall_s']:.3f} s; vs fp64 on 64 queries: max "
+              f"sq-dist err {e['k2_of_q_sq']:.3g} of |q|^2, {e['k2_of_top1']:.3g} of the top-1 "
+              f"(|q|^2 {row['q_sq_over_top1']:.1f}x the top-1; the plain fp32 version "
+              f"{e['plain_of_q_sq']:.3g} / {e['plain_of_top1']:.3g}), {row['ids_differ']} ids "
+              f"differ (near-ties); top-1 a real ref for {100 * row['real_refs_at_rank0']:.1f}%, "
+              f"within 25 m {row['within_25m']:.1f}%; K2 (Q=300: 2 launches) {row['ms']:.3f} ms, "
+              f"dense topk_l2 {row['dense_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}; bytes alone "
+              f"{row['bytes_bound_ms']:.3f})")
+    print(f"topn_250k: whitening fit (4,400 x 32,768, host eigh) and transforms {fit_s:.2f} s; "
+          f"launches {launches}; padded D = 66 over {_TILED_THRESHOLD + 1} rows: ids identical, "
+          f"max dist err {err66:.3g}")
+    report["K2"]["topn_250k"] = {f"D{d}": {key: row[key] for key in (
+        "ms", "dense_ms", "plain_ms", "bound_ms", "bound_by", "bytes_bound_ms")}
+        for d, row in by_d.items()}
+    report["topn_250k"] = dict(rows=n, queries=len(query_w), fit_s=fit_s, d66_err=err66,
+                               by_d={f"D{d}": row for d, row in by_d.items()})
+    del refs
+    shared.pop("corpus").cleanup()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1613,11 +2204,17 @@ def main() -> int:
     phase_serve_winograd(torch, np, report, shared)
     phase_train(torch, np, report, shared)
     phase_train_winograd(torch, np, report, shared)
+    phase_train_files(torch, np, report, shared)
+    phase_infer(torch, np, report, shared)
+    phase_topn(torch, np, report, shared)
+    phase_topn_250k(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (the
-    # Winograd training epoch for K1, K1's backward, K3 and K4, serve for K2);
-    # launches_by_path: each path's own count, set to 0 just before it
-    paths = ("train_winograd", "train", "serve_winograd", "serve", "probes")
+    # launches: the count on the newest path that runs the kernel (infer for
+    # K1, the file-fed training for K1's backward and K3, the Winograd
+    # training epoch for K4, the 250k-row top-N for K2); launches_by_path:
+    # each path's own count, set to 0 just before it
+    paths = ("topn_250k", "infer", "train_files", "train_winograd", "train", "serve_winograd",
+             "serve", "probes")
     for kid in KERNEL_IDS:
         by_path = report[kid]["launches_by_path"]
         report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
@@ -1625,12 +2222,14 @@ def main() -> int:
             fail(f"{kid} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],
+                      "topn": report["topn"], "topn_250k": report["topn_250k"]}))
     print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))
     print(json.dumps({"train": report["train"], "train_winograd": report["train_winograd"],
                       "K1_backward": report["K1_backward"],
                       "K4_backward": report["K4_backward"]}))
     print(json.dumps({"K2_times": {key: report["K2"][key] for key in (
-                          "ms_by_k", "fp32_fma_bound_ms", "q256")},
+                          "ms_by_k", "fp32_fma_bound_ms", "q256", "topn_250k")},
                       "K2_search": report["serve"]["search"]}))
     print(json.dumps({"K1_by_batch": report["K1"]["by_batch"],
                       "K1_bwd_call": {key: report["K1_bwd"][key] for key in ("device_ms", "host_ms")},

@@ -1,26 +1,41 @@
-"""Command line of the port: ``serve`` and ``train``.
+"""Command line of the port: ``serve``, ``train``, ``infer``, ``topn`` and
+``roc``.
 
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
         --index features.pickle
-    python -m soft_contrastive_learning_torch.cli train --toy_city --loss wms
+    python -m soft_contrastive_learning_torch.cli train --loss wms \
+        --img_root <prep>/downsized --shuffled_root <prep>/data/shuffled \
+        --anchor_root <prep>/data/anchors --loc_ref_root <prep>/data/clusters
+    python -m soft_contrastive_learning_torch.cli infer --set toy_ref \
+        --csv_root lists --img_root imgs --out_root lv
+    python -m soft_contrastive_learning_torch.cli topn --pca_lv_pickle lv/toy_pca_model.pickle \
+        --ref_lv_pickle lv/toy_ref_model.pickle --query_lv_pickle lv/toy_query_model.pickle \
+        --ref_csv lists/toy_ref.csv --query_csv lists/toy_query.csv
+    python -m soft_contrastive_learning_torch.cli roc --top_n_root top_n --queries toy_query
 
 Flags follow ``scl-tpu`` (``soft_contrastive_learning_tpu/cli.py``) with the
 same names and defaults, limited to what the port runs so far, plus
-``--device`` (default ``cuda``). ``--checkpoint`` takes, as the JAX CLI's
-infer/serve loader does, a training-run directory of the port (its newest
-checkpoint, with the run's own ModelConfig overriding the flags), a
-flagship-layout npz, or a TF1 export as npz (its VGG16 and NetVLAD scopes
-warm-started onto a fresh init); a file that matches no variable is
-refused. For ``serve`` it defaults to the committed trained artifact; for
-``train`` it is the warm start (default: a fresh init from ``--seed``). ``train --resume`` with the same
-``--out_folder`` takes a stopped run up again from its newest rolling
-checkpoint; a fresh run without ``--out_folder`` gets a unique suffix.
-``train`` runs on the synthetic toy city (``--toy_city``); the filesystem
-source comes with a later slice, and ``--loss`` keeps its default
-``wrd``, which raises until the loss-zoo slice, so pass ``--loss wms``. The
-Winograd configuration has no flag, as in ``scl-tpu``: pass
+``--device`` (default ``cuda``; the CPU only when asked). ``--checkpoint``
+takes, as the JAX CLI's infer/serve loader does, a training-run directory
+of the port (its newest checkpoint, with the run's own ModelConfig
+overriding the flags), a flagship-layout npz, or a TF1 export as npz (its
+VGG16 and NetVLAD scopes warm-started onto a fresh init); a file that
+matches no variable is refused. For ``serve`` and ``infer`` it defaults to
+the committed trained artifact (JAX: a fresh random init); for ``train`` it
+is the warm start (default: a fresh init from ``--seed``). ``train
+--resume`` with the same ``--out_folder`` takes a stopped run up again from
+its newest rolling checkpoint; a fresh run without ``--out_folder`` gets a
+unique suffix. ``train`` reads the prep pipeline's tree (``--img_root
+--shuffled_root --anchor_root --loc_ref_root``), or the synthetic toy city
+with ``--toy_city``; ``--loss`` keeps its default ``wrd``, which raises
+until the loss-zoo slice, so pass ``--loss wms``. The Winograd
+configuration has no flag, as in ``scl-tpu``: pass
 ``ModelConfig(winograd=True)`` to ``DescriptorService`` or ``Trainer``.
+``train --fused_wms True`` (the port's only flag beyond ``scl-tpu``'s and
+``--device``) sets ``LossConfig.fused_wms``, which ``scl-tpu`` sets in code
+only. ``roc`` draws its figure with matplotlib, which a host may lack; the
+curves themselves are ``evaluation/roc.py::correctly_localized_curve``.
 """
 
 from __future__ import annotations
@@ -119,6 +134,55 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_infer(args) -> int:
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.evaluation.inference import run_inference
+
+    cfg = ModelConfig(vlad_cores=args.vlad_cores, reduction=args.reduction,
+                      out_dim=args.out_dim)
+    cfg, params = _load_model_params(cfg, args.checkpoint, default_artifact=True)
+    out = run_inference(cfg, params, args.set, args.csv_root, args.img_root, args.out_root,
+                        args.out_name, batch_size=args.images_per_pass, device=args.device,
+                        dump_dtype=args.dump_dtype)
+    print(out)
+    return 0
+
+
+def cmd_topn(args) -> int:
+    from soft_contrastive_learning_torch.evaluation.topn import get_top_n
+    from soft_contrastive_learning_torch.utils.io import load_csv, load_pickle
+    from soft_contrastive_learning_torch.utils.meta import get_xy
+
+    name = "".join(os.path.basename(args.query_lv_pickle).split(".")[:-1])
+    kwargs = {}
+    if args.dims:
+        kwargs["dims"] = tuple(int(d) for d in args.dims.split(","))
+    if args.spacings:
+        kwargs["spacings"] = tuple(float(s) for s in args.spacings.split(","))
+    paths = get_top_n(
+        np.asarray(load_pickle(args.pca_lv_pickle)),
+        np.asarray(load_pickle(args.ref_lv_pickle)),
+        np.asarray(load_pickle(args.query_lv_pickle)),
+        get_xy(load_csv(args.ref_csv)),
+        get_xy(load_csv(args.query_csv)),
+        args.out_root, name, n=args.N, device=args.device, **kwargs,
+    )
+    print("\n".join(sorted(paths.values())))
+    return 0
+
+
+def cmd_roc(args) -> int:
+    from soft_contrastive_learning_torch.evaluation.roc import compile_roc
+
+    kwargs = {}
+    if args.queries:
+        kwargs["queries"] = tuple((name, name, 0) for name in args.queries.split(","))
+    out = compile_roc(args.top_n_root, args.out_root, setting=f"l{args.l}_dim{args.d}",
+                      **kwargs)
+    print(out or "no top-n pickles found")
+    return 0 if out else 1
+
+
 def config_from_args(args):
     from soft_contrastive_learning_torch.core.config import (
         LossConfig, ModelConfig, TrainConfig, TupleConfig)
@@ -134,9 +198,12 @@ def config_from_args(args):
         mutually_exclusive_negs=args.mutually_exclusive_negs,
         max_pos_radius=args.max_pos_radius, min_neg_radius=args.min_neg_radius)
     loss = LossConfig(name=args.loss, alpha=args.alpha, beta=args.beta,
-                      wfunction=args.wfunction, sumfunction=args.sumfunction)
+                      wfunction=args.wfunction, sumfunction=args.sumfunction,
+                      fused_wms=args.fused_wms)
     return TrainConfig(
         model=model, tuples=tuples, loss=loss, checkpoint=args.checkpoint,
+        img_root=args.img_root, shuffled_root=args.shuffled_root,
+        loc_ref_root=args.loc_ref_root, anchor_root=args.anchor_root,
         tuples_per_batch=args.tuples_per_batch, max_epoch=args.max_epoch,
         base_lr=args.base_lr, minimal_lr=args.minimal_lr,
         lr_down_factor=args.lr_down_factor, lr_down_frequency=args.lr_down_frequency,
@@ -155,14 +222,10 @@ def cmd_train(args) -> int:
     import dataclasses
 
     from soft_contrastive_learning_torch.core.config import unique_out_dir
-    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
+    from soft_contrastive_learning_torch.data.pipeline import FilesystemSource, ToyCitySource
     from soft_contrastive_learning_torch.train.trainer import Trainer
 
     cfg = config_from_args(args)
-    if not args.toy_city:
-        raise NotImplementedError(
-            "training from the prep pipeline's files (FilesystemSource) comes with a "
-            "later slice of the port; pass --toy_city")
     model_cfg, params = _load_model_params(cfg.model, args.checkpoint, default_artifact=False,
                                            seed=cfg.seed)
     cfg = dataclasses.replace(cfg, model=model_cfg)
@@ -171,8 +234,12 @@ def cmd_train(args) -> int:
     if not args.out_folder and not args.resume:
         # fresh runs get a unique suffix; --resume must reuse the existing dir
         out_dir = unique_out_dir(args.out_root, out_folder)
-    source = ToyCitySource(num_points=120, radius=150.0,
-                           img_h=cfg.model.image_height, img_w=cfg.model.image_width)
+    if args.toy_city:
+        source = ToyCitySource(num_points=120, radius=150.0,
+                               img_h=cfg.model.image_height, img_w=cfg.model.image_width)
+    else:
+        source = FilesystemSource(cfg.img_root, cfg.shuffled_root, cfg.anchor_root,
+                                  cfg.loc_ref_root)
     trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params,
                       save_plots=args.save_plots)
     try:
@@ -185,6 +252,11 @@ def cmd_train(args) -> int:
 
 
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    # the prep pipeline's tree (data/pipeline.py::FilesystemSource)
+    p.add_argument("--img_root", default="")
+    p.add_argument("--shuffled_root", default="")
+    p.add_argument("--loc_ref_root", default="")
+    p.add_argument("--anchor_root", default="")
     p.add_argument("--checkpoint", default="",
                    help="training-run directory, flagship-layout params npz or TF1 export "
                         "npz to start from (default: fresh init)")
@@ -206,6 +278,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--beta", type=float, default=15.0)
     p.add_argument("--wfunction", default="exp", choices=["exp", "lin", "tanh"])
     p.add_argument("--sumfunction", default="ms", choices=["ms", "plain"])
+    p.add_argument("--fused_wms", type=_bool_flag, default=False,
+                   help="the wms loss's forward through its fused kernel (K3 on CUDA); "
+                        "LossConfig.fused_wms, which scl-tpu sets in code only")
     p.add_argument("--max_pos_radius", type=float, default=15.0)
     p.add_argument("--min_neg_radius", type=float, default=15.0)
     p.add_argument("--tuples_per_batch", type=int, default=2)
@@ -264,6 +339,48 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_flags(p)
     p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
     p.set_defaults(func=cmd_train)
+
+    p = sub.add_parser("infer", help="batch descriptor extraction")
+    p.add_argument("--set", required=True)
+    p.add_argument("--csv_root", required=True)
+    p.add_argument("--img_root", required=True)
+    p.add_argument("--checkpoint", default="",
+                   help="training-run directory, flagship-layout params npz or TF1 export npz "
+                        "(default: the committed trained artifact)")
+    p.add_argument("--out_name", default="model")
+    p.add_argument("--out_root", default="lv")
+    p.add_argument("--out_dim", type=int, default=512)
+    p.add_argument("--reduction", default="none")
+    p.add_argument("--vlad_cores", type=int, default=64)
+    p.add_argument("--images_per_pass", type=int, default=32)
+    p.add_argument("--dump_dtype", default="float32", choices=("float32", "float16"),
+                   help="storage dtype of the feature dump; float16 halves it")
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_infer)
+
+    p = sub.add_parser("topn", help="top-N retrieval sweep")
+    p.add_argument("--pca_lv_pickle", required=True)
+    p.add_argument("--ref_lv_pickle", required=True)
+    p.add_argument("--query_lv_pickle", required=True)
+    p.add_argument("--ref_csv", required=True)
+    p.add_argument("--query_csv", required=True)
+    p.add_argument("--out_root", default="top_n")
+    p.add_argument("--N", type=int, default=25)
+    p.add_argument("--dims", default="",
+                   help="comma list, e.g. 64,256 (default: the full sweep, 64 to 4096)")
+    p.add_argument("--spacings", default="", help="comma list, e.g. 0.0,1.0")
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_topn)
+
+    p = sub.add_parser("roc", help="compile ROC figures")
+    p.add_argument("--top_n_root", required=True)
+    p.add_argument("--out_root", default="figs")
+    p.add_argument("--l", default="0.0")
+    p.add_argument("--d", type=int, default=256)
+    p.add_argument("--queries", default="",
+                   help="comma-separated query-set names to plot instead of the paper's five "
+                        "conditions (evaluation/roc.py DEFAULT_QUERIES), e.g. 'toy_query'")
+    p.set_defaults(func=cmd_roc)
     return parser
 
 

@@ -114,8 +114,8 @@ class LossConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training-run configuration: the JAX fields (names and defaults) that
-    the port reads so far. The data roots, PCA, dropout and mesh fields come
-    with the slices that read them."""
+    the port reads so far. The PCA, dropout and mesh fields come with the
+    slices that read them."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     tuples: TupleConfig = field(default_factory=TupleConfig)
@@ -123,6 +123,11 @@ class TrainConfig:
 
     checkpoint: str = ""
     out_dir: str = ""
+    # the prep tree read by data/pipeline.py::FilesystemSource
+    img_root: str = ""
+    shuffled_root: str = ""
+    loc_ref_root: str = ""
+    anchor_root: str = ""
 
     tuples_per_batch: int = 2
     max_epoch: int = 5

@@ -50,10 +50,12 @@ def build_pool(
     device: str | torch.device,
     max_bytes: int = 4_000_000_000,
     log=print,
+    pool=None,
 ) -> Optional[DeviceImagePool]:
-    """Load every image of ``meta`` at the model's input geometry and upload
-    it once. Returns None (the caller keeps the host feed) when the set
-    exceeds ``max_bytes``."""
+    """Load every image of ``meta`` at the model's input geometry (decoded
+    on the thread pool ``pool`` when one is given) and upload it once.
+    Returns None (the caller keeps the host feed) when the set exceeds
+    ``max_bytes``."""
     keys = list(zip(meta["date"], meta["folder"], meta["t"]))
     h, w = cfg.model.image_height, cfg.model.image_width
     need = len(keys) * h * w * 3
@@ -62,8 +64,9 @@ def build_pool(
             f"{max_bytes / 1e9:.2f} GB budget")
         return None
     images = np.empty((len(keys), h, w, 3), np.uint8)
-    for i, key in enumerate(keys):
-        images[i] = load_images_standard(source, [key], cfg)[0]
+    for s in range(0, len(keys), 256):  # a bounded list of decoded images at a time
+        chunk = keys[s : s + 256]
+        images[s : s + len(chunk)] = load_images_standard(source, chunk, cfg, pool)
     pool = DeviceImagePool(images, keys, device)
     log(f"device image pool resident: {len(keys)} images, {need / 1e6:.1f} MB on {device}")
     return pool

@@ -3,9 +3,10 @@ counterpart of ``soft_contrastive_learning_tpu/ops/topk.py``.
 
 ``topk_l2`` is the dense formulation (the JAX package computes it outside
 Pallas, so it stays plain PyTorch here). ``topk_l2_streamed`` is the
-memory-bounded path for large indexes: K2 on a CUDA device for k <= 128,
-its plain version on the CPU, and the dense path for larger k, as the JAX
-dispatcher routes k > 128 away from its kernel.
+memory-bounded path for large indexes: K2 on a CUDA device for k <= 128
+(any width: zero columns pad it to K2's multiple of 4), its plain version
+on the CPU, and the dense path for larger k, as the JAX dispatcher routes
+k > 128 away from its kernel.
 """
 
 from __future__ import annotations
@@ -35,9 +36,16 @@ def topk_l2_streamed(
     queries: torch.Tensor, refs: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k for large indexes without a (Q, R) distance matrix in device
-    memory: K2 for k <= 128 (queries in chunks of 256), ``topk_l2`` above."""
+    memory: K2 for k <= 128 (queries in chunks of 256), ``topk_l2`` above.
+    K2 reads rows 16 bytes apart, so a width D that is not a multiple of 4
+    is padded with zero columns first: they add exact zeros to every product
+    and norm, and the result is the unpadded one's."""
     if k > MAX_K:
         return topk_l2(queries, refs, k)
+    pad = (-queries.shape[1]) % 4
+    if pad:
+        queries = torch.nn.functional.pad(queries, (0, pad))
+        refs = torch.nn.functional.pad(refs, (0, pad))
     outs = [topk_l2_cuda(queries[s : s + _QUERY_CHUNK], refs, k)
             for s in range(0, queries.shape[0], _QUERY_CHUNK)]
     if len(outs) == 1:

@@ -3,7 +3,8 @@ counterpart of ``soft_contrastive_learning_tpu/train/eval_hooks.py``.
 
 ``EvalHooks`` reads a narrow surface of its host trainer at call time:
 ``cfg``, ``source``, ``eval_rng``, ``extract_features``, ``eval_loss_step``,
-``_sampler_for``, ``_to_device``, ``writers``, ``log``, ``save_plots``,
+``_sampler_for``, ``_to_device``, ``_pool`` (the decode threads), ``writers``,
+``log``, ``save_plots``,
 ``out_dir``. Both hooks take ``eval_ordinal``, the count of eval firings
 (``abs_step // eval_step``), to pick their rolling window of queries.
 
@@ -50,7 +51,8 @@ class EvalHooks:
             sample = sampler.sample(chunk, use_hard=False)
             if sample is None:
                 continue
-            batch = assemble_batch(cfg, t.source, meta, sample.indices, sample.payload, epoch)
+            batch = assemble_batch(cfg, t.source, meta, sample.indices, sample.payload, epoch,
+                                   t._pool)
             outs.append(t.eval_loss_step(t._to_device(batch)))
         if not outs:
             t.log("Evaluated but got no valid losses.")

@@ -3,18 +3,23 @@
 of ``train/segment.py::run_segment``.
 
 Per epoch: the source's shuffled metadata and anchors; the uint8 image set
-resident on the device (``data/device_pool.py``); and segments between
-mining boundaries (the steps divisible by ``mining_step``). At each
-boundary the mining cache is refreshed synchronously. Each segment samples
-from a child generator seeded by a draw from the trainer's generator, so the
-sample stream matches the JAX trainer's. Steps stride by
-``tuples_per_batch`` over the anchors.
+resident on the device (``data/device_pool.py``) when it is on and fits
+``device_pool_max_bytes``; and segments between mining boundaries (the
+steps divisible by ``mining_step``). At each boundary the mining cache is
+refreshed synchronously. Each segment samples from a child generator seeded
+by a draw from the trainer's generator, so the sample stream matches the
+JAX trainer's. Steps stride by ``tuples_per_batch`` over the anchors.
 
 Within a segment nothing waits for the card: the host samples batch i+1
 while the card runs step i, and the losses are fetched in one transfer at
 the segment's end, or before an eval so that the records stay in order, and
 written as JSONL (``metrics_local.jsonl``, the records of
 ``core/logging.py::MetricsWriter``) with ``global_step`` counted from 1.
+Without the device pool (the host-fed path) a ``Prefetcher`` thread samples
+the segment's batches in step order and decodes their images on the
+trainer's 8-thread pool (``_pool``), up to two batches ahead of the card, as
+the JAX trainer does. It runs only inside its segment, after the segment's
+refresh, so the batches (and a resume) are the synchronous path's.
 
 Every ``eval_step`` anchors (step 0 included) the eval hooks run
 (``train/eval_hooks.py``): the held-out region's loss, then localization on
@@ -38,6 +43,7 @@ the card when a save fires are fetched and written first, so a resumed run's
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -52,6 +58,7 @@ from soft_contrastive_learning_torch.core.config import TrainConfig, resolve_dev
 from soft_contrastive_learning_torch.core.logging import MetricsWriter, RunLogger
 from soft_contrastive_learning_torch.data.device_pool import build_pool
 from soft_contrastive_learning_torch.data.pipeline import (
+    Prefetcher,
     assemble_batch,
     load_images_standard,
     pad_to_multiple,
@@ -111,6 +118,7 @@ class Trainer:
         # the eval paths draw from a stream of their own, so a run's training
         # draws do not depend on whether or when they fire
         self.eval_rng = np.random.default_rng(cfg.seed + 1)
+        self._pool = ThreadPoolExecutor(max_workers=8)  # image decode
         self.global_step = 0
         self.start_epoch = 0
         self._current_epoch = 0
@@ -142,7 +150,7 @@ class Trainer:
                 images = pool.array.index_select(0, torch.from_numpy(rows).to(self.device))
             else:
                 images = torch.from_numpy(
-                    load_images_standard(self.source, keys, self.cfg)).to(self.device)
+                    load_images_standard(self.source, keys, self.cfg, self._pool)).to(self.device)
             output, _ = self.embed_step(images)
             chunks.append(output)
         return torch.cat(chunks)[: len(indices)].float()
@@ -156,7 +164,7 @@ class Trainer:
             return
         if self._image_pool is None:
             pool = build_pool(self.source, meta, cfg, self.device,
-                              max_bytes=cfg.device_pool_max_bytes, log=self.log)
+                              max_bytes=cfg.device_pool_max_bytes, log=self.log, pool=self._pool)
             self._image_pool = pool if pool is not None else False
             if pool is None:
                 return
@@ -273,33 +281,49 @@ class Trainer:
         segment (False once an item was reached)."""
         cfg = self.cfg
         pool_rows = self._pool_rows
+        prefetch = None
+        if pool_rows is None:  # host-fed: sample and decode ahead on the producer thread
+            def build(j: int):
+                sample = self._sample(sampler, anchor_indices, int(seg_steps[offset + j]))
+                if sample is None:
+                    return None, None
+                return sample, assemble_batch(cfg, self.source, meta, sample.indices,
+                                              sample.payload, epoch, self._pool)
+
+            prefetch = Prefetcher(build, len(seg_steps) - offset)
+            batches = iter(prefetch)
         records = []  # (global_step, device loss, lr)
-        for i in range(offset, len(seg_steps)):
-            s = int(seg_steps[i])
-            self._seg_ctx["consumed"] = i  # items behind us; a resume trains this one
-            side_effects, suppress_first = not suppress_first, False
-            if side_effects and s % cfg.eval_step == 0:
-                self._write_train_metrics(records)
-                self._run_eval(epoch, s // max(cfg.eval_step, 1))
-            if side_effects and s % cfg.save_step == 0:
-                self._write_train_metrics(records)
-                self.ckpts.save("part", self.global_step, self.state, self._extras())
-            sample = self._sample(sampler, anchor_indices, s)
-            if sample is None:
-                self.log("Faulty training batch... skipping.")
-                continue
-            if pool_rows is not None:
-                batch = self._to_device({"image_idx": pool_rows[sample.indices.reshape(-1)],
-                                         "epoch": np.float32(epoch), **sample.payload})
-                self.state, metrics = self.train_step_pooled(self.state, batch,
-                                                             self._image_pool.array)
-            else:
-                batch = self._to_device(assemble_batch(cfg, self.source, meta, sample.indices,
-                                                       sample.payload, epoch))
-                self.state, metrics = self.train_step(self.state, batch)
-            self.used_images.update(sample.used_indices)
-            self.global_step += 1
-            records.append((self.global_step, metrics["loss"], metrics["learning_rate"]))
+        try:
+            for i in range(offset, len(seg_steps)):
+                s = int(seg_steps[i])
+                self._seg_ctx["consumed"] = i  # items behind us; a resume trains this one
+                side_effects, suppress_first = not suppress_first, False
+                if side_effects and s % cfg.eval_step == 0:
+                    self._write_train_metrics(records)
+                    self._run_eval(epoch, s // max(cfg.eval_step, 1))
+                if side_effects and s % cfg.save_step == 0:
+                    self._write_train_metrics(records)
+                    self.ckpts.save("part", self.global_step, self.state, self._extras())
+                if prefetch is not None:
+                    sample, host_batch = next(batches)
+                else:
+                    sample = self._sample(sampler, anchor_indices, s)
+                if sample is None:
+                    self.log("Faulty training batch... skipping.")
+                    continue
+                if prefetch is None:
+                    batch = self._to_device({"image_idx": pool_rows[sample.indices.reshape(-1)],
+                                             "epoch": np.float32(epoch), **sample.payload})
+                    self.state, metrics = self.train_step_pooled(self.state, batch,
+                                                                 self._image_pool.array)
+                else:
+                    self.state, metrics = self.train_step(self.state, self._to_device(host_batch))
+                self.used_images.update(sample.used_indices)
+                self.global_step += 1
+                records.append((self.global_step, metrics["loss"], metrics["learning_rate"]))
+        finally:
+            if prefetch is not None:
+                prefetch.close()
         self._seg_ctx["consumed"] = len(seg_steps)
         self._write_train_metrics(records)
         return suppress_first
@@ -348,6 +372,7 @@ class Trainer:
         return True
 
     def close(self) -> None:
+        self._pool.shutdown(wait=False)
         self.ckpts.wait()
         self.ckpts.close()
         self.log.close()

@@ -226,6 +226,70 @@ def test_k2_refuses_what_it_does_not_take(cuda):
         topk_l2_cuda(q[:, :6].contiguous(), q[:, :6].contiguous(), 1)
 
 
+@pytest.mark.parametrize("d", [64, 66, 256, 4096])
+def test_k2_at_the_top_n_widths(cuda, d):
+    """The whitened widths of the top-N sweep, through topk_l2_streamed as
+    evaluation/topn.py calls it above its threshold: 300 queries (two
+    launches: 256 + 44), k = 25, exact inputs with duplicated rows. D = 64
+    is two 32-column stages; D = 66 is padded to 68 with zero columns (the
+    repair: K2 reads rows 16 bytes apart) and must give the unpadded plain
+    version's ids and distances; 4,096 is 128 stages."""
+    rng = np.random.default_rng(d)
+    q = _eighths(rng, (300, d), cuda)
+    r = _eighths(rng, (6000, d), cuda)
+    r[3000:] = r[:3000].clone()
+    before = topk_l2_cuda.launches
+    got_d, got_i = topk_l2_streamed(q, r, 25)
+    torch.cuda.synchronize()
+    assert topk_l2_cuda.launches == before + 2
+    want_d, want_i = topk_l2_stream_plain(q, r, 25)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("d", [66, 256, 4096])
+def test_k2_at_the_top_n_widths_against_fp64(cuda, d):
+    """Standard normals (what whitening gives) at the sweep's widths: squared
+    distances within 1e-5 of the query's top-1 squared distance from the
+    exact (fp64) ones, ids equal to the exact ranking's outside near-ties
+    within that."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((64, d), generator=gen, device=cuda)
+    r = torch.randn((20000, d), generator=gen, device=cuda)
+    got_d, got_i = topk_l2_streamed(q, r, 25)
+    q64, r64 = q.double(), r.double()
+    exact = (q64 * q64).sum(1, keepdim=True) - 2.0 * (q64 @ r64.T) + (r64 * r64).sum(1)[None, :]
+    want_sq, want_i = torch.sort(exact, dim=1, stable=True)
+    want_sq, want_i = want_sq[:, :26], want_i[:, :26]
+    tol = 1e-5 * want_sq[:, :1]
+    assert ((got_d.double() ** 2 - want_sq[:, :25]).abs() <= tol).all()
+    steps = (want_sq[:, 1:] - want_sq[:, :-1]).abs()
+    inf = torch.full((64, 1), float("inf"), dtype=torch.float64, device=cuda)
+    gaps = torch.minimum(torch.cat([inf, steps[:, :-1]], 1), steps)
+    assert not ((got_i != want_i[:, :25]) & (gaps > tol)).any()
+
+
+def test_top_n_single_streams_through_k2_above_the_threshold(cuda, monkeypatch):
+    """evaluation/topn.py sends more than _TILED_THRESHOLD refs to K2 (a
+    width that is not a multiple of 4 included) and fewer to the dense
+    path; on exact inputs both give the plain version's ids."""
+    from soft_contrastive_learning_torch.evaluation import topn
+
+    rng = np.random.default_rng(2)
+    q = _eighths(rng, (40, 66), cuda)
+    r = _eighths(rng, (3000, 66), cuda)
+    ref_xy, query_xy = rng.uniform(0, 100, (3000, 2)), rng.uniform(0, 100, (40, 2))
+    monkeypatch.setattr(topn, "_TILED_THRESHOLD", 2000)
+    before = topk_l2_cuda.launches
+    streamed = topn.top_n_single(r, q, ref_xy, query_xy, 0.0, n=25, device=cuda)
+    assert topk_l2_cuda.launches == before + 1
+    monkeypatch.setattr(topn, "_TILED_THRESHOLD", 200_000)
+    dense = topn.top_n_single(r, q, ref_xy, query_xy, 0.0, n=25, device=cuda)
+    assert topk_l2_cuda.launches == before + 1
+    want_i = topk_l2_stream_plain(q, r, 25)[1].cpu().numpy()
+    assert streamed[0] == dense[0] == want_i.tolist()
+
+
 def test_streamed_chunks_queries(cuda):
     rng = np.random.default_rng(1)
     q = _eighths(rng, (300, 128), cuda)

@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: importing it (the probe scripts and the
-checkpoint manager included), or chip_smoke.py, pulls in no JAX, flax, optax
-or orbax and nothing of soft_contrastive_learning_tpu, and no scikit-learn or
-OpenCV (not dependencies of the port: a GPU host need not have them); its
-kernels build only from its own CUDA sources."""
+"""The PyTorch port stands alone: importing it (the probe scripts, the
+checkpoint manager and the evaluation pipeline included), or chip_smoke.py,
+pulls in no JAX, flax, optax or orbax and nothing of
+soft_contrastive_learning_tpu, and no scikit-learn, OpenCV, PIL or
+matplotlib (not dependencies of the port: a GPU host need not have them;
+images are read and written by the port's own PNG codec); its kernels build
+only from its own CUDA sources."""
 
 import ast
 import re
@@ -17,9 +19,10 @@ from soft_contrastive_learning_torch.ops.kernels import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "soft_contrastive_learning_torch"
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "soft_contrastive_learning_tpu")
-# not dependencies of the port: importing it must not load them (cv2
-# is imported inside the few functions that decode or resize an image)
-NOT_DEPENDENCIES = ("sklearn", "cv2")
+# not dependencies of the port: importing it must not load them (cv2 is
+# imported inside the functions that resize or draw on an image, matplotlib
+# inside the ones that plot)
+NOT_DEPENDENCIES = ("sklearn", "cv2", "PIL", "matplotlib")
 
 
 def _port_sources():
@@ -56,6 +59,25 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+EVAL_SLICE = ("utils/io.py", "utils/experiments.py", "data/pipeline.py", "data/corpus.py",
+              "evaluation/inference.py", "pca/whiten.py", "evaluation/topn.py",
+              "evaluation/roc.py", "train/trainer.py", "cli.py")
+
+
+@pytest.mark.parametrize("module", EVAL_SLICE)
+def test_the_file_pipeline_imports_no_image_or_plot_library(module):
+    """Each module of the files -> training and infer -> topn -> roc path,
+    imported alone in a fresh interpreter, loads none of the libraries the
+    card's machine lacks."""
+    name = "soft_contrastive_learning_torch." + module.removesuffix(".py").replace("/", ".")
+    code = (f"import importlib, sys\nimportlib.import_module({name!r})\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + NOT_DEPENDENCIES!r})\nassert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_every_kernel_source_exports_its_c_entry_points():

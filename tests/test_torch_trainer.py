@@ -157,6 +157,8 @@ def test_cli_train_flags_are_jax_flags_with_jax_defaults():
     sub = next(a for a in build_parser()._actions if isinstance(a, argparse._SubParsersAction))
     ours = {a.dest: a.default for a in sub.choices["train"]._actions if a.dest != "help"}
     assert ours.pop("device") == "cuda"  # the port's own flag, as for serve
+    # the port's own flag: LossConfig.fused_wms (K3), which scl-tpu sets in code only
+    assert ours.pop("fused_wms") is False
     assert set(ours) <= set(jax_defaults)
     assert {k: jax_defaults[k] for k in ours} == ours
 
