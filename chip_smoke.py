@@ -126,18 +126,39 @@ failure:
    run-to-run floor (at least 1e-6) of the uninterrupted run, on its
    batches; decode img/s (as written, and every row Paeth) and the host-fed
    step beside the pooled one;
-17. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+17. losses: the 29 losses that need no streaming-PCA state (all of
+   LOSS_NAMES but incremental_*) at B = 50 on the trained flagship's
+   descriptors of a batch from a dense toy city (1,200 poses 0.79 m apart,
+   so that the 12 positives are mostly distinct), once for (1,12,12) and
+   once for the quadruplets' (1,12,11,1), with the sampler's fp32 payload:
+   value within 1e-5 max(1, |v|) and gradient with respect to the
+   embeddings within 5e-4 of its largest entry (or of 1e-9 where that is
+   smaller) of the same function in float64 on the card, finite, the same
+   bits twice; forward + backward ms on the device and the host, and
+   whether a call waits for the card (sync debug mode); cuSOLVER's
+   eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
+   float64 (the port's solve: must converge on all);
+18. train_zoo: `cli train --toy_city` from the trained weights on the
+   pooled path with no --loss (so wrd) for 20 steps, then 10 steps each of
+   pairwise_distance_neg_eigenvalue (PN: two forwards, two backwards, two
+   Adam updates a step) and quadruplet: steps, refreshes, exact K1 and
+   K1_bwd counts (no K3), finite losses (loss_pos and loss_neg for PN),
+   moved weights, Adam's count 2 per PN step; each step's CUDA-event median
+   beside the median interval between step calls; then each loss's step
+   and the flagship's wms step (K3) on one batch in turns, on the device
+   and on the host behind queued work;
+19. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
    img/s;
-18. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+20. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-19. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+21. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -147,7 +168,7 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-20. print the new paths', serve, train, probe and kernel JSON lines, then
+22. print the new paths', serve, train, probe and kernel JSON lines, then
    the result line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
@@ -1849,6 +1870,335 @@ def phase_train_files(torch, np, report, shared):
     work.cleanup()
 
 
+# ---------------------------------------------------------------- the loss zoo
+# Gates of the losses phase: each loss in fp32 on the card against the same
+# function in float64 on the card, value within LOSS_VALUE_TOL * max(1, |v|),
+# gradient with respect to the embeddings within LOSS_GRAD_TOL of its largest
+# entry, or of LOSS_GRAD_FLOOR where that is smaller (prodwrd's gradient is
+# ~1e-16: its negative spectrum's feature weights, sigmoid(-50 (1 - sim)),
+# leave products that only fp32 noise moves). Set from the first reading on
+# the card (H100): values at most 4.2e-7 off, gradients 3.8e-5 (wrd).
+LOSS_VALUE_TOL = 1e-5
+LOSS_GRAD_TOL = 5e-4
+LOSS_GRAD_FLOOR = 1e-9
+# (loss, steps, --train_ref_r): the toy city's 120 poses lie 7.85 m apart, so
+# r = 24 takes every 3rd (40 anchors, 20 steps) and r = 47 every 6th (10 steps)
+ZOO_RUNS = (("wrd", 20, 24), ("pairwise_distance_neg_eigenvalue", 10, 47), ("quadruplet", 10, 47))
+# a toy-city epoch's K1 forwards besides the steps': a refresh per 20 anchors
+# (3 embeds of 50), the eval hooks at step 0 (2 held-out loss batches, 4 embeds)
+ZOO_REFRESH_EMBEDS, ZOO_EVAL_FORWARDS = 3, 2 + 4
+
+
+def zoo_batch(torch, np, shared, shape):
+    """One batch of 2 tuples of ``shape`` from the dense toy city (seeded
+    anchors, no hard mining), embedded by the flagship from the trained
+    weights (bf16 convs, K1): (anchors, indices, fp32 embeddings (50,
+    32,768) on the card)."""
+    from soft_contrastive_learning_torch.core.config import LossConfig, TrainConfig
+    from soft_contrastive_learning_torch.data.pipeline import load_images_standard
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.train.step import build_embed_step
+    from soft_contrastive_learning_torch.utils.meta import image_keys
+
+    source, cfg = shared["dense_city"], TrainConfig()
+    meta = source.epoch_meta(cfg.local_ref_set, 0)
+    anchors = source.anchor_indices(cfg.local_ref_set, 1, 0)[:2]
+    indices = zoo_sample(np, shared, LossConfig(name="wms"), shape, anchors).indices
+    model = EmbeddingNet(cfg.model)
+    model.load_state_dict(shared["train_params"])
+    images = load_images_standard(source, image_keys(meta, indices.reshape(-1)), cfg)
+    out, _ = build_embed_step(model.cuda())(torch.from_numpy(images).cuda())
+    return anchors, indices, out.float().clone()
+
+
+def zoo_sample(np, shared, loss_cfg, shape, anchors):
+    """The port's sampler on the dense toy city from the seed, without hard
+    mining: the same tuples for every loss of a shape, with that loss's
+    payload."""
+    from soft_contrastive_learning_torch.core.config import TupleConfig
+    from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
+    from soft_contrastive_learning_torch.utils.meta import get_xy, get_yaw
+
+    meta = shared["dense_city"].epoch_meta("train_ref", 0)
+    sampler = TupleSampler(TupleConfig(), loss_cfg, shape, get_xy(meta), get_yaw(meta),
+                           rng=np.random.default_rng(SEED))
+    return sampler.sample(anchors)
+
+
+def wrd_like_gram(torch, np, rng, m):
+    """A pair of (m, m) Grams with wrd's structure, jittered as the port's
+    (``ops/spectral.py``): 12 members drawn with replacement from 1-12 unit
+    directions (scaled 0.05-0.5), the other m - 12 random unit rows weighted
+    by the geometric sigmoid of a distance in 0-150 m, rows shuffled."""
+    from soft_contrastive_learning_torch.ops import spectral
+
+    x = np.zeros((2, m, 512))
+    for t in range(2):
+        k = rng.integers(1, 13)
+        base = rng.standard_normal((k, 512))
+        base /= np.linalg.norm(base, axis=1, keepdims=True)
+        far = rng.standard_normal((m - 12, 512))
+        far /= np.linalg.norm(far, axis=1, keepdims=True)
+        x[t, :12] = base[rng.integers(0, k, 12)] * rng.uniform(0.05, 0.5)
+        x[t, 12:] = far / (1.0 + np.exp(0.8 * (rng.uniform(0, 150, m - 12) - 15)))[:, None]
+        x[t] = x[t][rng.permutation(m)]
+    return spectral._jittered_gram(torch.from_numpy(x).float().cuda())
+
+
+def phase_losses(torch, np, report, shared):
+    """The 29 losses that need no streaming-PCA state, each at the
+    flagship's B = 50 (2 tuples of 1+12+12, quadruplets 1+12+11+1) on
+    descriptors of a dense toy city's images from the trained weights, with
+    the sampler's fp32 payload for its distance type: value and gradient
+    with respect to the embeddings in fp32 on the card against the same
+    function in float64 on the card (LOSS_VALUE_TOL, LOSS_GRAD_TOL above),
+    finite, the same bits twice; forward + backward timed on the device and
+    on the host, and whether it waits for the card (PyTorch's sync debug
+    mode: the eigensolves). Then the eigensolve: cuSOLVER's failures and
+    error in fp32 and in float64 on 900 seeded wrd-like Grams (float64 must
+    converge on all), each solve's time, and wrd's Gram through the port
+    against a float64 Gram."""
+    from soft_contrastive_learning_torch.core.config import (
+        INCREMENTAL_LOSSES, LossConfig, TrainConfig, TupleConfig)
+    from soft_contrastive_learning_torch.losses.registry import LOSS_NAMES, build_loss, split_batch
+    from soft_contrastive_learning_torch.ops import spectral
+    from soft_contrastive_learning_torch.perf import common
+
+    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
+
+    # 1,200 poses 0.79 m apart on the 150 m loop, as dense as a drive's
+    # frames: ~38 candidate positives within 15 m, where the 120-pose city
+    # has 2-4 and its 12 positives repeat, which leaves the residual
+    # matrices rank-deficient and the singular values' gradients undefined
+    shared["dense_city"] = ToyCitySource(num_points=1200, radius=150.0, img_h=180, img_w=240)
+    batches = {}
+    rows, worst = {}, {"value": 0.0, "grad": 0.0}
+    for name in (n for n in LOSS_NAMES if n not in INCREMENTAL_LOSSES):
+        loss_cfg = LossConfig(name=name)
+        shape = TrainConfig(loss=loss_cfg).tuple_shape
+        if shape not in batches:
+            batches[shape] = zoo_batch(torch, np, shared, shape)
+            distinct = [len(set(r[1:13].tolist())) for r in batches[shape][1]]
+            print(f"losses: batch {shape}: distinct positives per tuple {distinct}")
+        anchors, indices, emb = batches[shape]
+        sample = zoo_sample(np, shared, loss_cfg, shape, anchors)
+        if not np.array_equal(sample.indices, indices):
+            fail(f"losses: {name}'s sampler drew other tuples than the embedded batch")
+        # the sampler's fp32 payload, on the card up front (a copy from host
+        # memory waits), the same in both runs: wms's soft masks, computed
+        # from it, underflow where fp32 does
+        payload = {k: torch.from_numpy(v).cuda() for k, v in sample.payload.items()}
+        fn = build_loss(loss_cfg, TupleConfig(), 2)
+
+        def run(dtype, fn=fn, shape=shape, emb=emb, payload=payload):
+            e = emb.to(dtype, copy=True).requires_grad_()
+            total = fn(split_batch(e, 2, shape), payload).total
+            (grad,) = torch.autograd.grad(total, e)
+            return total.detach(), grad
+
+        v32, g32 = run(torch.float32)
+        v32b, g32b = run(torch.float32)
+        v64, g64 = run(torch.float64)
+        if not (torch.isfinite(v32) and torch.isfinite(g32).all()):
+            fail(f"losses: {name} is not finite in fp32")
+        if not (torch.equal(v32, v32b) and torch.equal(g32, g32b)):
+            fail(f"losses: {name} gave other bits on a second call")
+        value_err = abs(v32.item() - v64.item()) / max(1.0, abs(v64.item()))
+        g_scale = g64.abs().max().item()
+        grad_err = (g32.double() - g64).abs().max().item() / max(g_scale, LOSS_GRAD_FLOOR)
+        host_ms, device_ms = common.host_and_device_ms(lambda: run(torch.float32), 10)
+        torch.cuda.set_sync_debug_mode("error")  # does the call wait for the card?
+        try:
+            run(torch.float32)
+            syncs = False
+        except RuntimeError as e:
+            if "synchronizing" not in str(e):
+                raise
+            syncs = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rows[name] = dict(value=v32.item(), value_f64=v64.item(), value_err=value_err,
+                          grad_max=g_scale, grad_err=grad_err, fwd_bwd_ms=device_ms,
+                          host_ms=host_ms, host_waits=syncs)
+        worst = {"value": max(worst["value"], value_err), "grad": max(worst["grad"], grad_err)}
+        print(f"losses: {name:40s} value {v32.item():+.6e} (f64 {v64.item():+.6e}, err "
+              f"{value_err:.2e}), grad max {g_scale:.3e} err {grad_err:.2e}; fwd+bwd "
+              f"{device_ms:.3f} ms on the device, {host_ms:.3f} ms on the host behind ~50 ms of "
+              f"queued work over 10 calls{' (waits for the card)' if syncs else ''}")
+        if value_err > LOSS_VALUE_TOL or grad_err > LOSS_GRAD_TOL:
+            fail(f"losses: {name} fp32 departs from float64: value {value_err:.3g} "
+                 f"(gate {LOSS_VALUE_TOL}), gradient {grad_err:.3g} (gate {LOSS_GRAD_TOL})")
+
+    # the eigensolve: wrd's positive-weighted residuals of the batch, the
+    # port's path (fp32 Gram, float64 solve) against a float64 Gram
+    anchors, indices, emb = batches[(1, 12, 12)]
+    w = zoo_sample(np, shared, LossConfig(name="wrd"), (1, 12, 12), anchors).payload["pos_weights"]
+    grouped = emb.reshape(2, 25, -1)
+    res = (grouped[:, 1:] - grouped[:, :1]) * torch.from_numpy(w).cuda()
+    eig32, eig64 = spectral.gram_eigvals(res), spectral.gram_eigvals(res.double())
+    eig_err = ((eig32.double() - eig64).abs().max() / eig64.abs().max()).item()
+    s32, s64 = spectral.top_svdvals(res, 10), spectral.top_svdvals(res.double(), 10)
+    sv_err = ((s32.double() - s64).abs() / s64).max().item()
+    # cuSOLVER on 900 seeded wrd-like Grams (13, 24 and 25 wide, pairs): 12
+    # members drawn with replacement from 1-12 directions, the others
+    # weighted by the geometric sigmoid of a distance in 0-150 m; in fp32
+    # and in float64, against the host's float64 LAPACK
+    rng = np.random.default_rng(SEED)
+    grams = [wrd_like_gram(torch, np, rng, m) for m in (13, 24, 25) for _ in range(300)]
+    solver = {}
+    for label, dtype in (("fp32", torch.float32), ("float64", torch.float64)):
+        fails, err = 0, 0.0
+        for g in grams:
+            ref = np.linalg.eigvalsh(g.double().cpu().numpy())
+            try:
+                got = torch.linalg.eigvalsh(g.to(dtype)).double().cpu().numpy()
+            except torch.linalg.LinAlgError:
+                fails += 1
+                continue
+            err = max(err, float(np.abs(got - ref).max() / np.abs(ref).max()))
+        gram = res @ res.transpose(1, 2)
+        device_ms = common.time_ms(lambda: torch.linalg.eigvalsh(gram.to(dtype)), 50)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms of queued work
+        t0 = time.perf_counter()
+        torch.linalg.eigvalsh(gram.to(dtype))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        solver[label] = dict(failures=fails, grams=len(grams), max_err=err, device_ms=device_ms,
+                             host_ms_behind_10ms=host_ms)
+        print(f"losses: cuSOLVER eigvalsh in {label}: {fails} of {len(grams)} wrd-like Grams "
+              f"failed to converge, the others within {err:.2e} of the largest eigenvalue; "
+              f"the batch's (2, 24, 24) {device_ms:.4f} ms on the device, a call "
+              f"{host_ms:.3f} ms on the host behind ~10 ms of queued work")
+    if solver["float64"]["failures"]:
+        fail(f"losses: the float64 eigensolve failed on {solver['float64']['failures']} Grams")
+    print(f"losses: wrd's (2, 24, 24) Gram through the port (fp32 Gram, float64 solve) against "
+          f"a float64 Gram: {eig_err:.2e} of the largest eigenvalue, the top 10 singular values "
+          f"within {sv_err:.2e} relative")
+    print(f"losses: worst fp32-vs-float64 value {worst['value']:.3e}, gradient {worst['grad']:.3e} "
+          f"(gates {LOSS_VALUE_TOL}, {LOSS_GRAD_TOL})")
+    report["losses"] = dict(per_loss=rows, worst=worst,
+                            gates=dict(value=LOSS_VALUE_TOL, grad=LOSS_GRAD_TOL),
+                            gram_eig_err=eig_err, top10_sv_rel_err=sv_err, cusolver=solver)
+    del batches
+
+
+def phase_train_zoo(torch, np, report, shared):
+    """``cli train --toy_city`` from the trained weights on the pooled path
+    with no ``--loss`` (so ``wrd``) for 20 steps, then 10 steps each of
+    ``pairwise_distance_neg_eigenvalue`` (a PN loss: two forwards, two
+    backwards and two Adam updates a step) and ``quadruplet`` (tuples of
+    1+12+11+1). Gates: steps, exact K1 / K1_bwd counts (no K3), finite
+    losses (and loss_pos, loss_neg for PN), moved weights, Adam's count 2
+    per PN step. Then each loss's step on its run's first batch timed in
+    turns beside the flagship's wms step (K3), and the host's view: the
+    median interval between step calls beside the CUDA-event step, and a
+    call's host time behind queued work (a step that synchronizes waits)."""
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.train import trainer as trainer_mod
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+
+    params = shared["train_params"]
+    work = tempfile.TemporaryDirectory()
+    runs, out = {}, {}
+    for name, steps, ref_r in ZOO_RUNS:
+        args = ["train", "--toy_city", "--checkpoint", str(TRAINED_PARAMS_PATH),
+                "--max_epoch", "1", "--train_ref_r", str(ref_r), "--mining_step", "20",
+                "--mining_cache_size", "100", "--eval_step", "1000", "--save_step", "1000",
+                "--num_eval_queries", "4", "--eval_ref_r", "10", "--out_root", work.name,
+                "--out_folder", name]
+        if name != "wrd":  # wrd: the CLI's default
+            args += ["--loss", name]
+        made = []
+
+        class Recording(trainer_mod.Trainer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(instrument(torch, self, pooled=True))
+
+        pn = "eigenvalue" in name
+        path = f"train_zoo_{name if not pn else 'pn'}"
+        counts = LaunchCounts(report, path)
+        real = trainer_mod.Trainer
+        trainer_mod.Trainer = Recording
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(args)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+        finally:
+            trainer_mod.Trainer = real
+        per_step = 2 if pn else 1
+        refreshes = steps * 2 // 20
+        launches = counts.read({"K1": per_step * steps + ZOO_REFRESH_EMBEDS * refreshes
+                                      + ZOO_EVAL_FORWARDS, "K1_bwd": per_step * steps})
+        (tr,) = made
+        records = tr.writers["local"].read_all()
+        tags = {"loss", "loss_pos", "loss_neg"} if pn else {"loss"}
+        losses = {t: [r["value"] for r in records if r["tag"] == t] for t in tags}
+        if rc != 0 or tr.cfg.loss.name != name or tr.global_step != steps \
+                or tr.mining.refresh_count != refreshes \
+                or any(len(v) != steps for v in losses.values()):
+            fail(f"{path}: rc {rc}, loss {tr.cfg.loss.name}, {tr.global_step} steps, "
+                 f"{tr.mining.refresh_count} refreshes, {[len(v) for v in losses.values()]} "
+                 f"losses; expected 0, {name}, {steps}, {refreshes}, {steps}")
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            fail(f"{path}: non-finite losses {losses}")
+        unmoved = [k for k, v in tr.state.model.state_dict().items()
+                   if torch.equal(v.cpu(), params[k])]
+        adam = {int(s["step"]) for s in tr.state.optimizer.state.values()}
+        if unmoved or adam != {per_step * steps}:
+            fail(f"{path}: unmoved parameters {unmoved[:5]}, Adam counts {adam}; expected "
+                 f"{per_step * steps}")
+        step_ms = [s.elapsed_time(e) for s, e in tr.step_events]
+        med = statistics.median(step_ms[1:])
+        wall_ms = 1e3 * statistics.median(t1 - t0 for t0, t1 in zip(tr.step_calls,
+                                                                    tr.step_calls[1:]))
+        print(f"{path}: {tr.global_step} steps, {tr.mining.refresh_count} refreshes in "
+              f"{epoch_s:.2f} s (cli.main, set-up included); launches {launches}; Adam count "
+              f"{per_step * steps}; first/last loss {losses['loss'][0]:.6f}/"
+              f"{losses['loss'][-1]:.6f}; median step {med:.3f} ms on the device (CUDA events), "
+              f"{wall_ms:.3f} ms between step calls")
+        runs[name] = (tr.cfg, tr.first_batch, tr._image_pool.array)
+        out[name] = dict(steps=steps, refreshes=refreshes, launches=launches, epoch_s=epoch_s,
+                         median_step_ms=med, step_wall_ms=wall_ms, adam_count=per_step * steps,
+                         first_loss=losses["loss"][0], last_loss=losses["loss"][-1])
+        if pn:
+            out[name].update(first_loss_pos=losses["loss_pos"][0],
+                             first_loss_neg=losses["loss_neg"][0])
+
+    # each loss's step on its run's first batch, and the flagship's wms step
+    # (K3) on the standard epoch's, from the trained weights, in turns
+    runs["wms"] = (train_config(), shared["first_batch"], shared["pool"])
+    steps_by = {}
+    for name, (cfg, batch, pool) in runs.items():
+        model = EmbeddingNet(cfg.model)
+        model.load_state_dict(params)
+        steps_by[name] = (init_train_state(cfg, model.cuda()),
+                          build_train_step(cfg, build_loss(cfg.loss, cfg.tuples,
+                                                           cfg.tuples_per_batch),
+                                           image_pool=True), batch, pool)
+    order = ("wms", *(n for n, _, _ in ZOO_RUNS))
+    turns = {name: [] for name in order}
+    host = {name: [] for name in order}
+    for name in (*order, *reversed(order)):
+        state, one, batch, pool = steps_by[name]
+        turns[name].append(common.time_ms(lambda: one(state, dict(batch), pool), 10))
+        host[name].append(common.host_and_device_ms(lambda: one(state, dict(batch), pool), 10)[0])
+    step_ms_by = {name: statistics.mean(t) for name, t in turns.items()}
+    host_ms_by = {name: statistics.mean(t) for name, t in host.items()}
+    print("train_zoo: step on one batch in turns (device ms; host ms per call behind ~50 ms "
+          "of queued work over 10 calls): " + "; ".join(
+              f"{n} {step_ms_by[n]:.3f} (host {host_ms_by[n]:.3f})" for n in order))
+    report["train_zoo"] = dict(runs=out, step_ms_in_turns=step_ms_by,
+                               host_ms_behind_hold=host_ms_by)
+    work.cleanup()
+
+
 # ---------------------------------------------------------------- the paper's pipeline
 # the rehearsal corpus's geometry cut in refs (3,000 -> 750); PCA and query
 # sets at the rehearsal's 4,400 and 300, so that whitening reaches D = 4,096
@@ -2205,16 +2555,18 @@ def main() -> int:
     phase_train(torch, np, report, shared)
     phase_train_winograd(torch, np, report, shared)
     phase_train_files(torch, np, report, shared)
+    phase_losses(torch, np, report, shared)
+    phase_train_zoo(torch, np, report, shared)
     phase_infer(torch, np, report, shared)
     phase_topn(torch, np, report, shared)
     phase_topn_250k(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (infer for
-    # K1, the file-fed training for K1's backward and K3, the Winograd
-    # training epoch for K4, the 250k-row top-N for K2); launches_by_path:
-    # each path's own count, set to 0 just before it
-    paths = ("topn_250k", "infer", "train_files", "train_winograd", "train", "serve_winograd",
-             "serve", "probes")
+    # launches: the count on the newest path that runs the kernel (the CLI's
+    # default wrd training for K1 and its backward, the file-fed training for
+    # K3, the Winograd training epoch for K4, the 250k-row top-N for K2);
+    # launches_by_path: each path's own count, set to 0 just before it
+    paths = ("train_zoo_wrd", "topn_250k", "infer", "train_files", "train_winograd", "train",
+             "serve_winograd", "serve", "probes")
     for kid in KERNEL_IDS:
         by_path = report[kid]["launches_by_path"]
         report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
@@ -2222,6 +2574,7 @@ def main() -> int:
             fail(f"{kid} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"losses": report["losses"], "train_zoo": report["train_zoo"]}))
     print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],
                       "topn": report["topn"], "topn_250k": report["topn_250k"]}))
     print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))

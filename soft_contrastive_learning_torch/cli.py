@@ -4,7 +4,7 @@
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
         --index features.pickle
-    python -m soft_contrastive_learning_torch.cli train --loss wms \
+    python -m soft_contrastive_learning_torch.cli train \
         --img_root <prep>/downsized --shuffled_root <prep>/data/shuffled \
         --anchor_root <prep>/data/anchors --loc_ref_root <prep>/data/clusters
     python -m soft_contrastive_learning_torch.cli infer --set toy_ref \
@@ -28,8 +28,10 @@ is the warm start (default: a fresh init from ``--seed``). ``train
 its newest rolling checkpoint; a fresh run without ``--out_folder`` gets a
 unique suffix. ``train`` reads the prep pipeline's tree (``--img_root
 --shuffled_root --anchor_root --loc_ref_root``), or the synthetic toy city
-with ``--toy_city``; ``--loss`` keeps its default ``wrd``, which raises
-until the loss-zoo slice, so pass ``--loss wms``. The Winograd
+with ``--toy_city``; ``--loss`` takes 29 of JAX's 33 names, its default
+``wrd`` included (``losses/registry.py::LOSS_NAMES``); the four
+``incremental_*`` names raise until the slice that brings the streaming-PCA
+state. The Winograd
 configuration has no flag, as in ``scl-tpu``: pass
 ``ModelConfig(winograd=True)`` to ``DescriptorService`` or ``Trainer``.
 ``train --fused_wms True`` (the port's only flag beyond ``scl-tpu``'s and
@@ -197,9 +199,11 @@ def config_from_args(args):
         hard_negatives_per_tuple=args.hard_negatives_per_tuple,
         mutually_exclusive_negs=args.mutually_exclusive_negs,
         max_pos_radius=args.max_pos_radius, min_neg_radius=args.min_neg_radius)
-    loss = LossConfig(name=args.loss, alpha=args.alpha, beta=args.beta,
+    loss = LossConfig(name=args.loss, margin_1=args.margin_1, margin_2=args.margin_2,
+                      lam=args.lam, alpha=args.alpha, beta=args.beta,
                       wfunction=args.wfunction, sumfunction=args.sumfunction,
-                      fused_wms=args.fused_wms)
+                      ms_mining=args.msmining, loss_dim=args.loss_dim,
+                      d_max_squared=args.max_pos_radius**2, fused_wms=args.fused_wms)
     return TrainConfig(
         model=model, tuples=tuples, loss=loss, checkpoint=args.checkpoint,
         img_root=args.img_root, shuffled_root=args.shuffled_root,
@@ -274,10 +278,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--hard_negatives_per_tuple", type=int, default=6)
     p.add_argument("--mutually_exclusive_negs", type=_bool_flag, default=True)
     p.add_argument("--loss", default="wrd")
+    p.add_argument("--margin_1", type=float, default=0.1)
+    p.add_argument("--margin_2", type=float, default=0.2)
+    p.add_argument("--lam", type=float, default=0.5)
     p.add_argument("--alpha", type=float, default=0.8)
     p.add_argument("--beta", type=float, default=15.0)
     p.add_argument("--wfunction", default="exp", choices=["exp", "lin", "tanh"])
     p.add_argument("--sumfunction", default="ms", choices=["ms", "plain"])
+    p.add_argument("--msmining", type=_bool_flag, default=False)
     p.add_argument("--fused_wms", type=_bool_flag, default=False,
                    help="the wms loss's forward through its fused kernel (K3 on CUDA); "
                         "LossConfig.fused_wms, which scl-tpu sets in code only")
@@ -291,6 +299,7 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr_down_frequency", type=float, default=1.0)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--optimizer", default="adam", choices=["adam", "momentum"])
+    p.add_argument("--loss_dim", type=int, default=512)
     p.add_argument("--reduction", default="none",
                    choices=["none", "1fc", "2fc", "3fc", "pca", "spp"])
     p.add_argument("--vlad_cores", type=int, default=64)

@@ -1,6 +1,7 @@
-"""The soft geometrically weighted multi-similarity loss ('wms'), the
-counterpart of ``soft_contrastive_learning_tpu/losses/ms.py`` (``_ms_terms``,
-``wms_loss``). Hard-label MS and its combinations come with the loss zoo.
+"""Multi-similarity losses, own copy of
+``soft_contrastive_learning_tpu/losses/ms.py``: hard-label MS (Wang et al.
+CVPR'19, ``ms_loss``), the paper's soft geometrically weighted MS
+(``wms_loss``), and the ``ms_det`` / ``ms_sum`` combinations.
 
 ``wms_loss`` is the plain PyTorch version of K3 (``ops/kernels/wms.py``)
 and the source of K3's backward. Two details keep its gradient equal to
@@ -14,7 +15,13 @@ from __future__ import annotations
 
 import torch
 
+from soft_contrastive_learning_torch.losses.spectral import residual_det_loss
 from soft_contrastive_learning_torch.models.vgg16 import l2_normalize
+
+
+def _at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """fp32, or float64 where the input is (the losses' float64 reference)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _ms_terms(
@@ -76,9 +83,9 @@ def wms_loss(
       * 'lin' : w+ = max(1 - d/d_beta, 0),           w- = min(d/d_beta, 1)
       * 'tanh': w+ = 1 - tanh(d/d_beta),             w- = tanh(d/d_beta)
     """
-    emb = l2_normalize(embeddings.float(), dim=1)
+    emb = l2_normalize(_at_least_fp32(embeddings), dim=1)
     b = emb.shape[0]
-    d = geo_distances.float()
+    d = _at_least_fp32(geo_distances)
     if wfunction == "lin":
         mask_pos = torch.where(d < d_beta, 1.0 - d / d_beta, torch.zeros_like(d))
         mask_neg = torch.where(d < d_beta, d / d_beta, torch.ones_like(d))
@@ -93,3 +100,59 @@ def wms_loss(
     mask_pos = mask_pos - torch.eye(b, dtype=d.dtype, device=d.device)
     sim = torch.maximum(emb @ emb.T, torch.zeros((), dtype=emb.dtype, device=emb.device))
     return _ms_terms(sim, mask_pos, mask_neg, alpha, beta, lamb, eps, ms_mining, sumfunction)
+
+
+def ms_loss(
+    labels: torch.Tensor,  # (B,) integer class labels
+    embeddings: torch.Tensor,  # (B, D)
+    alpha: float = 2.0,
+    beta: float = 50.0,
+    lamb: float = 1.0,
+    eps: float = 0.1,
+    ms_mining: bool = True,
+) -> torch.Tensor:
+    """Hard-label multi-similarity loss."""
+    emb = l2_normalize(_at_least_fp32(embeddings), dim=1)
+    b = emb.shape[0]
+    labels = labels.to(emb.device).reshape(-1, 1)
+    adjacency = labels == labels.T
+    mask_pos = adjacency.to(emb.dtype) - torch.eye(b, dtype=emb.dtype, device=emb.device)
+    mask_neg = (~adjacency).to(emb.dtype)
+    sim = torch.maximum(emb @ emb.T, torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return _ms_terms(sim, mask_pos, mask_neg, alpha, beta, lamb, eps, ms_mining, "ms")
+
+
+def ms_det_loss(labels, embeddings, alpha=2.0, beta=50.0, lamb=1.0, eps=0.1,
+                ms_mining=False):
+    """ms_loss with mining off by default: the reference keeps it as a
+    function of its own, which its training script never dispatches."""
+    return ms_loss(labels, embeddings, alpha, beta, lamb, eps, ms_mining)
+
+
+def ms_sum_loss(
+    anchor,
+    positives,
+    negatives,
+    margin: float,
+    labels: torch.Tensor,
+    embeddings: torch.Tensor,
+    alpha: float = 2.0,
+    beta: float = 50.0,
+    lamb: float = 1.0,
+    eps: float = 0.1,
+    ms_mining: bool = False,
+    dimensions: int = 10,
+) -> torch.Tensor:
+    """5 * ms + residual_det."""
+    ms = ms_loss(labels, embeddings, alpha, beta, lamb, eps, ms_mining)
+    return ms * 5.0 + residual_det_loss(anchor, positives, negatives, margin, dimensions)
+
+
+def tuple_labels(tuples_per_batch: int, positives_per_tuple: int,
+                 negatives_per_tuple: int) -> torch.Tensor:
+    """Per-image class labels of a tuple batch for ms_loss: the anchor and
+    its positives share a class, each negative is a class of its own."""
+    one = torch.cat([torch.zeros(1 + positives_per_tuple, dtype=torch.int32),
+                     torch.arange(negatives_per_tuple, dtype=torch.int32) + 1])
+    offset = negatives_per_tuple + 1
+    return torch.cat([one + t * offset for t in range(tuples_per_batch)])

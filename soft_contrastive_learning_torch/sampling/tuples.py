@@ -1,8 +1,6 @@
-"""Host-side tuple sampler: anchors -> (anchor, positives, negatives) with
-the wms geographic payload. Own copy of
-``soft_contrastive_learning_tpu/sampling/tuples.py::TupleSampler``, trimmed
-to the (1, P, N) tuple shape and the 'wms' payload (the other losses'
-payloads and quadruplets come with the loss zoo).
+"""Host-side tuple sampler: anchors -> (anchor, positives, negatives[,
+other]) with each loss's geometric payload. Own copy of
+``soft_contrastive_learning_tpu/sampling/tuples.py::TupleSampler``.
 
 * positives: within ``max_pos_radius`` of the anchor and with yaw within
   ``max_yaw_diff`` (circular), topped up with hard positives: cache members
@@ -10,6 +8,14 @@ payloads and quadruplets come with the loss zoo).
 * negatives: outside ``min_neg_radius``; hard negatives are the cache
   members nearest in embedding space that are not excluded, with optional
   mutual exclusion of negative neighbourhoods;
+* quadruplets (tuple shape (1, P, N, 1)) add an 'other negative' outside the
+  neighbourhoods of the anchor and every chosen negative; without mutual
+  exclusion the reference's 2-hop exclusion is kept (below);
+* the payload follows ``LossConfig.distance_type``: 'anchor' (squared
+  distances anchor-positives), 'pairwise' (squared distances among anchor
+  and positives), 'swrd' and 'wrd' (geometric sigmoid weights), 'logratio'
+  (squared distances to positives and negatives), 'wms' (the full-batch
+  distance matrix), 'none' (no payload);
 * faulty anchors are resampled, so the batch shape is fixed;
 * all randomness flows through one ``numpy.random.Generator``.
 
@@ -36,6 +42,16 @@ from soft_contrastive_learning_torch.sampling.mining import MiningCache
 _MAX_RETRIES = 32
 
 
+def _sigmoid(x: np.ndarray) -> np.ndarray:
+    """Logistic sigmoid in float64 without overflow on either side."""
+    out = np.empty_like(x, dtype=np.float64)
+    pos = x >= 0
+    out[pos] = 1.0 / (1.0 + np.exp(-x[pos]))
+    e = np.exp(x[~pos])
+    out[~pos] = e / (1.0 + e)
+    return out
+
+
 @dataclass
 class TupleSample:
     """One sampled batch: (T, S) dataset indices + loss payloads."""
@@ -55,9 +71,6 @@ class TupleSampler:
         yaw: np.ndarray,  # (M,)
         rng: Optional[np.random.Generator] = None,
     ):
-        if len(tuple_shape) != 3 or loss.distance_type != "wms":
-            raise NotImplementedError(
-                "quadruplet tuples and non-wms payloads come with the loss-zoo slice")
         self.tuples = tuples
         self.loss = loss
         self.tuple_shape = tuple_shape
@@ -67,6 +80,7 @@ class TupleSampler:
         self.ref_tree = cKDTree(self.xy)
         self._p = tuple_shape[1]
         self._n = tuple_shape[2]
+        self._quadruplet = len(tuple_shape) == 4
 
     def _within(self, index: int, radius: float) -> np.ndarray:
         return np.asarray(
@@ -142,10 +156,53 @@ class TupleSampler:
                 excluded.update(self._neighborhood(next_i).tolist())
             else:
                 excluded.add(next_i)
-        out = np.asarray([index] + positives + rand_negs + hard_neg, dtype=int)
+        members = [index] + positives + rand_negs + hard_neg
+        if self._quadruplet:
+            if not t.mutually_exclusive_negs:
+                # The reference expands the neighbourhood of everything
+                # excluded, the anchor's whole min_neg_radius neighbourhood
+                # included: a 2-hop exclusion, kept for the payload's parity.
+                for neg in list(excluded):
+                    excluded.update(self._neighborhood(int(neg)).tolist())
+            remaining = np.setdiff1d(
+                np.arange(num_total), np.fromiter(excluded, dtype=int, count=len(excluded)))
+            if len(remaining) == 0:
+                return None
+            members.append(int(self.rng.choice(remaining)))
+        out = np.asarray(members, dtype=int)
         if len(out) != sum(self.tuple_shape):
             return None
         return out
+
+    def _payload_one(self, tuple_indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """One tuple's geometric payload for the loss's ``distance_type``."""
+        dt = self.loss.distance_type
+        if dt in ("none", "wms"):  # wms: built over the whole batch in sample()
+            return {}
+        a_xy = self.xy[tuple_indices[0]]
+        pos_xy = self.xy[tuple_indices[1 : 1 + self._p]]
+        neg_xy = self.xy[tuple_indices[1 + self._p : 1 + self._p + self._n]]
+        alpha, beta = self.loss.alpha, self.loss.beta
+        if dt == "anchor":
+            return {"sq_pos_geo_dists": np.sum((pos_xy - a_xy) ** 2, axis=1)}
+        if dt == "pairwise":
+            pts = np.concatenate([a_xy[None], pos_xy], axis=0)
+            diff = pts[:, None, :] - pts[None, :, :]
+            return {"pairwise_sq_geo_dists": np.sum(diff**2, axis=-1)}
+        if dt == "swrd":
+            pos_d = np.linalg.norm(pos_xy - a_xy, axis=1)
+            neg_d = np.linalg.norm(neg_xy - a_xy, axis=1)
+            return {"pos_weights": _sigmoid(-alpha * (pos_d - beta))[:, None],
+                    "neg_weights": _sigmoid(-alpha * (beta - neg_d))[:, None]}
+        if dt == "wrd":  # also prodwrd / sumwrd
+            all_d = np.concatenate([np.linalg.norm(pos_xy - a_xy, axis=1),
+                                    np.linalg.norm(neg_xy - a_xy, axis=1)])
+            return {"pos_weights": _sigmoid(-alpha * (all_d - beta))[:, None],
+                    "neg_weights": _sigmoid(-alpha * (beta - all_d))[:, None]}
+        if dt == "logratio":
+            return {"sq_pos_geo_dists": np.sum((pos_xy - a_xy) ** 2, axis=1),
+                    "sq_neg_geo_dists": np.sum((neg_xy - a_xy) ** 2, axis=1)}
+        raise ValueError(f"unknown distance_type {dt!r}")
 
     def sample(
         self,
@@ -169,8 +226,12 @@ class TupleSampler:
             tuples_out.append(member)
             used.update(member.tolist())
         indices = np.stack(tuples_out)  # (T, S)
-        # full-batch geographic distance matrix over every tuple member
-        pts = self.xy[indices.reshape(-1)]
-        diff = pts[:, None, :] - pts[None, :, :]
-        geo = np.sqrt(np.maximum(np.sum(diff**2, axis=-1), 0.0)).astype(np.float32)
-        return TupleSample(indices=indices, payload={"geo_dist_matrix": geo}, used_indices=used)
+        rows = [self._payload_one(row) for row in indices]
+        payload = {k: np.stack([r[k] for r in rows]).astype(np.float32) for k in rows[0]}
+        if self.loss.distance_type == "wms":
+            # full-batch geographic distance matrix over every tuple member
+            pts = self.xy[indices.reshape(-1)]
+            diff = pts[:, None, :] - pts[None, :, :]
+            payload["geo_dist_matrix"] = np.sqrt(
+                np.maximum(np.sum(diff**2, axis=-1), 0.0)).astype(np.float32)
+        return TupleSample(indices=indices, payload=payload, used_indices=used)

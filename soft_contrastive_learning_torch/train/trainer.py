@@ -11,10 +11,11 @@ by a draw from the trainer's generator, so the sample stream matches the
 JAX trainer's. Steps stride by ``tuples_per_batch`` over the anchors.
 
 Within a segment nothing waits for the card: the host samples batch i+1
-while the card runs step i, and the losses are fetched in one transfer at
-the segment's end, or before an eval so that the records stay in order, and
-written as JSONL (``metrics_local.jsonl``, the records of
-``core/logging.py::MetricsWriter``) with ``global_step`` counted from 1.
+while the card runs step i, and the losses (with the PN losses' ``loss_pos``
+and ``loss_neg``) are fetched in one transfer at the segment's end, or
+before an eval so that the records stay in order, and written as JSONL
+(``metrics_local.jsonl``, the records of ``core/logging.py::MetricsWriter``)
+with ``global_step`` counted from 1.
 Without the device pool (the host-fed path) a ``Prefetcher`` thread samples
 the segment's batches in step order and decodes their images on the
 trainer's 8-thread pool (``_pool``), up to two batches ahead of the card, as
@@ -292,7 +293,7 @@ class Trainer:
 
             prefetch = Prefetcher(build, len(seg_steps) - offset)
             batches = iter(prefetch)
-        records = []  # (global_step, device loss, lr)
+        records = []  # (global_step, metrics: device losses and the lr)
         try:
             for i in range(offset, len(seg_steps)):
                 s = int(seg_steps[i])
@@ -320,7 +321,7 @@ class Trainer:
                     self.state, metrics = self.train_step(self.state, self._to_device(host_batch))
                 self.used_images.update(sample.used_indices)
                 self.global_step += 1
-                records.append((self.global_step, metrics["loss"], metrics["learning_rate"]))
+                records.append((self.global_step, metrics))
         finally:
             if prefetch is not None:
                 prefetch.close()
@@ -329,14 +330,21 @@ class Trainer:
         return suppress_first
 
     def _write_train_metrics(self, records: list) -> None:
-        """Fetch the pending steps' losses in one device-to-host transfer,
-        log and write them, and empty ``records``."""
+        """Fetch the pending steps' losses (with the PN losses' ``loss_pos``
+        and ``loss_neg``) in one device-to-host transfer, log and write
+        them, and empty ``records``."""
         if not records:
             return
-        losses = torch.stack([loss for _, loss, _ in records]).tolist()
-        for (step, _, lr), loss in zip(records, losses):
-            self.log(f"Train batch loss: {loss}")
-            self.writers["local"].scalars({"loss": loss, "learning_rate": lr}, step)
+        keys = ("loss", "loss_pos", "loss_neg") if self.cfg.loss.pn_loss else ("loss",)
+        values = torch.stack([m[k] for _, m in records for k in keys]).reshape(
+            len(records), len(keys)).tolist()
+        for (step, metrics), row in zip(records, values):
+            losses = dict(zip(keys, row))
+            self.log(f"Train batch loss: {losses['loss']}")
+            # JAX's record order: loss, learning_rate, then loss_pos, loss_neg
+            self.writers["local"].scalars(
+                {"loss": losses.pop("loss"), "learning_rate": metrics["learning_rate"], **losses},
+                step)
         records.clear()
 
     def _run_eval(self, epoch: int, eval_ordinal: int) -> None:

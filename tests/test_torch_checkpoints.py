@@ -9,6 +9,7 @@ part checkpoints and taken up again by a new ``Trainer``. Last, a JAX ``TrainSta
 as numpy arrays takes the same next step in both packages.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -422,3 +423,29 @@ def test_a_jax_train_state_takes_the_same_next_step_in_the_port(tmp_path, optimi
         else:
             grain = 4 * eps32 * p0[name].abs().max().item() / lr * err.numel() ** 0.5
             assert err.norm().item() <= 1e-2 * d_want.norm().item() + grain, name
+
+
+def test_pn_resume_equals_the_uninterrupted_run(tmp_path):
+    """A PN loss (two Adam updates a step) stopped after its part
+    checkpoint of step 5 and taken up again: parameters, Adam's moments and
+    its count (2 per step: 24 after 12 steps) bit-equal to the
+    uninterrupted run's, and ``metrics_local.jsonl`` (with ``loss_pos`` and
+    ``loss_neg``) going on with its values. Hard mining off, every other
+    anchor: 12 steps."""
+    cfg = dataclasses.replace(_cfg(0, save_step=5, eval_step=100, train_ref_r=16),
+                              loss=tcfg.LossConfig(name="pairwise_distance_neg_eigenvalue"))
+    whole, _, _ = _run(cfg, tmp_path / "a")
+    resumed, _, ctx = _run(cfg, _stopped_copy(tmp_path / "a", tmp_path / "b", 5),
+                           resume_role="part")
+    assert ctx["step"] == 5 and whole.global_step == resumed.global_step == 12
+    a, b = whole.state.model.state_dict(), resumed.state.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    oa = whole.state.optimizer.state_dict()["state"]
+    ob = resumed.state.optimizer.state_dict()["state"]
+    assert {int(s["step"]) for s in oa.values()} == {24}
+    assert all(torch.equal(oa[i][k], ob[i][k]) for i in oa
+               for k in ("step", "exp_avg", "exp_avg_sq"))
+    got = _records(resumed)
+    assert got == _records(whole, after=5)
+    assert {tag for _, tag, _ in got} == {"loss", "learning_rate", "loss_pos", "loss_neg"}
+    assert [s for s, tag, _ in got if tag == "loss_neg"] == list(range(6, 13))

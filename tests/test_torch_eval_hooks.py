@@ -229,3 +229,42 @@ def test_save_plots_writes_the_curves(port_run, tmp_path):
     assert sorted(p.name for p in tmp_path.glob("*.pdf")) == [
         "other_00_0_10.pdf", "other_00_0_25.pdf", "other_00_0_50.pdf"]
     assert len(list((tmp_path / "other_00_0_examples").glob("*.png"))) == 4
+
+
+@pytest.mark.parametrize("loss", ["quadruplet", "pairwise_distance_neg_eigenvalue"])
+def test_held_out_loss_runs_the_configured_loss(jax_run, loss, tmp_path, monkeypatch):
+    """The held-out loss of a quadruplet loss (the eval sampler draws
+    (1, 3, 2, 1) tuples) and of a PN loss (whose record adds ``loss_pos``
+    and ``loss_neg``, as JAX's eval step returns them), from the same
+    weights as the JAX trainer's hook: the same tags, values within 2e-5
+    relative (as above) plus 1e-6. The neg part is the smallest eigenvalue
+    of a nearly rank-one Gram (an untrained net's descriptors nearly
+    coincide): -2e-4 here, and an fp32 eigensolve errs by ~eps times the
+    Gram's trace (4 for four unit descriptors), 5e-7, whatever the
+    eigenvalue's size (measured 2.7e-7)."""
+    monkeypatch.setattr(jax_tuples, "KDTree", SortedKDTree)
+    jax_cfg = jcfg.TrainConfig(
+        model=jcfg.ModelConfig(vlad_cores=8, image_height=64, image_width=80,
+                               compute_dtype="float32", use_pallas=False),
+        tuples=jcfg.TupleConfig(**TUPLES), loss=jcfg.LossConfig(name=loss), **TRAIN)
+    jtr = JaxTrainer(jax_cfg, JaxToyCitySource(**SOURCE), out_dir=str(tmp_path / "jax"))
+    jtr.state = jtr.state._replace(params=jax.device_put(
+        traverse_util.unflatten_dict(jax_run[0], sep="/")))
+    jtr.evals.loss_other(0, 0, 0)
+    cfg = tcfg.TrainConfig(**{**_port_cfg().__dict__, "loss": tcfg.LossConfig(name=loss)})
+    tr = Trainer(cfg, ToyCitySource(**SOURCE), out_dir=str(tmp_path / "port"), device="cpu",
+                 params=params_from_flax(jax_run[0], cfg.model))
+    shapes = []
+    sampler_for = tr._sampler_for
+    tr._sampler_for = lambda meta, rng=None: shapes.append(
+        sampler_for(meta, rng).tuple_shape) or sampler_for(meta, rng)
+    tr.evals.loss_other(0, 0, 0)
+    want, got = _by_tag(jtr.writers["other"].read_all()), _by_tag(tr.writers["other"].read_all())
+    jtr.close()
+    tr.close()
+    assert shapes == [cfg.tuple_shape] == [(1, 3, 2, 1) if loss == "quadruplet" else (1, 3, 3)]
+    assert got.keys() == want.keys() == (
+        {"loss"} if loss == "quadruplet" else {"loss", "loss_pos", "loss_neg"})
+    for tag in want:
+        np.testing.assert_allclose([v for _, v in got[tag]], [v for _, v in want[tag]],
+                                   rtol=2e-5, atol=1e-6)

@@ -130,26 +130,47 @@ def test_function_gradients_match_jax_fused_vjp(logit_dtype):
             np.testing.assert_allclose(a, w, rtol=0, atol=1e-5 * np.abs(w).max())
 
 
+def _module_grads_float64(fmap, weight, centers):
+    """The module's gradients from the plain formula in float64 (autograd)."""
+    b, h, w, d = fmap.shape
+    x = fmap.double().reshape(b, h * w, d)
+    weight = weight.double().clone().requires_grad_()
+    centers = centers.double().clone().requires_grad_()
+    a = torch.softmax(x @ weight.reshape(-1, d).T, dim=-1)
+    v = torch.einsum("bnk,bnd->bkd", a, x) + a.sum(dim=1)[:, :, None] * centers.T[None]
+    v = v / torch.sqrt((v * v).sum(dim=-1, keepdim=True) + 1e-12)
+    v = v.transpose(1, 2).reshape(b, -1)
+    out = v / torch.sqrt((v * v).sum(dim=-1, keepdim=True) + 1e-12)
+    return torch.autograd.grad(out.square().sum() + out.sum(), [weight, centers])
+
+
 def test_module_backward_goes_through_the_function():
     """With use_kernels the module's graph runs VladAggregateFn's backward
-    (on the CPU the closed form, ``vlad_aggregate_backward``) and gives the
-    plain module's gradients, up to the two fp32 summation orders: within
-    1e-6 of each gradient's largest entry (measured 5e-7 and 3e-7)."""
+    (on the CPU the closed form, ``vlad_aggregate_backward``); without, plain
+    autograd. The parameters come from the test's numpy seed. Both sides are
+    held to the same gradients in float64: within 5e-6 of each gradient's
+    largest entry. Measured over 300 seeds of these shapes at 1 thread, 100
+    at 4 and 60 at 8: the fp32 sides lie at most 2.2e-6 (assignment weight)
+    and 3.7e-7 (centers) from float64, and 1.2e-6 from each other."""
     rng = np.random.default_rng(6)
     fmap = torch.from_numpy(rng.standard_normal((2, 3, 4, 512)).astype(np.float32))
-    grads, state = [], None
+    state = {
+        "assignment.weight": torch.from_numpy(
+            (rng.standard_normal((8, 512, 1, 1)) / np.sqrt(512)).astype(np.float32)),
+        "cluster_centers": torch.from_numpy(
+            (rng.standard_normal((512, 8)) / np.sqrt(512)).astype(np.float32)),
+    }
+    want = _module_grads_float64(fmap, state["assignment.weight"], state["cluster_centers"])
     for use_kernels in (True, False):
         mod = NetVLAD(num_clusters=8, compute_dtype=torch.float32, use_kernels=use_kernels)
-        state = state or mod.state_dict()
         mod.load_state_dict(state)
         out = mod(fmap)
         assert out.grad_fn is not None
-        if use_kernels:
-            assert "VladAggregateFn" in type(out.grad_fn).__name__
-        grads.append(torch.autograd.grad(out.square().sum() + out.sum(),
-                                         [mod.assignment.weight, mod.cluster_centers]))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, atol=1e-6 * b.abs().max().item(), rtol=0)
+        assert ("VladAggregateFn" in type(out.grad_fn).__name__) == use_kernels
+        got = torch.autograd.grad(out.square().sum() + out.sum(),
+                                  [mod.assignment.weight, mod.cluster_centers])
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.double(), w, atol=5e-6 * w.abs().max().item(), rtol=0)
 
 
 def test_bare_wrapper_refuses_to_cut_the_graph():

@@ -82,31 +82,38 @@ def test_mining_cache_answers_like_jax():
     assert ours.sorted_neighbors(999) is None
 
 
-def _samplers(seed, mp):
+def _samplers(seed, mp, loss="wms", mutually_exclusive_negs=True):
     mp.setattr(jax_tuples, "KDTree", SortedKDTree)
     meta = ToyCitySource(**CITY).epoch_meta("train_ref", 0)
     jmeta = JaxToyCitySource(**CITY).epoch_meta("train_ref", 0)
     assert meta == jmeta
-    ours = TupleSampler(tcfg.TupleConfig(), tcfg.LossConfig(), (1, 12, 12), get_xy(meta),
-                        get_yaw(meta), rng=np.random.default_rng(seed))
-    theirs = jax_tuples.TupleSampler(jcfg.TupleConfig(), jcfg.LossConfig(), (1, 12, 12),
-                                     jax_get_xy(jmeta), get_yaw(jmeta),
+    tuples = dict(mutually_exclusive_negs=mutually_exclusive_negs)
+    shape = tcfg.TrainConfig(loss=tcfg.LossConfig(name=loss)).tuple_shape
+    assert shape == jcfg.TrainConfig(loss=jcfg.LossConfig(name=loss)).tuple_shape
+    ours = TupleSampler(tcfg.TupleConfig(**tuples), tcfg.LossConfig(name=loss), shape,
+                        get_xy(meta), get_yaw(meta), rng=np.random.default_rng(seed))
+    theirs = jax_tuples.TupleSampler(jcfg.TupleConfig(**tuples), jcfg.LossConfig(name=loss),
+                                     shape, jax_get_xy(jmeta), get_yaw(jmeta),
                                      rng=np.random.default_rng(seed))
     return meta, ours, theirs
+
+
+def _mining_caches(anchors):
+    """A refreshed window of 100 rolling + 20 upcoming, as the trainer mines."""
+    rng = np.random.default_rng(3)
+    idx = np.concatenate([np.arange(100), anchors[:20]])
+    f = _eighths(rng, (len(idx), 32))
+    caches = (MiningCache(), JaxMiningCache())
+    caches[0].refresh(idx, neighbor_order(torch.from_numpy(f)).numpy())
+    caches[1].refresh(None, idx, order=np.asarray(jax_neighbor_order(jnp.asarray(f))))
+    return caches
 
 
 @pytest.mark.parametrize("with_cache", [False, True])
 def test_sampler_draws_the_jax_tuples(with_cache, monkeypatch):
     meta, ours, theirs = _samplers(7, monkeypatch)
     anchors = ToyCitySource(**CITY).anchor_indices("train_ref", 1, 0)
-    caches = (None, None)
-    if with_cache:  # a refreshed window of 100 rolling + 20 upcoming, as the trainer mines
-        rng = np.random.default_rng(3)
-        idx = np.concatenate([np.arange(100), anchors[:20]])
-        f = _eighths(rng, (len(idx), 32))
-        caches = (MiningCache(), JaxMiningCache())
-        caches[0].refresh(idx, neighbor_order(torch.from_numpy(f)).numpy())
-        caches[1].refresh(None, idx, order=np.asarray(jax_neighbor_order(jnp.asarray(f))))
+    caches = _mining_caches(anchors) if with_cache else (None, None)
     for start in range(0, 40, 2):  # 20 batches of 2 tuples, the flagship's B = 50
         a = anchors[start : start + 2]
         got = ours.sample(a, use_hard=True, cache=caches[0])
@@ -137,3 +144,43 @@ def test_hard_members_come_from_the_cache(monkeypatch):
     geo = s.payload["geo_dist_matrix"]
     assert geo.shape == (50, 50) and geo.dtype == np.float32
     np.testing.assert_allclose(np.diag(geo), 0.0)
+
+
+@pytest.mark.parametrize("loss,exclusive", [
+    ("triplet", True),  # no payload
+    ("distance_triplet", True),  # anchor
+    ("pairwise_distance_neg_eigenvalue", True),  # pairwise
+    ("swrd", True),
+    ("wrd", True),
+    ("prodwrd", False),
+    ("logratio", True),
+    ("quadruplet", True),  # (1, 12, 11, 1) and the other negative
+    ("quadruplet", False),  # the reference's 2-hop exclusion for the other negative
+    ("distance_lazy_quadruplet", False),
+])
+def test_sampler_draws_the_jax_payloads_and_quadruplets(loss, exclusive, monkeypatch):
+    """Every payload of the loss zoo and the quadruplets' other negative,
+    drawn from the same seed with a ready mining cache: the same indices,
+    payload keys, shapes and values (float32, computed by the same float64
+    numpy on both sides, so equal)."""
+    meta, ours, theirs = _samplers(11, monkeypatch, loss, exclusive)
+    anchors = ToyCitySource(**CITY).anchor_indices("train_ref", 1, 0)
+    caches = _mining_caches(anchors)
+    quad = tcfg.LossConfig(name=loss).needs_other_neg
+    for start in range(0, 20, 2):
+        a = anchors[start : start + 2]
+        got = ours.sample(a, use_hard=True, cache=caches[0])
+        want = theirs.sample(a, use_hard=True, cache=caches[1])
+        assert got.indices.shape == (2, 25)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        assert got.payload.keys() == want.payload.keys()
+        assert (len(got.payload) == 0) == (loss == "triplet" or loss == "quadruplet")
+        for k in want.payload:
+            assert got.payload[k].dtype == np.float32
+            np.testing.assert_array_equal(got.payload[k], want.payload[k])
+        if quad:  # the other negative lies outside the anchor's and every negative's radius
+            for row in got.indices:
+                others = np.concatenate([row[:1], row[13:-1]])
+                far = np.linalg.norm(ours.xy[others] - ours.xy[row[-1]], axis=1)
+                assert len(others) == 12 and (far > 15.0).all()
+    assert ours.rng.integers(1 << 30) == theirs.rng.integers(1 << 30)

@@ -260,3 +260,128 @@ def test_split_batch_matches_jax():
     want = jax_split_batch(jnp.asarray(emb), 2, (1, 12, 12))
     for name in ("anchor", "positives", "negatives", "embeddings"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+
+
+# ---------------------------------------------------------------- the loss zoo
+
+# a tuple's geometry as the sampler draws it: positives inside max_pos_radius,
+# negatives outside min_neg_radius (metres from the anchor)
+ZOO_XY = np.array([[0.0, 0.0], [5.0, 2.0], [-3.0, 9.0], [21.0, -4.0], [-30.0, 25.0]])
+
+
+def _zoo_cfgs(loss):
+    j, t = _cfgs("adam")
+    return (jcfg.TrainConfig(**{**j.__dict__, "loss": jcfg.LossConfig(name=loss)}),
+            tcfg.TrainConfig(**{**t.__dict__, "loss": tcfg.LossConfig(name=loss)}))
+
+
+def _zoo_payload(cfg):
+    from soft_contrastive_learning_tpu.sampling.tuples import TupleSampler as JaxTupleSampler
+
+    sampler = JaxTupleSampler(cfg.tuples, cfg.loss, cfg.tuple_shape, ZOO_XY, np.zeros(5))
+    return {k: np.asarray(v, np.float32)[None] for k, v in sampler._payload_one(np.arange(5)).items()}
+
+
+def _zoo_jax_run(loss):
+    cfg, _ = _zoo_cfgs(loss)
+    model = create_model(cfg.model)
+    params = init_params(cfg.model, jax.random.key(0))
+    images, _ = _batch()
+    payload = {k: jnp.asarray(v) for k, v in _zoo_payload(cfg).items()}
+    init = _flat(params)  # the step donates its state
+    state = jstep.init_train_state(cfg, params)
+    step = jstep.build_train_step(cfg, model, jax_build_loss(cfg.loss, cfg.tuples, 1))
+    metrics, after = [], []
+    for epoch in EPOCHS:
+        state, m = step(state, {"images": jnp.asarray(images), "epoch": jnp.float32(epoch),
+                                **payload})
+        metrics.append({k: float(v) for k, v in m.items() if k.startswith("loss")})
+        after.append(_flat(state.params))
+    count = int(jax.tree_util.tree_leaves(state.opt_state.inner_state)[0])
+    return init, metrics, after, count
+
+
+def _zoo_port_run(loss, init):
+    _, cfg = _zoo_cfgs(loss)
+    state = init_train_state(cfg, _port_model(init))
+    step = build_train_step(cfg, build_loss(cfg.loss, cfg.tuples, 1))
+    images, _ = _batch()
+    payload = {k: torch.from_numpy(v) for k, v in _zoo_payload(_zoo_cfgs(loss)[0]).items()}
+    metrics, after = [], []
+    for epoch in EPOCHS:
+        state, m = step(state, {"images": torch.from_numpy(images), "epoch": epoch, **payload})
+        metrics.append({k: v.item() for k, v in m.items() if k.startswith("loss")})
+        after.append({k: v.clone() for k, v in state.model.state_dict().items()})
+    counts = {int(s["step"]) for s in state.optimizer.state.values()}
+    return metrics, after, counts, state.step
+
+
+def _nudged(init):
+    """The weights one ulp up: the floor of what rounding alone can move."""
+    return {k: (v * np.float32(1 + 2**-23)).astype(v.dtype) for k, v in init.items()}
+
+
+@pytest.fixture(scope="module", params=["pairwise_distance_neg_eigenvalue", "wrd"])
+def zoo_runs(request):
+    """The JAX run, the port's from the same weights, and the port's from
+    the weights nudged by one ulp (for the PN loss only)."""
+    jax_side = _zoo_jax_run(request.param)
+    nudged = None
+    if "eigenvalue" in request.param:
+        nudged = _zoo_port_run(request.param, _nudged(jax_side[0]))
+    return request.param, jax_side, _zoo_port_run(request.param, jax_side[0]), nudged
+
+
+def test_zoo_step_losses_match(zoo_runs):
+    """``loss`` and, for the PN loss, ``loss_pos`` and ``loss_neg`` (each at
+    the weights its update starts from) of both steps. wrd: 1e-5 relative
+    (on this untrained model's nearly coincident descriptors its products
+    are below fp32's grain of the margin, so the loss is the margin and the
+    parameters carry the check). PN: within 1e-5 relative plus 5x the
+    distance between the port's run and its run from weights nudged by one
+    ulp (measured: at most 2.6x). Its neg part is the smallest eigenvalue of
+    a nearly rank-one Gram, whose eigenvector is ill-determined, so rounding
+    alone moves the second update by 4e-3 of lr on average."""
+    loss, (_, want, _, _), (got, _, _, _), nudged = zoo_runs
+    keys = {"loss", "loss_pos", "loss_neg"} if nudged is not None else {"loss"}
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys() == keys
+        for k in keys:
+            floor = 0.0 if nudged is None else 5 * abs(g[k] - nudged[0][i][k])
+            assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]) + floor, (i, k, g[k], w[k])
+        if nudged is not None:
+            assert g["loss"] == np.float32(g["loss_pos"]) + np.float32(g["loss_neg"])
+
+
+def test_zoo_step_counts_two_adam_updates_per_pn_step(zoo_runs):
+    """The PN step takes two updates that share Adam's state: its count is
+    4 after two steps on both sides (optax's count), the step counter 2."""
+    loss, (_, _, _, want_count), (_, _, counts, step), _ = zoo_runs
+    per_step = 2 if "eigenvalue" in loss else 1
+    assert counts == {want_count} == {per_step * len(EPOCHS)} and step == len(EPOCHS)
+
+
+def _update_errors(p0, after, other):
+    return torch.cat([(((after[n] - p0[n]) - (other[n] - p0[n])) / LR).abs().reshape(-1)
+                      for n in p0])
+
+
+def test_zoo_params_after_two_steps_match(zoo_runs):
+    """Updates as fractions of lr after each step (two updates each for the
+    PN loss), as ``test_params_after_two_steps_match`` holds Adam's: the
+    mean difference under 5e-4 of lr and at most 5% of the weights apart by
+    more than 1e-3 of lr. For the PN loss, whose second update rounding
+    alone moves (above), the bounds are at least 5x the nudged run's mean
+    and 2x its share (measured: 4.5x and 2.6x the mean, 1.2x the share)."""
+    _, (init, _, jax_after, _), (_, after, _, _), nudged = zoo_runs
+    _, cfg = _cfgs("adam")
+    p0 = params_from_flax(init, cfg.model)
+    for i, (want_flat, got) in enumerate(zip(jax_after, after)):
+        err = _update_errors(p0, got, params_from_flax(want_flat, cfg.model))
+        mean_bound, share_bound = 5e-4, 0.05
+        if nudged is not None:
+            floor = _update_errors(p0, got, nudged[1][i])
+            mean_bound = max(mean_bound, 5 * floor.mean().item())
+            share_bound = max(share_bound, 2 * (floor > 1e-3).float().mean().item())
+        assert err.mean().item() <= mean_bound
+        assert (err > 1e-3).float().mean().item() <= share_bound

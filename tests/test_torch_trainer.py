@@ -9,6 +9,8 @@ neighbour arrays, as the port's ``cKDTree.query_ball_point(...,
 return_sorted=True)`` does, so the two samplers draw the same tuples.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -161,15 +163,15 @@ def test_cli_train_flags_are_jax_flags_with_jax_defaults():
     assert ours.pop("fused_wms") is False
     assert set(ours) <= set(jax_defaults)
     assert {k: jax_defaults[k] for k in ours} == ours
+    # the loss zoo's flags (--out_dim, --L and --f come with the reduction heads)
+    assert {"loss", "margin_1", "margin_2", "lam", "msmining", "loss_dim"} <= set(ours)
 
 
 def test_cli_train_runs_a_toy_city_epoch_on_the_cpu(tmp_path):
     from soft_contrastive_learning_torch.cli import main
     from soft_contrastive_learning_torch.core.logging import MetricsWriter
 
-    with pytest.raises(NotImplementedError, match="loss-zoo"):
-        main(["train", "--toy_city", "--device", "cpu"])  # --loss defaults to 'wrd'
-    argv = ["train", "--toy_city", "--loss", "wms", "--device", "cpu", "--out_root",
+    argv = ["train", "--toy_city", "--device", "cpu", "--out_root",  # --loss: its default, wrd
             str(tmp_path), "--out_folder", "run", "--image_height", "32", "--image_width", "32",
             "--vlad_cores", "8", "--compute_dtype", "float32", "--positives_per_tuple", "1",
             "--negatives_per_tuple", "1", "--hard_positives_per_tuple", "1",
@@ -182,7 +184,7 @@ def test_cli_train_runs_a_toy_city_epoch_on_the_cpu(tmp_path):
     losses = _losses(recs)
     # one anchor per 40 m of the 120-pose loop: 24 anchors, 2 tuples a step
     assert len(losses) == 12 and np.isfinite(losses).all()
-    assert (tmp_path / "run" / "config.json").exists()
+    assert json.loads((tmp_path / "run" / "config.json").read_text())["loss"]["name"] == "wrd"
     # the eval hooks fired before the first step: held-out loss and localization
     other = MetricsWriter(str(tmp_path / "run"), "other").read_all()
     assert {r["step"] for r in other} == {0} and "loss" in {r["tag"] for r in other}
