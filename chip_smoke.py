@@ -135,7 +135,13 @@ failure:
    embeddings within 5e-4 of its largest entry (or of 1e-9 where that is
    smaller) of the same function in float64 on the card, finite, the same
    bits twice; forward + backward ms on the device and the host, and
-   whether a call waits for the card (sync debug mode); cuSOLVER's
+   whether a call waits for the card (sync debug mode); the four
+   incremental losses on the (1,12,12) batch against loss PCAs initialized
+   as the trainer does from 600 of the city's descriptors (the mm variants
+   at loss_dim 512, the det variants at the largest loss_dim at which their
+   fp32 products are finite and move; the det value's error taken of the
+   products it is the difference of), to the same gates, with the sums of
+   the logs of their top 512 values; cuSOLVER's
    eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
    float64 (the port's solve: must converge on all);
 18. train_zoo: `cli train --toy_city` from the trained weights on the
@@ -147,18 +153,41 @@ failure:
    beside the median interval between step calls; then each loss's step
    and the flagship's wms step (K3) on one batch in turns, on the device
    and on the host behind queued work;
-19. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+19. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
+   and vlad_cores=0's flattened map) from the trained backbone and a seeded
+   head, B = 50: widths, finite, cosine >= 0.99 to the fp32 plain path on
+   the card (pca projected by a StreamingPCA fitted on 600 images; its
+   whitened bf16 output >= 0.95, and a control, the served descriptor's
+   error doubled, below that), K1 once per forward where NetVLAD runs; then a 1fc DescriptorService embeds 512
+   index images to 512-D, pads them to 66,048 rows and searches 64 queries
+   (K2 at D = 512): 16 index images at rank 0, squared distances within
+   1e-5 of |q|^2 of an fp64 search;
+20. train_heads: `cli train` at the flagship's width from the trained
+   weights: --reduction pca --loss incremental_residual_mm (6 steps) and
+   --reduction none with it (the 32,768-wide loss PCA, 4 steps), both from
+   a prep tree of a 1,200-pose city with mining windows of 600 images (more
+   rows than the PCAs' 512 components), and --reduction 2fc --loss wms
+   --fused_wms True (10 steps on the toy city, from an npz holding the
+   trained backbone and a seeded head): steps, refreshes,
+   exact K1/K1_bwd/K3 counts, finite losses, moved weights, the PCAs' row
+   counts; the pca run again (the floor) and resumed by a fresh Trainer
+   from its drained part checkpoint of step 3: parameters and both PCAs
+   within 10x the floor (at least 1e-6), counts equal; each run's device
+   step time beside the interval between step calls and each refresh's
+   PCA fits, the host's PCA update at each width and the (2, 525, 525)
+   float64 eigensolve;
+21. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
    img/s;
-20. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+22. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-21. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+23. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -168,8 +197,10 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-22. print the new paths', serve, train, probe and kernel JSON lines, then
-   the result line.
+24. write the whole report with the card's name and power limit to
+   chiprun_out/chip_smoke_report.json under the working directory, print
+   the new paths', serve, train, probe and kernel JSON lines, then the
+   result line.
 
 Times come from CUDA events after a warm-up, in ms per call; bounds use the
 H100 SXM peaks (67 TFLOP/s fp32 without tensor cores, 495 TFLOP/s tf32, 989
@@ -1288,10 +1319,10 @@ def phase_probes(torch, report):
     torch.cuda.empty_cache()
 
 
-def toy_city():
+def toy_city(num_points=120):
     """The CLI's toy city at the flagship's size (120 poses on a 150 m loop,
-    180x240) with rendered images kept, so that the two training phases
-    and their evals render each pose once."""
+    180x240; or ``num_points`` poses) with rendered images kept, so that the
+    phases that share it and their evals render each pose once."""
     from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
 
     class KeptToyCity(ToyCitySource):
@@ -1304,7 +1335,7 @@ def toy_city():
                 self._kept[key] = super().load_image(key)
             return self._kept[key]
 
-    return KeptToyCity(num_points=120, radius=150.0, img_h=180, img_w=240)
+    return KeptToyCity(num_points=num_points, radius=150.0, img_h=180, img_w=240)
 
 
 def instrument(torch, tr, pooled=True):
@@ -1661,6 +1692,38 @@ FILES_RESUME_STEP = 10  # a part checkpoint at anchor 20, a refresh boundary
 FILES_FORWARDS = 20 + 2 * 3 + 2 + 4
 
 
+def cli_train(torch, report, path, args, expect, pooled=True, checkpoints=True):
+    """``cli.main(args)``, one training run, its trainer instrumented
+    (``instrument``, on the pooled or the host-fed step) and kept; fails
+    unless the kernels launched ``expect`` times on it. ``checkpoints=False``
+    writes none (the trainer still drains its PCA updater where it would).
+    Returns (trainer, return code, seconds, launches)."""
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.train import trainer as trainer_mod
+
+    made = []
+
+    class Recording(trainer_mod.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.ckpts.enabled = checkpoints
+            made.append(instrument(torch, self, pooled=pooled))
+
+    counts = LaunchCounts(report, path)
+    real = trainer_mod.Trainer
+    trainer_mod.Trainer = Recording
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer = real
+    launches = counts.read(expect)
+    (tr,) = made
+    return tr, rc, seconds, launches
+
+
 def files_train_args(roots, out_root, out_folder):
     """``cli train`` from the prep tree ``roots``: the flagship from the
     trained weights with fused wms, the host feed (no device image pool),
@@ -1722,7 +1785,6 @@ def phase_train_files(torch, np, report, shared):
         FilesystemSource, load_images_standard)
     from soft_contrastive_learning_torch.losses.registry import build_loss
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
-    from soft_contrastive_learning_torch.train import trainer as trainer_mod
     from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
 
     source, params = shared["source"], shared["train_params"]
@@ -1745,25 +1807,9 @@ def phase_train_files(torch, np, report, shared):
 
     args = files_train_args(roots, str(root / "runs"), "a")
     cfg = cli.config_from_args(cli.build_parser().parse_args(args))
-    made = []
-
-    class Recording(trainer_mod.Trainer):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            made.append(instrument(torch, self, pooled=False))
-
-    counts = LaunchCounts(report, "train_files")
-    real = trainer_mod.Trainer
-    trainer_mod.Trainer = Recording
-    try:
-        t0 = time.perf_counter()
-        rc = cli.main(args)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-    finally:
-        trainer_mod.Trainer = real
-    launches = counts.read({"K1": FILES_FORWARDS, "K1_bwd": 20, "K3": 20 + 2})
-    (tr,) = made
+    tr, rc, epoch_s, launches = cli_train(
+        torch, report, "train_files", args, {"K1": FILES_FORWARDS, "K1_bwd": 20, "K3": 20 + 2},
+        pooled=False)
     losses = run_losses(tr)
     if rc != 0 or tr.global_step != 20 or tr.mining.refresh_count != 2 or len(losses) != 20:
         fail(f"train_files: rc {rc}, {tr.global_step} steps, {tr.mining.refresh_count} refreshes, "
@@ -1949,7 +1995,9 @@ def phase_losses(torch, np, report, shared):
     """The 29 losses that need no streaming-PCA state, each at the
     flagship's B = 50 (2 tuples of 1+12+12, quadruplets 1+12+11+1) on
     descriptors of a dense toy city's images from the trained weights, with
-    the sampler's fp32 payload for its distance type: value and gradient
+    the sampler's fp32 payload for its distance type, and the four
+    incremental losses against loss PCAs initialized as the trainer does
+    (``incremental_losses``): value and gradient
     with respect to the embeddings in fp32 on the card against the same
     function in float64 on the card (LOSS_VALUE_TOL, LOSS_GRAD_TOL above),
     finite, the same bits twice; forward + backward timed on the device and
@@ -1964,13 +2012,11 @@ def phase_losses(torch, np, report, shared):
     from soft_contrastive_learning_torch.ops import spectral
     from soft_contrastive_learning_torch.perf import common
 
-    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
-
     # 1,200 poses 0.79 m apart on the 150 m loop, as dense as a drive's
     # frames: ~38 candidate positives within 15 m, where the 120-pose city
     # has 2-4 and its 12 positives repeat, which leaves the residual
     # matrices rank-deficient and the singular values' gradients undefined
-    shared["dense_city"] = ToyCitySource(num_points=1200, radius=150.0, img_h=180, img_w=240)
+    shared["dense_city"] = toy_city(num_points=1200)
     batches = {}
     rows, worst = {}, {"value": 0.0, "grad": 0.0}
     for name in (n for n in LOSS_NAMES if n not in INCREMENTAL_LOSSES):
@@ -2028,6 +2074,9 @@ def phase_losses(torch, np, report, shared):
         if value_err > LOSS_VALUE_TOL or grad_err > LOSS_GRAD_TOL:
             fail(f"losses: {name} fp32 departs from float64: value {value_err:.3g} "
                  f"(gate {LOSS_VALUE_TOL}), gradient {grad_err:.3g} (gate {LOSS_GRAD_TOL})")
+
+    inc_worst = incremental_losses(torch, np, shared, batches[(1, 12, 12)], rows)
+    worst = {key: max(worst[key], inc_worst[key]) for key in worst}
 
     # the eigensolve: wrd's positive-weighted residuals of the batch, the
     # port's path (fp32 Gram, float64 solve) against a float64 Gram
@@ -2094,12 +2143,10 @@ def phase_train_zoo(torch, np, report, shared):
     turns beside the flagship's wms step (K3), and the host's view: the
     median interval between step calls beside the CUDA-event step, and a
     call's host time behind queued work (a step that synchronizes waits)."""
-    from soft_contrastive_learning_torch import cli
     from soft_contrastive_learning_torch.losses.registry import build_loss
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
     from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
     from soft_contrastive_learning_torch.perf import common
-    from soft_contrastive_learning_torch.train import trainer as trainer_mod
     from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
 
     params = shared["train_params"]
@@ -2113,30 +2160,13 @@ def phase_train_zoo(torch, np, report, shared):
                 "--out_folder", name]
         if name != "wrd":  # wrd: the CLI's default
             args += ["--loss", name]
-        made = []
-
-        class Recording(trainer_mod.Trainer):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, **kw)
-                made.append(instrument(torch, self, pooled=True))
-
         pn = "eigenvalue" in name
         path = f"train_zoo_{name if not pn else 'pn'}"
-        counts = LaunchCounts(report, path)
-        real = trainer_mod.Trainer
-        trainer_mod.Trainer = Recording
-        try:
-            t0 = time.perf_counter()
-            rc = cli.main(args)
-            torch.cuda.synchronize()
-            epoch_s = time.perf_counter() - t0
-        finally:
-            trainer_mod.Trainer = real
         per_step = 2 if pn else 1
         refreshes = steps * 2 // 20
-        launches = counts.read({"K1": per_step * steps + ZOO_REFRESH_EMBEDS * refreshes
-                                      + ZOO_EVAL_FORWARDS, "K1_bwd": per_step * steps})
-        (tr,) = made
+        tr, rc, epoch_s, launches = cli_train(
+            torch, report, path, args, {"K1": per_step * steps + ZOO_REFRESH_EMBEDS * refreshes
+                                        + ZOO_EVAL_FORWARDS, "K1_bwd": per_step * steps})
         records = tr.writers["local"].read_all()
         tags = {"loss", "loss_pos", "loss_neg"} if pn else {"loss"}
         losses = {t: [r["value"] for r in records if r["tag"] == t] for t in tags}
@@ -2197,6 +2227,577 @@ def phase_train_zoo(torch, np, report, shared):
     report["train_zoo"] = dict(runs=out, step_ms_in_turns=step_ms_by,
                                host_ms_behind_hold=host_ms_by)
     work.cleanup()
+
+
+# ---------------------------------------------------------------- the heads and the streaming PCAs
+# the reductions held to their plain path at B = 50: (reduction, vlad_cores);
+# vlad_cores=0 is the flattened conv5_3 map
+HEADS = (("pca", 64), ("1fc", 64), ("2fc", 64), ("3fc", 64), ("spp", 64), ("none", 0))
+# the images the heads phase fits its StreamingPCA on: more than out_dim + 1,
+# so that every one of its 512 components is fitted (fewer leave components
+# whose variance is the 1e-12 clamp, and whitening divides by it)
+HEADS_PCA_IMAGES = 600
+HEADS_COSINE = 0.99  # the serve phase's gate: bf16 with kernels against the fp32 plain model
+# the served (bf16) 'pca' output's gate, set from the readings: the served
+# projection read 0.969 (the projection computed in bf16 0.9698: the
+# descriptor's bf16 error sets it, not the projection's), and the control,
+# the served descriptor's error against the fp32 plain one doubled, must
+# fall below it
+HEADS_PCA_COSINE = 0.95
+# the cli runs of train_heads: (label, --reduction, --loss, steps, --train_ref_r,
+# --mining_step, --mining_cache_size, extra flags). The two streaming-PCA
+# runs read a prep tree of the dense city (1,200 poses 0.79 m apart; the
+# held-out sets are the 120-pose city's): r = 79 takes every 101st pose (12
+# anchors, 6 steps), r = 118 every 150th (4 steps). Each of their refreshes
+# embeds a window of HEADS_PCA_WINDOW images, more than the 513 rows that
+# fit all 512 components of the PCA and of the loss PCA (a window of fewer
+# leaves components at the 1e-12 variance clamp, which whitening divides
+# by). The 'pca' run refreshes every 3 steps: the first initializes the PCA
+# from the window, the second folds the window in, a batch at a time
+# (update_multi: 12 host SVDs); each segment's third step waits for its
+# first step's update (lag 2). The 'none' run: one segment of 4 steps. The
+# '2fc' run reads the CLI's 120-pose toy city: r = 47 every 6th pose (10
+# steps).
+HEADS_PCA_WINDOW = 600
+HEADS_TREE_RUNS = ("pca", "none")
+HEAD_RUNS = (
+    ("pca", "pca", "incremental_residual_mm", 6, 79, 6, HEADS_PCA_WINDOW - 6, ()),
+    ("none", "none", "incremental_residual_mm", 4, 118, 8, HEADS_PCA_WINDOW - 8,
+     ("--save_step", "1000")),
+    ("2fc", "2fc", "wms", 10, 47, 20, 100, ("--fused_wms", "True", "--save_step", "1000")),
+)
+HEADS_RESUME_STEP = 3  # the pca run's part checkpoint at anchor 6: a refresh, drained
+# incremental losses: the window a loss PCA is initialized from (more images
+# than loss_dim + 1, as above) and the loss_dims tried for the det variants,
+# the largest at which their fp32 products are finite and move is taken
+INCREMENTAL_WINDOW = 600
+DET_LOSS_DIMS = (512, 128, 32, 8)
+
+
+def head_params(cfg, trained):
+    """``cfg``'s parameters: the trained VGG16 (and NetVLAD, where the head
+    keeps it) under a head drawn fresh from the seed."""
+    from soft_contrastive_learning_torch.checkpoints.manager import warm_start_params
+    from soft_contrastive_learning_torch.models.model import init_params
+
+    params, _ = warm_start_params(init_params(cfg, SEED), trained)
+    return params
+
+
+def row_cosine(torch, a, b):
+    return ((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))).min().item()
+
+
+def phase_heads(torch, np, report, shared):
+    """Each reduction at the flagship's width (180x240, K1 where NetVLAD
+    runs) on a batch of 50 seeded images, from the trained backbone with a
+    head drawn from the seed, under the serve phase's two gates: the served
+    configuration (bf16 convs, kernels on) at cosine >= HEADS_COSINE to the
+    fp32 plain path (use_kernels=False), and fp32 with the kernels at
+    cosine >= 0.99999 to it; output and full_out of the widths the config
+    gives, finite. 'pca' is projected by a StreamingPCA fitted on
+    HEADS_PCA_IMAGES images' descriptors: its bf16 whitened output is held
+    to HEADS_PCA_COSINE instead (whitening brings the descriptors'
+    low-variance tail, where the bf16 convs' error sits, to unit variance),
+    and a control, the served descriptor with its error against the fp32
+    plain one doubled, must fall below that gate. K1 once per forward where NetVLAD runs, else never. Then a DescriptorService with '1fc' embeds 512 index
+    and 64 query images to 512-D (16 queries are index images and must come
+    back at rank 0), pads the index with seeded rows of its per-column
+    normal to 66,048, and searches it (K2 at D = 512), held to an fp64
+    search within 1e-5 of |q|^2."""
+    import dataclasses
+
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.models.heads import apply_pca_projection
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.ops.kernels.topk import (
+        topk_l2_cuda, topk_l2_stream_plain)
+    from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.serving import STREAM_MIN_ROWS, DescriptorService
+
+    trained = shared["train_params"]
+    rng = np.random.default_rng(SEED + 3)
+    imgs = blocky_images(rng, HEADS_PCA_IMAGES)
+    x = torch.from_numpy(imgs[:50]).cuda()
+    rows = {}
+    for reduction, vlad in HEADS:
+        name = reduction if vlad else "flatten"
+        cfg = ModelConfig(reduction=reduction, vlad_cores=vlad)
+        params = head_params(cfg, trained)
+        fp32 = dataclasses.replace(cfg, compute_dtype="float32")
+        models = {}
+        for label, c in (("served", cfg), ("fp32", fp32),
+                         ("plain", dataclasses.replace(fp32, use_kernels=False))):
+            m = EmbeddingNet(c)
+            m.load_state_dict(params)
+            models[label] = m.cuda().eval()
+        counts = LaunchCounts(report, f"heads_{name}")
+        with torch.inference_mode():
+            got = {"served": models["served"](x)}
+        torch.cuda.synchronize()
+        netvlad = models["served"].netvlad is not None
+        launches = counts.read({"K1": int(netvlad)})
+        with torch.inference_mode():
+            got.update((label, models[label](x)) for label in ("fp32", "plain"))
+            if reduction == "pca":  # fit on the served descriptors, project all three
+                feats = torch.cat([models["served"](torch.from_numpy(imgs[s : s + 50]).cuda())[1]
+                                   for s in range(0, len(imgs), 50)])
+                pca = StreamingPCA(cfg.out_dim)
+                t0 = time.perf_counter()
+                pca.init(feats.cpu().numpy())
+                fit_s = time.perf_counter() - t0
+                state = [torch.from_numpy(a).cuda() for a in (pca.v, pca.m, pca.var)]
+                got = {label: (apply_pca_projection(full, *state), full)
+                       for label, (_, full) in got.items()}
+            ms = common.time_ms(lambda: models["served"](x), 10)
+        out, full = got["served"]
+        want = ((50, cfg.output_dim), (50, cfg.descriptor_dim))
+        if any((tuple(o.shape), tuple(f.shape)) != want
+               or not (torch.isfinite(o).all() and torch.isfinite(f).all())
+               for o, f in got.values()):
+            fail(f"heads {name}: output {tuple(out.shape)}, full_out {tuple(full.shape)}; "
+                 f"expected {want}, finite")
+        ref_out, ref_full = got["plain"]
+        cos = {f"{label}_{part}": row_cosine(torch, t.float(), ref)
+               for label in ("served", "fp32")
+               for part, t, ref in (("output", got[label][0], ref_out),
+                                    ("full_out", got[label][1], ref_full))}
+        gates = {"served_full_out": HEADS_COSINE, "fp32_output": 0.99999,
+                 "fp32_full_out": 0.99999,
+                 "served_output": HEADS_PCA_COSINE if reduction == "pca" else HEADS_COSINE}
+        rows[name] = dict(output_dim=cfg.output_dim, descriptor_dim=cfg.descriptor_dim,
+                          launches=launches, cosine_to_fp32_plain=cos, gates=gates,
+                          forward_ms_b50=ms)
+        extra = ""
+        if reduction == "pca":
+            # controls: the served descriptor projected in bf16, and with its
+            # error against the fp32 plain descriptor doubled
+            full = got["served"][1]
+            controls = {
+                "bf16_projection": apply_pca_projection(
+                    full.bfloat16(), *(t.bfloat16() for t in state[:2]), state[2]),
+                "error_doubled": apply_pca_projection(2 * full - ref_full, *state)}
+            controls = {k: row_cosine(torch, v.float(), ref_out) for k, v in controls.items()}
+            rows[name].update(pca_fit_s=fit_s, controls=controls)
+            extra = (f"; the PCA fit on {len(feats)} descriptors {fit_s:.2f} s on the host; "
+                     f"controls (served_output): " + ", ".join(
+                         f"{k} {v:.6f}" for k, v in controls.items()))
+            if controls["error_doubled"] >= HEADS_PCA_COSINE:
+                fail(f"heads pca: the doubled error's cosine {controls['error_doubled']} "
+                     f"passes the gate {HEADS_PCA_COSINE}: the gate does not see it")
+        print(f"heads {name}: output {cfg.output_dim}-D, full_out {cfg.descriptor_dim}-D; cosine "
+              f"to the fp32 plain path: " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+              + f"; K1 launches {launches['K1']}; forward {ms:.3f} ms at B=50{extra}")
+        if any(cos[k] < g for k, g in gates.items()):
+            fail(f"heads {name}: cosine to the fp32 plain path {cos} under the gates {gates}")
+        del models, got
+
+    # /search over a 1fc index: 512-D rows, K2 at that width
+    cfg = ModelConfig(reduction="1fc")
+    params = head_params(cfg, trained)
+    index_imgs, query_imgs = imgs[:512], np.concatenate([imgs[:512:32], imgs[512:560]])
+    n_rows, k = 66048, 5
+    assert n_rows > STREAM_MIN_ROWS
+    counts = LaunchCounts(report, "heads_search")
+    embedder = DescriptorService(cfg, params, batch_size=64)
+    descs = torch.from_numpy(embedder.embed(index_imgs)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    pad = torch.randn((n_rows - len(descs), cfg.out_dim), generator=gen, device="cuda")
+    index = torch.cat([descs, descs.mean(0) + pad * descs.std(0)])
+    service = DescriptorService(cfg, params, batch_size=64, index=index)
+    dists, ids = service.search(query_imgs, k=k)
+    torch.cuda.synchronize()
+    launches = counts.read({"K1": 8 + 1, "K2": 1})
+    if service.embed_dim != cfg.out_dim or not (ids[:16, 0] == np.arange(0, 512, 32)).all():
+        fail(f"heads_search: embed_dim {service.embed_dim}, rank-0 ids {ids[:16, 0]}")
+    q = torch.from_numpy(service.embed(query_imgs)).cuda()
+    got_d, got_i = topk_l2_cuda(q, index, k)
+    want_sq, want_i, gaps = exact_search(torch, q, index, k)
+    q_sq = (q.double() ** 2).sum(1, keepdim=True)
+    err = ((got_d.double() ** 2 - want_sq[:, :k]).abs() / q_sq).max().item()
+    differ = got_i != want_i[:, :k]
+    if err > 1e-5 or (differ & (gaps > 1e-5 * q_sq)).any():
+        fail(f"heads_search: K2 vs the exact search: sq-dist err {err} of |q|^2, "
+             f"{int(differ.sum())} ids differ outside near-ties")
+    k2_ms = common.time_ms(lambda: topk_l2_cuda(q, index, k), 3)
+    plain_ms = common.time_ms(lambda: topk_l2_stream_plain(q, index, k), 3)
+    # phase_k2's bound: 3xTF32 products against each input read once
+    nq, dim = q.shape
+    bound, bound_by = common.bound_ms(6 * nq * n_rows * dim,
+                                      4 * (n_rows * dim + nq * dim) + 12 * nq * k,
+                                      common.TF32_FLOPS)
+    print(f"heads_search: 1fc service, 512-D, {n_rows} rows; 16/16 index images at rank 0; "
+          f"launches {launches}; K2 vs the exact search {err:.3g} of |q|^2, {int(differ.sum())} "
+          f"ids differ at near-ties; K2 {k2_ms:.4f} ms (bound {bound:.4f}, {bound_by}), the "
+          f"plain version {plain_ms:.4f} ms")
+    report["heads"] = dict(per_head=rows, search=dict(rows=n_rows, dim=dim, k=k,
+                                                      sq_err_of_q2=err, k2_ms=k2_ms,
+                                                      bound_ms=bound, bound_by=bound_by,
+                                                      plain_ms=plain_ms))
+
+
+def heads_npz(np, cfg, trained, path):
+    """The trained flagship's arrays and a head drawn from the seed, in the
+    flax layout of ``models/weights.py`` (a dense kernel (in, out)), float16
+    as the committed artifact: what ``train --checkpoint`` takes for a head."""
+    from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
+
+    with np.load(TRAINED_PARAMS_PATH) as data:
+        flat = {k: data[k] for k in data.files}
+    for name, t in head_params(cfg, trained).items():
+        if name.startswith("fc_head."):
+            _, layer, kind = name.split(".")
+            arr = t.numpy().T if kind == "weight" else t.numpy()
+            flat[f"fc_head/{layer}/{'kernel' if kind == 'weight' else 'bias'}"] = arr
+    np.savez(path, **{k: v.astype(np.float16) for k, v in flat.items()})
+    return path
+
+
+def pca_gap(np, a, b):
+    """How far apart two streaming PCAs are: the largest difference of the
+    singular values, the means and the variances, each over its largest
+    entry, and of a component up to its sign; and whether the counts agree."""
+    sa, sb = a.state_dict(), b.state_dict()
+    rel = {k: float(np.abs(sa[k] - sb[k]).max() / max(np.abs(sb[k]).max(), 1e-30))
+           for k in ("s", "m", "var")}
+    cos = np.abs((sa["v"].astype(np.float64) * sb["v"]).sum(1))
+    live = np.linalg.norm(sb["v"], axis=1) > 0
+    rel["v"] = float((1 - cos[live]).max()) if live.any() else 0.0
+    return rel, (sa["seen"], sa["true_seen"]) == (sb["seen"], sb["true_seen"])
+
+
+def phase_train_heads(torch, np, report, shared):
+    """``cli train`` at the flagship's width from the trained weights,
+    pooled, as train_zoo's runs (eval hooks at step 0): HEAD_RUNS, 'pca'
+    with incremental_residual_mm (the streaming PCA of the 32,768-D
+    descriptor, 512 components, and the loss PCA of its 512-D projection)
+    and 'none' with incremental_residual_mm (the 32,768-wide loss PCA),
+    both from a prep tree of the dense city with mining windows of
+    HEADS_PCA_WINDOW images, and '2fc' with the fused wms (K3 at D = 512)
+    on the toy city from an npz that holds the trained backbone and a
+    seeded head. Gates: steps, refreshes, exact K1, K1_bwd and K3 counts,
+    finite losses, moved weights, the PCAs' update counts. The 'pca' run is
+    also run a second time (the floor) and taken up again by a fresh
+    Trainer from its part checkpoint of step HEADS_RESUME_STEP (a refresh,
+    where the updater was drained): the parameters and both PCAs within 10x
+    the floor (at least 1e-6) of the uninterrupted run's, their counts
+    equal. Then, per run, the device time of a step (CUDA events) beside the
+    interval between step calls and each refresh's PCA fits (init,
+    update_multi) on the host clock; the host's PCA update at each width,
+    and the (2, 525, 525) eigensolve."""
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.data.corpus import write_prep_tree
+    from soft_contrastive_learning_torch.data.pipeline import FilesystemSource
+    from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
+    from soft_contrastive_learning_torch.ops import spectral
+    from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.utils.io import save_csv
+
+    trained = shared["train_params"]
+    dense, toy = shared["dense_city"], shared["source"]
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    # the dense city's training sets and the toy city's held-out ones, and
+    # the anchors of every tree run's r
+    t0 = time.perf_counter()
+    prep = str(root / "prep")
+    ref_rs = [run[4] for run in HEAD_RUNS if run[0] in HEADS_TREE_RUNS]
+    tree = write_prep_tree(dense, prep, ("train_ref", "train_query"), anchor_r=ref_rs[0],
+                           cluster_r=10)
+    write_prep_tree(toy, prep, ("test_ref", "test_query"), anchor_r=ref_rs[0], cluster_r=10)
+    for r in ref_rs:
+        save_csv({"idx": [int(i) for i in dense.anchor_indices("train_ref", r, 0)]},
+                 str(Path(tree["anchor_root"]) / f"train_ref_{r}_000.csv"))
+    tree_s = time.perf_counter() - t0
+    tree_args = [f"--{k}={v}" for k, v in tree.items()]
+    # the eval hooks' forwards at step 0: the held-out loss's 2 batches, and
+    # each localization's references (every 10th pose) and its 4 queries
+    tree_eval_forwards = 2 + sum(-(-len(src.cluster_meta(s, 10)["t"]) // 50) + 1
+                                 for src, s in ((toy, "test_ref"), (dense, "train_ref")))
+    print(f"train_heads: wrote the dense city's prep tree in {tree_s:.2f} s")
+
+    # every fit of a refresh, timed on the host clock
+    fits, real_fits = [], {name: getattr(StreamingPCA, name) for name in ("init", "update_multi")}
+
+    def timed_fit(name):
+        def fit(self, x, *args):
+            t0 = time.perf_counter()
+            result = real_fits[name](self, x, *args)
+            fits.append(dict(fit=name, rows=len(x), width=int(x.shape[1]),
+                             components=self.out_dim, ms=1e3 * (time.perf_counter() - t0)))
+            return result
+        return fit
+
+    out, trainers = {}, {}
+    for label, reduction, loss, steps, ref_r, mining_step, cache, extra in HEAD_RUNS:
+        checkpoint = TRAINED_PARAMS_PATH
+        if reduction.endswith("fc"):
+            checkpoint = heads_npz(np, ModelConfig(reduction=reduction), trained,
+                                   root / f"{label}.npz")
+        refreshes = -(-steps * 2 // mining_step)
+        window = -(-(cache + mining_step) // 50)  # the embeds of a refresh
+        fused = "--fused_wms" in extra
+        on_tree = label in HEADS_TREE_RUNS
+        source_args = tree_args if on_tree else ["--toy_city"]
+        eval_forwards = tree_eval_forwards if on_tree else ZOO_EVAL_FORWARDS
+        for run in ("a", "again") if label == "pca" else ("a",):
+            path = f"train_heads_{label}" + ("" if run == "a" else "_again")
+            args = ["train", *source_args, "--checkpoint", str(checkpoint), "--max_epoch", "1",
+                    "--reduction", reduction, "--loss", loss, "--train_ref_r", str(ref_r),
+                    "--mining_step", str(mining_step), "--mining_cache_size", str(cache),
+                    "--eval_step", "1000", "--save_step", str(2 * HEADS_RESUME_STEP),  # part@0, @3
+                    "--num_eval_queries", "4", "--eval_ref_r", "10", "--out_root",
+                    str(root), "--out_folder", f"{label}_{run}", *extra]
+            expect = {"K1": steps + window * refreshes + eval_forwards, "K1_bwd": steps}
+            if fused:
+                expect["K3"] = steps + 2  # and the held-out loss's two batches
+            fits.clear()
+            for name in real_fits:
+                setattr(StreamingPCA, name, timed_fit(name))
+            try:
+                # a 2fc checkpoint at this width holds 1.8 GB (fc1 is 4,096 x 32,768)
+                tr, rc, seconds, launches = cli_train(torch, report, path, args, expect,
+                                                      checkpoints=label != "2fc")
+            finally:
+                for name, fn in real_fits.items():
+                    setattr(StreamingPCA, name, fn)
+            losses = run_losses(tr)
+            if rc != 0 or tr.global_step != steps or tr.mining.refresh_count != refreshes \
+                    or len(losses) != steps or not np.isfinite(losses).all():
+                fail(f"{path}: rc {rc}, {tr.global_step} steps, {tr.mining.refresh_count} "
+                     f"refreshes, losses {losses}; expected 0, {steps}, {refreshes}, finite")
+            unmoved = [k for k, v in tr.state.model.state_dict().items()
+                       if k in trained and torch.equal(v.cpu(), trained[k])]
+            if unmoved:
+                fail(f"{path}: parameters did not move: {unmoved[:5]}")
+            # the PCAs' rows: the pca initialized from the first refresh's
+            # window, then a batch a step and the later refreshes' windows; the
+            # loss pca from 513 residuals, then the 48 residuals of each step
+            n_window = cache + mining_step
+            for pca, want in ((tr.pca, n_window * refreshes + 50 * steps),
+                              (tr.loss_pca, 513 + 48 * steps)):
+                if pca is not None and pca.true_seen != want:
+                    fail(f"{path}: a streaming PCA saw {pca.true_seen} rows, expected {want}")
+            # the spread of the kept variances that whitening divides by: the
+            # forgetting factor (0.4) shrinks an old direction's variance
+            # 0.16x a step, and the clamp is 1e-12
+            spread = {name: dict(min_over_max=float(pca.var.min() / pca.var.max()),
+                                 at_clamp=int((pca.var <= 1e-12).sum()))
+                      for name, pca in (("pca", tr.pca), ("loss_pca", tr.loss_pca))
+                      if pca is not None}
+            step_ms = [s.elapsed_time(e) for s, e in tr.step_events]
+            calls = [1e3 * (t1 - t0) for t0, t1 in zip(tr.step_calls, tr.step_calls[1:])]
+            trainers[path] = tr
+            out[path] = dict(steps=steps, refreshes=refreshes, window=cache + mining_step,
+                             launches=launches, seconds=seconds, losses=list(losses),
+                             step_ms=step_ms, step_interval_ms=calls,
+                             median_step_ms=statistics.median(step_ms),
+                             median_interval_ms=statistics.median(calls),
+                             refresh_fits=list(fits), variance_spread=spread)
+            print(f"{path}: {steps} steps, {refreshes} refreshes of {cache + mining_step} images "
+                  f"in {seconds:.2f} s (cli.main, set-up included); launches {launches}; losses "
+                  f"{[round(float(v), 4) for v in losses]}; a step "
+                  f"{statistics.median(step_ms):.3f} ms on the device (median), "
+                  f"{statistics.median(calls):.1f} ms between step calls (median of "
+                  f"{[round(c) for c in calls]}); the refreshes' fits on the host: "
+                  + ("; ".join(f"{f['fit']} {f['rows']} x {f['width']} -> {f['components']} "
+                               f"{f['ms']:.0f} ms" for f in fits) or "none")
+                  + "".join(f"; {name}'s variances at the end: smallest/largest "
+                            f"{v['min_over_max']:.3g}, {v['at_clamp']} at the clamp"
+                            for name, v in spread.items()))
+
+    # stop and take up again: a fresh Trainer with only the part checkpoint
+    first, again = trainers["train_heads_pca"], trainers["train_heads_pca_again"]
+    part = Path("checkpoints") / "part" / str(HEADS_RESUME_STEP)
+    resumed_dir = root / "pca_resumed"
+    shutil.copytree(root / "pca_a" / part, resumed_dir / part)
+    steps = HEAD_RUNS[0][3]
+    rest = steps - HEADS_RESUME_STEP
+    cfg = first.cfg
+    window = -(-HEADS_PCA_WINDOW // 50)  # the resumed segment's refresh, no update
+    resumed, resumed_losses, *_ = train_epoch(
+        torch, np, report, "train_heads_pca_resumed", cfg, None,
+        FilesystemSource(cfg.img_root, cfg.shuffled_root, cfg.anchor_root, cfg.loc_ref_root),
+        {"K1": rest + window, "K1_bwd": rest}, out_dir=str(resumed_dir), resume="part")
+
+    def gap(other):
+        a, b = other.state.model.state_dict(), first.state.model.state_dict()
+        pcas = {name: pca_gap(np, getattr(other, name), getattr(first, name))
+                for name in ("pca", "loss_pca")}
+        return dict(param=max((a[k] - b[k]).abs().max().item() for k in b),
+                    pcas={n: g for n, (g, _) in pcas.items()},
+                    counts=all(same for _, same in pcas.values()))
+
+    floor, got = gap(again), gap(resumed)
+    gates = {"param": max(10 * floor["param"], 1e-6)}
+    for n in ("pca", "loss_pca"):
+        for key, value in floor["pcas"][n].items():
+            gates[f"{n}.{key}"] = max(10 * value, 1e-6)
+    got_flat = {"param": got["param"], **{f"{n}.{k}": v for n, g in got["pcas"].items()
+                                          for k, v in g.items()}}
+    print(f"train_heads_pca_resumed: from part@{HEADS_RESUME_STEP} to step "
+          f"{resumed.global_step}; against the uninterrupted run {got_flat}, counts equal: "
+          f"{got['counts']}; floor from a second uninterrupted run {floor}; gates {gates}")
+    if resumed.global_step != steps or not got["counts"] or len(resumed_losses) != rest or any(
+            got_flat[k] > gates[k] for k in gates):
+        fail(f"train_heads_pca_resumed: {got_flat} outside 10x the floor {gates}, counts "
+             f"{got['counts']}, {resumed.global_step} steps")
+
+    # the host's update at each width, and the loss's eigensolve on the card
+    rng = np.random.default_rng(SEED)
+    updates = {}
+    for label, pca, rows in (("pca 32768-D, 50 rows", first.pca, 50),
+                             ("loss_pca 512-D, 48 rows", first.loss_pca, 48),
+                             ("loss_pca 32768-D, 48 rows", trainers["train_heads_none"].loss_pca,
+                              48)):
+        copy = StreamingPCA.from_state_dict(pca.state_dict())
+        x = rng.standard_normal((rows, copy.v.shape[1])).astype(np.float32) * 0.01
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            copy.update(x)
+            times.append(1e3 * (time.perf_counter() - t0))
+        updates[label] = dict(stack_rows=copy.out_dim + rows + 1, ms=times)
+        print(f"train_heads: host update of the {label} PCA (a {copy.out_dim + rows + 1} x "
+              f"{copy.v.shape[1]} float64 SVD): {', '.join(f'{t:.1f}' for t in times)} ms")
+    # an incremental loss's stack at the defaults, its float64 Gram and the solve
+    stack = torch.randn((2, 525, 32768), generator=torch.Generator(device="cuda")
+                        .manual_seed(SEED), device="cuda").double()
+    gram_ms = common.time_ms(lambda: spectral._jittered_gram(stack), 5)
+    gram = spectral._jittered_gram(stack)
+    eig_ms = common.time_ms(lambda: torch.linalg.eigvalsh(gram), 5)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms of queued work
+    t0 = time.perf_counter()
+    torch.linalg.eigvalsh(gram)
+    eig_host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    print(f"train_heads: an incremental loss's (2, 525, 32768) stack: its float64 Gram "
+          f"{gram_ms:.3f} ms, the (2, 525, 525) float64 eigensolve {eig_ms:.3f} ms on the "
+          f"device, a solve {eig_host_ms:.3f} ms on the host behind ~10 ms of queued work")
+    report["train_heads"] = dict(runs=out, tree_s=tree_s,
+                                 resume=dict(got=got_flat, floor=floor, gates=gates),
+                                 host_pca_update=updates,
+                                 eigensolve_2x525=dict(gram_ms=gram_ms, device_ms=eig_ms,
+                                                       host_ms=eig_host_ms))
+    work.cleanup()
+
+
+def incremental_window(torch, np, shared, n):
+    """The trained flagship's descriptors of the first ``n`` images of the
+    dense city's epoch 0 (a mining window as the trainer embeds one): (n,
+    32,768) fp32 on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch.core.config import TrainConfig
+    from soft_contrastive_learning_torch.data.pipeline import load_images_standard
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.train.step import build_embed_step
+    from soft_contrastive_learning_torch.utils.meta import image_keys
+
+    source, cfg = shared["dense_city"], TrainConfig()
+    meta = source.epoch_meta(cfg.local_ref_set, 0)
+    model = EmbeddingNet(cfg.model)
+    model.load_state_dict(shared["train_params"])
+    embed = build_embed_step(model.cuda())
+    feats = []
+    with ThreadPoolExecutor(8) as pool:
+        for s in range(0, n, 50):
+            keys = image_keys(meta, np.arange(s, min(s + 50, n)))
+            images = load_images_standard(source, keys, cfg, pool)
+            feats.append(embed(torch.from_numpy(images).cuda())[0].float())
+    return torch.cat(feats)
+
+
+def incremental_losses(torch, np, shared, batch, rows):
+    """The four incremental losses on the (1, 12, 12) batch against loss
+    PCAs initialized as the trainer does from a window of
+    INCREMENTAL_WINDOW descriptors of the dense city: from 513 residuals of
+    random pairs (rand_pairs) for the residual pair, from the window's
+    descriptors for the others, 512 components each. The mm variants at
+    loss_dim 512; the det variants at the largest of DET_LOSS_DIMS whose
+    fp32 loss is finite with a gradient (the fit truncated to it), and the
+    sum of the logs of their top-512 values (float64) is printed: the fp32
+    product is inf past ~88 and 0 below ~-103. Value within LOSS_VALUE_TOL
+    of max(1, |v|) (for det, of the products it is the difference of) and
+    gradient within LOSS_GRAD_TOL of its largest entry of float64 on the
+    card; the same bits twice. Returns the worst errors."""
+    from soft_contrastive_learning_torch.core.config import (
+        INCREMENTAL_LOSSES, LossConfig, TupleConfig)
+    from soft_contrastive_learning_torch.losses import incremental as inc
+    from soft_contrastive_learning_torch.losses.registry import build_loss, split_batch
+    from soft_contrastive_learning_torch.pca.incremental import skl_init
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.train.mining_manager import rand_pairs
+
+    _, _, emb = batch
+    feats = incremental_window(torch, np, shared, INCREMENTAL_WINDOW).cpu().numpy()
+    pairs = rand_pairs(np.random.default_rng(SEED), len(feats), 512 + 1)
+    t0 = time.perf_counter()
+    fits = {"residual": skl_init(np.stack([feats[i] - feats[j] for i, j in pairs]), 512),
+            "members": skl_init(feats, 512)}
+    fit_s = time.perf_counter() - t0
+
+    def state(fit, dims, dtype):
+        s, v, m, seen = fit[0][:dims], fit[1][:dims], fit[2], fit[3]
+        return inc.PCAState(*(torch.as_tensor(np.asarray(a)).to("cuda", dtype)
+                              for a in (s, v, m, np.float32(seen))))
+
+    grouped = emb.reshape(2, 25, -1)
+    worst = {"value": 0.0, "grad": 0.0}
+    for name in INCREMENTAL_LOSSES:
+        fit = fits["residual" if "residual" in name else "members"]
+        anchor, pos, neg = grouped[:, :1], grouped[:, 1:13], grouped[:, 13:]
+        pos, neg = ((pos - anchor, neg - anchor) if "residual" in name else
+                    (torch.cat([anchor, pos], 1), torch.cat([anchor, neg], 1)))
+        st64 = state(fit, 512, torch.float64)
+        logs = [torch.log(inc.incremental_s(x.double(), st64)[:, :512]).sum(1).tolist()
+                for x in (pos, neg)]
+        for dims in (DET_LOSS_DIMS if "det" in name else (512,)):
+            fn = build_loss(LossConfig(name=name, loss_dim=dims), TupleConfig(), 2)
+            states = {dt: state(fit, dims, dt) for dt in (torch.float32, torch.float64)}
+
+            def run(dtype, fn=fn, states=states):
+                e = emb.to(dtype, copy=True).requires_grad_()
+                total = fn(split_batch(e, 2, (1, 12, 12)), {}, states[dtype]).total
+                (grad,) = torch.autograd.grad(total, e)
+                return total.detach(), grad
+
+            v32, g32 = run(torch.float32)
+            if torch.isfinite(v32) and torch.isfinite(g32).all() and g32.abs().max() > 0:
+                break
+        else:
+            fail(f"losses: {name} has no finite fp32 loss with a gradient at {DET_LOSS_DIMS}")
+        v32b, g32b = run(torch.float32)
+        v64, g64 = run(torch.float64)
+        if not (torch.equal(v32, v32b) and torch.equal(g32, g32b)):
+            fail(f"losses: {name} gave other bits on a second call")
+        scale = max(1.0, abs(v64.item()))
+        if "det" in name:  # the products the loss is the difference of
+            prods = [inc.stable_prod(inc.incremental_s(x.double(), states[torch.float64])[:, :dims])
+                     for x in (pos, neg)]
+            scale = max(scale, (prods[0].abs() + prods[1].abs()).mean().item())
+        value_err = abs(v32.item() - v64.item()) / scale
+        g_scale = g64.abs().max().item()
+        grad_err = (g32.double() - g64).abs().max().item() / max(g_scale, LOSS_GRAD_FLOOR)
+        host_ms, device_ms = common.host_and_device_ms(lambda: run(torch.float32), 5)
+        rows[name] = dict(loss_dim=dims, value=v32.item(), value_f64=v64.item(),
+                          value_err=value_err, grad_max=g_scale, grad_err=grad_err,
+                          fwd_bwd_ms=device_ms, host_ms=host_ms, sum_log_top512=logs)
+        worst = {"value": max(worst["value"], value_err), "grad": max(worst["grad"], grad_err)}
+        print(f"losses: {name:40s} loss_dim {dims}: value {v32.item():+.6e} (f64 "
+              f"{v64.item():+.6e}, err {value_err:.2e}), grad max {g_scale:.3e} err "
+              f"{grad_err:.2e}; fwd+bwd {device_ms:.3f} ms on the device, {host_ms:.3f} ms on "
+              f"the host; sum of log of the top 512 values (pos, neg stacks, per tuple) "
+              f"{[[round(v, 1) for v in side] for side in logs]}")
+        if value_err > LOSS_VALUE_TOL or grad_err > LOSS_GRAD_TOL:
+            fail(f"losses: {name} fp32 departs from float64: value {value_err:.3g} "
+                 f"(gate {LOSS_VALUE_TOL}), gradient {grad_err:.3g} (gate {LOSS_GRAD_TOL})")
+    print(f"losses: the loss PCAs' two fits (513 x 32,768 residuals, {INCREMENTAL_WINDOW} x "
+          f"32,768 descriptors) took {fit_s:.2f} s on the host")
+    return worst
 
 
 # ---------------------------------------------------------------- the paper's pipeline
@@ -2557,16 +3158,19 @@ def main() -> int:
     phase_train_files(torch, np, report, shared)
     phase_losses(torch, np, report, shared)
     phase_train_zoo(torch, np, report, shared)
+    phase_heads(torch, np, report, shared)
+    phase_train_heads(torch, np, report, shared)
     phase_infer(torch, np, report, shared)
     phase_topn(torch, np, report, shared)
     phase_topn_250k(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (the CLI's
-    # default wrd training for K1 and its backward, the file-fed training for
-    # K3, the Winograd training epoch for K4, the 250k-row top-N for K2);
+    # launches: the count on the newest path that runs the kernel (the PCA
+    # run with the incremental loss for K1 and its backward, the 2fc run for
+    # K3, the 1fc /search for K2, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it
-    paths = ("train_zoo_wrd", "topn_250k", "infer", "train_files", "train_winograd", "train",
-             "serve_winograd", "serve", "probes")
+    paths = ("train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
+             "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve",
+             "probes")
     for kid in KERNEL_IDS:
         by_path = report[kid]["launches_by_path"]
         report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
@@ -2574,6 +3178,18 @@ def main() -> int:
             fail(f"{kid} was launched on no path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the whole report, which the lines below print only in part, beside the
+    # card's name and power limit
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    def plain(x):  # JSON keys are strings
+        if isinstance(x, dict):
+            return {str(k): plain(v) for k, v in x.items()}
+        return [plain(v) for v in x] if isinstance(x, (list, tuple)) else x
+
+    (out / "chip_smoke_report.json").write_text(
+        json.dumps({"card": smi.stdout.strip(), "report": plain(report)}, default=str))
+    print(json.dumps({"heads": report["heads"], "train_heads": report["train_heads"]}))
     print(json.dumps({"losses": report["losses"], "train_zoo": report["train_zoo"]}))
     print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],
                       "topn": report["topn"], "topn_250k": report["topn_250k"]}))

@@ -6,7 +6,10 @@ each eval, the newest ``max_to_keep`` kept), ``epoch`` and ``part`` (each
 epoch's end and every ``save_step`` anchors, all kept). The payload is the
 model's and the optimizer's ``state_dict``, the step, and the trainer's
 ``extras`` (sampler and eval generator states and the position inside the
-epoch), so that training resumes exactly.
+epoch), so that training resumes exactly; also the train state's dropout
+generator and, once initialized, the trainer's streaming PCAs (``pca`` and
+``loss_pca``: ``StreamingPCA.state_dict()``, numpy arrays and floats). A
+checkpoint written before the PCAs were initialized restores with none.
 
 The format is the port's own: ``checkpoints/<role>/<step>/state.pt``, a
 ``torch.save`` of a dictionary of CPU tensors and plain Python values that
@@ -16,7 +19,8 @@ is synchronous and ``wait`` has nothing to wait for. The two packages do
 not read each other's checkpoints: the JAX package writes orbax trees of
 flax parameters and optax states, and orbax imports JAX, which the port
 never does. State crosses between them as numpy arrays through
-``models/weights.py::train_state_from_flax``.
+``models/weights.py::train_state_from_flax``, and the streaming PCAs'
+state dicts as they are, through ``save``'s ``pca`` and ``loss_pca``.
 """
 
 from __future__ import annotations
@@ -94,10 +98,12 @@ class RunCheckpoints:
         return sorted(int(name) for name in os.listdir(root)
                       if name.isdigit() and os.path.exists(os.path.join(root, name, STATE_FILE)))
 
-    def save(self, role: str, step: int, train_state, extras: Optional[dict] = None) -> None:
-        """Write ``train_state`` (``train/step.py::TrainState``) and
-        ``extras`` as ``<role>/<step>/state.pt``; for ``rolling`` then drop
-        all but the newest ``max_to_keep``."""
+    def save(self, role: str, step: int, train_state, extras: Optional[dict] = None,
+             pca: Optional[dict] = None, loss_pca: Optional[dict] = None) -> None:
+        """Write ``train_state`` (``train/step.py::TrainState``), ``extras``
+        and the streaming PCAs' state dicts (None: not initialized) as
+        ``<role>/<step>/state.pt``; for ``rolling`` then drop all but the
+        newest ``max_to_keep``."""
         if not self.enabled:
             return
         step_dir = os.path.join(self._role_root(role), str(int(step)))
@@ -108,6 +114,12 @@ class RunCheckpoints:
             "step": int(train_state.step),
             "extras": _to_cpu(extras) if extras is not None else None,
         }
+        rng = getattr(train_state, "rng", None)  # the dropout generator
+        if rng is not None:
+            payload["rng"] = rng.get_state()
+        for key, sd in (("pca", pca), ("loss_pca", loss_pca)):
+            if sd is not None:
+                payload[key] = _to_cpu(sd)
         path = os.path.join(step_dir, STATE_FILE)
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
@@ -134,14 +146,23 @@ class RunCheckpoints:
         path = os.path.join(self._role_root(role), str(int(step)), STATE_FILE)
         return torch.load(path, map_location="cpu", weights_only=True)
 
-    def restore(self, role: str, step: int, like_state) -> Tuple[Any, Optional[dict]]:
-        """Load ``<role>/<step>`` into ``like_state`` in place (its model and
-        optimizer, on their device) and return ``(like_state, extras)``."""
+    def restore(self, role: str, step: int, like_state
+                ) -> Tuple[Any, Optional[dict], Optional[dict], Optional[dict]]:
+        """Load ``<role>/<step>`` into ``like_state`` in place (its model,
+        optimizer and dropout generator, on their device) and return
+        ``(like_state, pca, loss_pca, extras)`` as the JAX manager does: the
+        PCA state dicts with numpy arrays, None where the checkpoint holds
+        none."""
         payload = self.load(role, step)
         like_state.model.load_state_dict(payload["model"])
         like_state.optimizer.load_state_dict(payload["optimizer"])
         like_state.step = int(payload["step"])
-        return like_state, payload.get("extras")
+        if "rng" in payload and getattr(like_state, "rng", None) is not None:
+            like_state.rng.set_state(payload["rng"])
+        pcas = [None if payload.get(key) is None else
+                {k: v.numpy() if torch.is_tensor(v) else v for k, v in payload[key].items()}
+                for key in ("pca", "loss_pca")]
+        return like_state, *pcas, payload.get("extras")
 
     def close(self) -> None:
         """Nothing is held open between calls."""

@@ -28,10 +28,16 @@ is the warm start (default: a fresh init from ``--seed``). ``train
 its newest rolling checkpoint; a fresh run without ``--out_folder`` gets a
 unique suffix. ``train`` reads the prep pipeline's tree (``--img_root
 --shuffled_root --anchor_root --loc_ref_root``), or the synthetic toy city
-with ``--toy_city``; ``--loss`` takes 29 of JAX's 33 names, its default
-``wrd`` included (``losses/registry.py::LOSS_NAMES``); the four
-``incremental_*`` names raise until the slice that brings the streaming-PCA
-state. The Winograd
+with ``--toy_city``; ``--loss`` takes JAX's 33 names, its default ``wrd``
+included (``losses/registry.py::LOSS_NAMES``), and ``--reduction`` its six
+(``none``, ``1fc``/``2fc``/``3fc`` to ``--out_dim``, ``pca``, ``spp`` over
+``--L`` levels), with ``--vlad_cores 0`` for the flattened map; ``--f`` is
+the streaming PCAs' forgetting factor. ``serve`` and ``infer`` take
+``--reduction --out_dim --vlad_cores``: ``/embed`` and the dump return the
+FC or SPP output, and the raw descriptor for ``none`` and ``pca``, as
+JAX's. A flagship npz loads only where its keys match the architecture
+(a head's weights included): a head is trained from a run directory or an
+npz that holds it. The Winograd
 configuration has no flag, as in ``scl-tpu``: pass
 ``ModelConfig(winograd=True)`` to ``DescriptorService`` or ``Trainer``.
 ``train --fused_wms True`` (the port's only flag beyond ``scl-tpu``'s and
@@ -69,8 +75,9 @@ def _load_model_params(cfg, checkpoint: str, default_artifact: bool, seed: int =
     2. an npz whose keys and shapes match the flag-built architecture is a
        flagship-layout artifact, loaded as it is;
     3. any other npz is a TF1 export: converted (``models/convert_tf1.py``)
-       and its ``vgg16`` and ``netvlad`` scopes warm-started onto a fresh
-       init drawn from ``seed`` (the heads stay fresh);
+       and its ``vgg16`` and ``netvlad`` scopes, those the architecture has,
+       warm-started onto a fresh init drawn from ``seed`` (the heads stay
+       fresh);
     4. a file that matches zero variables is refused.
 
     Empty: the committed artifact (``default_artifact``) or None, a fresh
@@ -100,10 +107,12 @@ def _load_model_params(cfg, checkpoint: str, default_artifact: bool, seed: int =
         WARM_START_SCOPES, warm_start_params)
     from soft_contrastive_learning_torch.models.convert_tf1 import convert_checkpoint, flatten
     from soft_contrastive_learning_torch.models.model import init_params
-    from soft_contrastive_learning_torch.models.weights import params_from_flax
+    from soft_contrastive_learning_torch.models.weights import flax_param_shapes, params_from_flax
 
     donor, _ = convert_checkpoint(checkpoint)
-    donor = {k: v for k, v in flatten(donor).items() if k.split("/")[0] in WARM_START_SCOPES}
+    # the scopes the architecture has: with 'spp' or vlad_cores=0 no NetVLAD
+    scopes = {k.split("/")[0] for k in flax_param_shapes(cfg)} & set(WARM_START_SCOPES)
+    donor = {k: v for k, v in flatten(donor).items() if k.split("/")[0] in scopes}
     params, copied = warm_start_params(init_params(cfg, seed),
                                        params_from_flax(donor, cfg, partial=True))
     if not copied:
@@ -190,6 +199,7 @@ def config_from_args(args):
         LossConfig, ModelConfig, TrainConfig, TupleConfig)
 
     model = ModelConfig(vlad_cores=args.vlad_cores, reduction=args.reduction,
+                        out_dim=args.out_dim, spp_levels=args.L,
                         image_height=args.image_height, image_width=args.image_width,
                         compute_dtype=args.compute_dtype, use_kernels=args.use_pallas)
     tuples = TupleConfig(
@@ -211,7 +221,7 @@ def config_from_args(args):
         tuples_per_batch=args.tuples_per_batch, max_epoch=args.max_epoch,
         base_lr=args.base_lr, minimal_lr=args.minimal_lr,
         lr_down_factor=args.lr_down_factor, lr_down_frequency=args.lr_down_frequency,
-        momentum=args.momentum, optimizer=args.optimizer,
+        momentum=args.momentum, optimizer=args.optimizer, forgetting_factor=args.f,
         mining_step=args.mining_step, mining_cache_size=args.mining_cache_size,
         eval_step=args.eval_step, save_step=args.save_step,
         num_eval_queries=args.num_eval_queries, eval_ref_r=args.eval_ref_r,
@@ -299,10 +309,14 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr_down_frequency", type=float, default=1.0)
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--optimizer", default="adam", choices=["adam", "momentum"])
+    p.add_argument("--out_dim", type=int, default=512)
     p.add_argument("--loss_dim", type=int, default=512)
     p.add_argument("--reduction", default="none",
                    choices=["none", "1fc", "2fc", "3fc", "pca", "spp"])
     p.add_argument("--vlad_cores", type=int, default=64)
+    p.add_argument("--L", type=int, default=3, help="spatial-pyramid levels of 'spp'")
+    p.add_argument("--f", type=float, default=0.4,
+                   help="the streaming PCAs' forgetting factor")
     p.add_argument("--mining_step", type=int, default=250)
     p.add_argument("--mining_cache_size", type=int, default=1000)
     p.add_argument("--eval_step", type=int, default=100)

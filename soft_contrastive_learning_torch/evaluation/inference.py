@@ -5,9 +5,9 @@
 
 ``run_inference`` embeds a CSV image list (column ``path``, relative to an
 image root) and dumps the feature matrix as ``{set}_{out_name}.pickle``,
-float32 or float16. The port has only ``reduction='none'`` so far, so the
-raw descriptor and the output are one: the dump is the raw 32,768-D
-descriptor, which the top-N sweep whitens downstream. Images are read by
+float32 or float16: the raw descriptor with ``reduction`` ``none`` and
+``pca`` (32,768-D for the flagship, which the top-N sweep whitens
+downstream), the reduced output (FC, SPP) otherwise, as in JAX. Images are read by
 the port's PNG decoder (``utils/io.py::load_img``), 4 batches at a time on
 an 8-thread pool while the card embeds the batches before them; ``oxs``
 sets, which the JAX package reads as JPEG, are refused by that decoder.
@@ -36,7 +36,7 @@ class DescriptorExtractor:
     """EmbeddingNet on ``device`` with ``params`` (a state_dict, see
     ``models/weights.py``), fed fixed-size uint8 batches. ``portrait``
     swaps the input's height and width; ``raw_descriptor`` returns the
-    descriptor before the reduction head (the same with ``'none'``)."""
+    descriptor before the reduction head (``full_out``), else its output."""
 
     def __init__(
         self,

@@ -5,10 +5,13 @@
 Every loss is a function of the split embeddings (``TupleBatch``) and the
 sampler's geometric payload for its ``distance_type``, returning a
 ``LossResult``; the PN losses (two alternating updates, ``train/step.py``)
-also return their pos and neg parts, or one of them alone (``part``). 29 of JAX's 33 names are here; the four
-``incremental_*`` losses need the host-side streaming-PCA state, and
-``LossConfig`` refuses them, naming the slice that brings it. The third
-argument of a loss, that state, is None until then.
+also return their pos and neg parts, or one of them alone (``part``). All
+33 of JAX's names are here. The third argument of a loss is the running
+loss PCA (``losses/incremental.py::PCAState``), which only the four
+``incremental_*`` losses read (None for the others); they return the loss
+PCA's next update as ``pca_in``: the flattened anchor residuals for the
+``*_residual_*`` pair, the flat batch for ``incremental_det`` and
+``incremental_mm``.
 
 wms consumes the full-batch (B, B) geographic distance matrix
 (``payload["geo_dist_matrix"]``) with MS mining always on. With
@@ -25,6 +28,7 @@ import torch
 
 from soft_contrastive_learning_torch.core.config import LossConfig, TupleConfig
 from soft_contrastive_learning_torch.losses import distance as dist_losses
+from soft_contrastive_learning_torch.losses import incremental as inc_losses
 from soft_contrastive_learning_torch.losses import ms as ms_losses
 from soft_contrastive_learning_torch.losses import pointnetvlad as pnv
 from soft_contrastive_learning_torch.losses import spectral as spec
@@ -43,10 +47,10 @@ class LossResult(NamedTuple):
     total: torch.Tensor  # scalar (pos + neg for the PN losses)
     pos: Optional[torch.Tensor] = None  # PN losses only
     neg: Optional[torch.Tensor] = None  # PN losses only
-    pca_in: Optional[torch.Tensor] = None  # the incremental losses' PCA feed (later slice)
+    pca_in: Optional[torch.Tensor] = None  # the incremental losses' loss-PCA update
 
 
-# (TupleBatch, payload, state=None) -> LossResult; the PN losses also take ``part``
+# (TupleBatch, payload, PCAState | None) -> LossResult; the PN losses also take ``part``
 LossFn = Callable[..., LossResult]
 
 
@@ -135,6 +139,21 @@ def build_loss(cfg: LossConfig, tuples: TupleConfig, tuples_per_batch: int) -> L
     if name == "residual_trace":
         return lambda b, p, st=None: LossResult(
             spec.residual_trace_loss(b.anchor, b.positives, b.negatives, m1, dims))
+
+    incremental = {"incremental_residual_det": inc_losses.incremental_residual_det_loss,
+                   "incremental_residual_mm": inc_losses.incremental_residual_mm_loss,
+                   "incremental_det": inc_losses.incremental_det_loss,
+                   "incremental_mm": inc_losses.incremental_mm_loss}
+    if name in incremental:
+        fn = incremental[name]
+        if "residual" in name:
+            def residual_fn(b, p, st=None):
+                loss, residuals = fn(b.anchor, b.positives, b.negatives, m1, st, cfg.loss_dim)
+                return LossResult(loss, pca_in=residuals)
+
+            return residual_fn
+        return lambda b, p, st=None: LossResult(
+            fn(b.anchor, b.positives, b.negatives, m1, st, cfg.loss_dim), pca_in=b.embeddings)
 
     if name in ("ms_loss", "ms_det", "ms_sum"):
         labels = _labels_on(ms_losses.tuple_labels(

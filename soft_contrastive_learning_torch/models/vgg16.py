@@ -12,7 +12,11 @@ The convs run through cuDNN in ``channels_last``, parameters are kept in
 ``param_dtype`` and cast to the compute dtype per call, as flax does. With
 ``winograd=True`` the convs whose input channel count is a multiple of 128
 go through ``WinogradConvFn`` (K4 on a CUDA device) with the block spec's
-ReLU fused; the parameters are the same ``Conv2d`` ones either way.
+ReLU fused; the parameters are the same ``Conv2d`` ones either way. With
+``remat=True`` each conv block (its convs, on either path) runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: its
+activations are recomputed in the backward instead of kept, as the JAX
+block's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from soft_contrastive_learning_torch.ops.kernels.winograd import WinogradConvFn
 
@@ -46,10 +51,12 @@ class VGG16(nn.Module):
     fp32 conv5_3 map and its pre-normalization activation."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = torch.float32, winograd: bool = False):
+                 param_dtype: torch.dtype = torch.float32, winograd: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.winograd = winograd
+        self.remat = remat
         self.average_rgb = nn.Parameter(torch.zeros(3, dtype=param_dtype))
         cin = 3
         for bi, specs in enumerate(VGG_BLOCKS):
@@ -58,6 +65,22 @@ class VGG16(nn.Module):
                 block[name] = nn.Conv2d(cin, cout, 3, padding=1, dtype=param_dtype)
                 cin = cout
             self.add_module(f"block{bi + 1}", block)
+
+    def _block(self, bi: int, x: torch.Tensor) -> torch.Tensor:
+        """Block ``bi``'s convs (no pool): channels-last NCHW in and out."""
+        dt = self.compute_dtype
+        block = getattr(self, f"block{bi + 1}")
+        for name, _, relu in VGG_BLOCKS[bi]:
+            conv = block[name]
+            if self.winograd and conv.in_channels % 128 == 0:
+                # K4 takes and returns NHWC memory: both permutes are views
+                x = WinogradConvFn.apply(x.permute(0, 2, 3, 1), conv.weight, conv.bias,
+                                         relu).permute(0, 3, 1, 2)
+                continue
+            x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
+            if relu:
+                x = F.relu(x)
+        return x
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if images.ndim != 4:
@@ -71,18 +94,11 @@ class VGG16(nn.Module):
         x = x - self.average_rgb.to(dt)
         # NHWC memory is NCHW in channels_last: a view, no copy
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        for bi, specs in enumerate(VGG_BLOCKS):
-            block = getattr(self, f"block{bi + 1}")
-            for name, _, relu in specs:
-                conv = block[name]
-                if self.winograd and conv.in_channels % 128 == 0:
-                    # K4 takes and returns NHWC memory: both permutes are views
-                    x = WinogradConvFn.apply(x.permute(0, 2, 3, 1), conv.weight, conv.bias,
-                                             relu).permute(0, 3, 1, 2)
-                    continue
-                x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=1)
-                if relu:
-                    x = F.relu(x)
+        for bi in range(len(VGG_BLOCKS)):
+            if self.remat:
+                x = checkpoint(self._block, bi, x, use_reentrant=False)
+            else:
+                x = self._block(bi, x)
             if bi < len(VGG_BLOCKS) - 1:
                 x = F.relu(F.max_pool2d(x, kernel_size=2, stride=2))
         grad_in = x.permute(0, 2, 3, 1)

@@ -8,6 +8,8 @@ JAX package is imported. The mapping onto ``EmbeddingNet.state_dict()``:
 
 * ``a/b/c/kernel`` HWIO (3, 3, Cin, Cout) -> ``a.b.c.weight`` OIHW;
 * ``netvlad/assignment/kernel`` (1, 1, 512, K) -> (K, 512, 1, 1);
+* ``fc_head/fc{i}/kernel`` (in, out), a flax Dense's -> ``fc_head.fc{i}.weight``
+  (out, in), ``nn.Linear``'s;
 * ``netvlad/cluster_centers`` stays (512, K), negated sign kept;
 * everything else keeps its name with dots for slashes.
 
@@ -17,8 +19,12 @@ A missing or extra key or a wrong shape raises, as the JAX loader does
 ``train_state_from_flax`` carries a whole JAX ``TrainState`` across: the flax
 params and the optax moments, handed over as numpy arrays, become the port's
 model and a ``torch.optim`` optimizer in the same state, so that both take
-the same next step. (The two packages do not read each other's checkpoint
-files; this is the seam between them.)
+the same next step. The run's streaming PCAs need no mapping: a JAX
+``StreamingPCA.state_dict()`` (numpy arrays and floats) is the port's, and
+goes as it is into a checkpoint's ``pca``/``loss_pca``
+(``RunCheckpoints.save``), from which a ``Trainer`` takes it up. (The two
+packages do not read each other's checkpoint files; this is the seam
+between them.)
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ if TYPE_CHECKING:
     from soft_contrastive_learning_torch.core.config import TrainConfig
     from soft_contrastive_learning_torch.train.step import TrainState
 
+FC_HIDDEN = 4096  # the dense head's hidden width (models/heads.py::FCHead)
+
 TRAINED_PARAMS_PATH = (
     Path(__file__).resolve().parents[2]
     / "soft_contrastive_learning_tpu" / "assets" / "flagship_trained.npz"
@@ -43,7 +51,9 @@ TRAINED_PARAMS_PATH = (
 
 
 def flax_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """The flax param paths and shapes of ``cfg``'s EmbeddingNet."""
+    """The flax param paths and shapes of ``cfg``'s EmbeddingNet: VGG16,
+    NetVLAD unless ``spp`` or ``vlad_cores=0``, and the dense head's
+    ``fc1``.. (hidden width 4,096, as the JAX head's)."""
     shapes: Dict[str, tuple] = {"vgg16/average_rgb": (3,)}
     cin = 3
     for bi, specs in enumerate(VGG_BLOCKS):
@@ -51,8 +61,15 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
             shapes[f"vgg16/block{bi + 1}/{name}/kernel"] = (3, 3, cin, cout)
             shapes[f"vgg16/block{bi + 1}/{name}/bias"] = (cout,)
             cin = cout
-    shapes["netvlad/assignment/kernel"] = (1, 1, 512, cfg.vlad_cores)
-    shapes["netvlad/cluster_centers"] = (512, cfg.vlad_cores)
+    if cfg.reduction != "spp" and cfg.vlad_cores > 0:
+        shapes["netvlad/assignment/kernel"] = (1, 1, 512, cfg.vlad_cores)
+        shapes["netvlad/cluster_centers"] = (512, cfg.vlad_cores)
+    if cfg.reduction in ("1fc", "2fc", "3fc"):
+        layers = int(cfg.reduction[0])
+        dims = [cfg.descriptor_dim] + [FC_HIDDEN] * (layers - 1) + [cfg.out_dim]
+        for i in range(layers):
+            shapes[f"fc_head/fc{i + 1}/kernel"] = (dims[i], dims[i + 1])
+            shapes[f"fc_head/fc{i + 1}/bias"] = (dims[i + 1],)
     return shapes
 
 
@@ -80,7 +97,8 @@ def params_from_flax(
         t = torch.from_numpy(np.array(arr))  # a writable copy
         parts = key.split("/")
         if parts[-1] == "kernel":
-            t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+            # HWIO -> OIHW; a dense kernel (in, out) -> (out, in)
+            t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T
             parts[-1] = "weight"
         state[".".join(parts)] = t.to(dtype).contiguous()
     return state

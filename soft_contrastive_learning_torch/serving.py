@@ -11,6 +11,9 @@ Protocol (JSON unless noted):
                               resp: {"indices": [[...]], "distances": [[...]]}
                               (requires an index loaded at startup)
 
+``/embed`` returns the raw descriptor with ``reduction`` ``none`` and
+``pca`` (``pca`` whitening is the top-N sweep's, downstream), and the
+reduced output (FC, SPP) otherwise, as JAX's; ``dim`` says which.
 The index is copied to the device once. A search over more than
 ``STREAM_MIN_ROWS`` rows with k <= 128 streams the index through K2
 (``ops/topk.py::topk_l2_streamed``); smaller ones take the dense path.
@@ -59,11 +62,13 @@ class DescriptorService:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.extractor = DescriptorExtractor(cfg, params, batch_size=batch_size,
-                                             device=self.device)
+                                             device=self.device,
+                                             raw_descriptor=cfg.reduction in ("none", "pca"))
         self.index: Optional[torch.Tensor] = None
         if index is not None:
             self.index = torch.as_tensor(index, dtype=torch.float32, device=self.device)
-        self.embed_dim = cfg.descriptor_dim
+        # the width /embed returns: the raw descriptor's or the reduced output's
+        self.embed_dim = cfg.descriptor_dim if self.extractor.raw else cfg.output_dim
         self._lock = threading.Lock()
 
     def embed(self, images) -> np.ndarray:

@@ -2,10 +2,11 @@
 counterpart of ``soft_contrastive_learning_tpu/train/eval_hooks.py``.
 
 ``EvalHooks`` reads a narrow surface of its host trainer at call time:
-``cfg``, ``source``, ``eval_rng``, ``extract_features``, ``eval_loss_step``,
-``_sampler_for``, ``_to_device``, ``_pool`` (the decode threads), ``writers``,
-``log``, ``save_plots``,
-``out_dir``. Both hooks take ``eval_ordinal``, the count of eval firings
+``cfg``, ``source``, ``eval_rng``, ``extract_features`` (whitened by the
+streaming PCA with ``reduction='pca'``), ``eval_loss_step``,
+``_sampler_for``, ``_to_device``, ``_augment_batch`` (the streaming PCAs'
+states, drained before the evals), ``_pool`` (the decode threads),
+``writers``, ``log``, ``save_plots``, ``out_dir``. Both hooks take ``eval_ordinal``, the count of eval firings
 (``abs_step // eval_step``), to pick their rolling window of queries.
 
 Retrieval is the dense ``ops/topk.py::topk_l2`` on the device (the eval
@@ -53,7 +54,7 @@ class EvalHooks:
                 continue
             batch = assemble_batch(cfg, t.source, meta, sample.indices, sample.payload, epoch,
                                    t._pool)
-            outs.append(t.eval_loss_step(t._to_device(batch)))
+            outs.append(t.eval_loss_step(t._augment_batch(t._to_device(batch))))
         if not outs:
             t.log("Evaluated but got no valid losses.")
             return

@@ -29,11 +29,25 @@ and ``metrics_local.jsonl``. They draw from ``eval_rng``, a stream of its
 own, so the training draws are the same with or without them. As in the
 JAX loop there is no eval at an epoch's end.
 
+With ``reduction='pca'`` or an incremental loss the trainer keeps the
+streaming PCAs on the host, ``pca`` (``out_dim`` components of the raw
+descriptor) and ``loss_pca`` (``loss_dim`` components of the output),
+initialized at the first mining refresh (``train/mining_manager.py``).
+Each step is fed their state (``_augment_batch``) and returns their next
+updates. With ``async_pca`` one ``AsyncPCAUpdater`` per segment folds them
+in on a worker thread and feeds step i the state with the updates up to
+i-2 applied; it is drained before every checkpoint and eval and closed at
+the segment's end (a mining boundary). Without it each update is applied
+on the training loop before the next step. ``extract_features`` whitens
+with the PCA (``reduction='pca'``), so that the eval hooks see what JAX's
+see.
+
 Checkpoints (``checkpoints/manager.py``) are written where the JAX loop
 writes them: the rolling one inside each eval, before the evals; a part one
 every ``save_step`` anchors; one at each epoch's end. Each holds the model,
-the optimizer, the step and ``_extras()``: the generator states and the
-position inside the epoch. ``resume_latest`` takes a run up again from one:
+the optimizer, the step, the dropout generator, the streaming PCAs once
+initialized, and ``_extras()``: the generator states and the position
+inside the epoch. ``resume_latest`` takes a run up again from one:
 at the next epoch after an epoch checkpoint, else inside the segment that
 was running, whose child generator is seeded again from the saved pre-draw
 state and run forward over the batches already trained. The losses still on
@@ -66,6 +80,8 @@ from soft_contrastive_learning_torch.data.pipeline import (
 )
 from soft_contrastive_learning_torch.losses.registry import build_loss
 from soft_contrastive_learning_torch.models.model import EmbeddingNet, init_params
+from soft_contrastive_learning_torch.pca.async_updater import AsyncPCAUpdater
+from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
 from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
 from soft_contrastive_learning_torch.train.eval_hooks import EvalHooks
 from soft_contrastive_learning_torch.train.mining_manager import MiningManager
@@ -115,6 +131,12 @@ class Trainer:
         self.mining = MiningManager(self)
         self.mining_cache = self.mining.cache
         self.evals = EvalHooks(self)
+        self.pca = (StreamingPCA(cfg.model.out_dim, cfg.forgetting_factor)
+                    if cfg.model.reduction == "pca" else None)
+        self.loss_pca = (StreamingPCA(cfg.loss.loss_dim, cfg.forgetting_factor)
+                         if cfg.loss.incremental else None)
+        self._updater = None  # the segment's AsyncPCAUpdater (async_pca)
+        self._fed = {}  # name -> (host array, its device copy) of the last feed
         self.rng = np.random.default_rng(cfg.seed)
         # the eval paths draw from a stream of their own, so a run's training
         # draws do not depend on whether or when they fire
@@ -136,10 +158,44 @@ class Trainer:
         return {k: float(v) if np.ndim(v) == 0 else torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}
 
-    def extract_features(self, meta, indices) -> torch.Tensor:
+    def _pca_sd(self) -> Optional[dict]:
+        return self.pca.state_dict() if self.pca is not None and self.pca.initialized else None
+
+    def _loss_pca_sd(self) -> Optional[dict]:
+        return (self.loss_pca.state_dict()
+                if self.loss_pca is not None and self.loss_pca.initialized else None)
+
+    def _on_device(self, name: str, array: np.ndarray) -> torch.Tensor:
+        """``array`` on the device; the copy of the last feed is kept, so a
+        state fed twice (after a drain) crosses once."""
+        host, dev = self._fed.get(name, (None, None))
+        if host is not array:
+            dev = torch.from_numpy(np.asarray(array)).to(self.device)
+            self._fed[name] = (array, dev)
+        return dev
+
+    def _augment_batch(self, batch: Dict[str, object], snaps=None) -> Dict[str, object]:
+        """Attach the streaming PCAs' states to a device batch: ``snaps``,
+        the updater's (pca, loss_pca) state dicts for this step, or the
+        live objects' (synchronous updates, the evals after a drain)."""
+        pca_sd, loss_sd = snaps if snaps is not None else (self._pca_sd(), self._loss_pca_sd())
+        if pca_sd is not None:
+            batch["pca_components"] = self._on_device("v", pca_sd["v"])
+            batch["pca_mean"] = self._on_device("m", pca_sd["m"])
+            batch["pca_variance"] = self._on_device("var", pca_sd["var"])
+        if loss_sd is not None:
+            for key in ("s", "v", "m"):
+                batch[f"loss_pca_{key}"] = self._on_device(f"loss_{key}", loss_sd[key])
+            batch["loss_pca_seen"] = float(np.float32(loss_sd["seen"]))
+        return batch
+
+    def extract_features(self, meta, indices, full_feats: bool = False) -> torch.Tensor:
         """Embed ``meta`` rows ``indices`` on the device in batches of
         ``images_per_batch`` (the last one padded): (len(indices), D)
-        float32, left on the device."""
+        float32 on the device, the raw descriptors (``full_out``) with
+        ``full_feats``, else the output; with ``reduction='pca'`` and the
+        PCA initialized the output is whitened by it on the host, as the
+        JAX trainer does."""
         b = self.cfg.images_per_batch
         idx = pad_to_multiple(np.asarray(indices, dtype=int), b)
         pool = self._image_pool or None
@@ -152,9 +208,14 @@ class Trainer:
             else:
                 images = torch.from_numpy(
                     load_images_standard(self.source, keys, self.cfg, self._pool)).to(self.device)
-            output, _ = self.embed_step(images)
-            chunks.append(output)
-        return torch.cat(chunks)[: len(indices)].float()
+            output, full = self.embed_step(images)
+            chunks.append(full if full_feats else output)
+        feats = torch.cat(chunks)[: len(indices)].float()
+        if (not full_feats and self.cfg.model.reduction == "pca" and self.pca is not None
+                and self.pca.initialized):
+            whitened = self.pca.whiten(feats.cpu().numpy()).astype(np.float32)
+            feats = torch.from_numpy(whitened).to(self.device)
+        return feats
 
     def _ensure_image_pool(self, meta) -> None:
         """Build (once) and remap (per epoch) the device image pool; leaves
@@ -185,7 +246,7 @@ class Trainer:
             self.train_one_epoch(epoch, resume_ctx=self._resume_ctx)
             self._resume_ctx = None
             self._current_epoch = epoch + 1  # an epoch checkpoint resumes AFTER it
-            self.ckpts.save("epoch", epoch, self.state, self._extras())
+            self._save("epoch", epoch)
         self.ckpts.wait()
 
     def _extras(self) -> dict:
@@ -238,10 +299,13 @@ class Trainer:
                      f"skipping {skip} consumed batches")
         while seg_start < len(steps):
             if boundary[seg_start]:
-                # on a resume this rebuilds the cache with the restored weights
+                # on a resume this rebuilds the cache with the restored weights, and
+                # leaves the restored PCA alone: it holds this boundary's update
                 self.log("Caching features for hard negative mining.")
                 self.mining.refresh(epoch, int(steps[seg_start]), mining_count, meta,
-                                    anchor_indices)
+                                    anchor_indices,
+                                    update_pca=not (resume_ctx is not None
+                                                    and int(steps[seg_start]) <= resume_step0))
                 mining_count += 1
             later = np.flatnonzero(boundary[seg_start + 1 :])
             seg_end = seg_start + 1 + (int(later[0]) if len(later) else len(steps))
@@ -282,6 +346,10 @@ class Trainer:
         segment (False once an item was reached)."""
         cfg = self.cfg
         pool_rows = self._pool_rows
+        updater = None
+        if cfg.async_pca and (self.pca is not None or self.loss_pca is not None):
+            updater = AsyncPCAUpdater(self.pca, self.loss_pca)
+        self._updater = updater
         prefetch = None
         if pool_rows is None:  # host-fed: sample and decode ahead on the producer thread
             def build(j: int):
@@ -304,7 +372,7 @@ class Trainer:
                     self._run_eval(epoch, s // max(cfg.eval_step, 1))
                 if side_effects and s % cfg.save_step == 0:
                     self._write_train_metrics(records)
-                    self.ckpts.save("part", self.global_step, self.state, self._extras())
+                    self._save("part", self.global_step)
                 if prefetch is not None:
                     sample, host_batch = next(batches)
                 else:
@@ -312,22 +380,56 @@ class Trainer:
                 if sample is None:
                     self.log("Faulty training batch... skipping.")
                     continue
+                snaps = updater.feed_states() if updater is not None else None
                 if prefetch is None:
                     batch = self._to_device({"image_idx": pool_rows[sample.indices.reshape(-1)],
                                              "epoch": np.float32(epoch), **sample.payload})
-                    self.state, metrics = self.train_step_pooled(self.state, batch,
-                                                                 self._image_pool.array)
+                    self.state, metrics = self.train_step_pooled(
+                        self.state, self._augment_batch(batch, snaps), self._image_pool.array)
                 else:
-                    self.state, metrics = self.train_step(self.state, self._to_device(host_batch))
+                    self.state, metrics = self.train_step(
+                        self.state, self._augment_batch(self._to_device(host_batch), snaps))
                 self.used_images.update(sample.used_indices)
                 self.global_step += 1
+                self._update_pca(metrics.pop("pca_in", None), metrics.pop("loss_pca_in", None))
                 records.append((self.global_step, metrics))
+        except BaseException:
+            if updater is not None:  # the original error goes on; the worker's is logged
+                try:
+                    updater.close()
+                except Exception as drain_err:
+                    self.log(f"PCA worker error during unwind: {drain_err}")
+            raise
+        else:
+            if updater is not None:
+                updater.close()
         finally:
+            self._updater = None
             if prefetch is not None:
                 prefetch.close()
         self._seg_ctx["consumed"] = len(seg_steps)
         self._write_train_metrics(records)
         return suppress_first
+
+    def _update_pca(self, pca_in, loss_pca_in) -> None:
+        """Fold a step's PCA feeds in: through the segment's updater, or on
+        this thread before the next step."""
+        if pca_in is None and loss_pca_in is None:
+            return
+        if self._updater is not None:
+            self._updater.submit(pca_in, loss_pca_in)
+            return
+        if self.pca is not None and pca_in is not None:
+            self.pca.update(pca_in.cpu().numpy())
+        if self.loss_pca is not None and loss_pca_in is not None:
+            self.loss_pca.update(loss_pca_in.cpu().numpy())
+
+    def _save(self, role: str, step: int) -> None:
+        """A checkpoint with every update submitted so far applied."""
+        if self._updater is not None:
+            self._updater.drain()
+        self.ckpts.save(role, step, self.state, self._extras(), pca=self._pca_sd(),
+                        loss_pca=self._loss_pca_sd())
 
     def _write_train_metrics(self, records: list) -> None:
         """Fetch the pending steps' losses (with the PN losses' ``loss_pos``
@@ -352,7 +454,7 @@ class Trainer:
         and indexes the rolling windows of eval queries."""
         self.log("EVALUATING")
         gs = self.global_step
-        self.ckpts.save("rolling", gs, self.state, self._extras())
+        self._save("rolling", gs)  # drains: the evals read the live PCA
         self.evals.loss_other(epoch, gs, eval_ordinal)
         self.evals.localization(epoch, gs, self.cfg.other_ref_set, self.cfg.other_query_set,
                                 "other", eval_ordinal)
@@ -362,12 +464,17 @@ class Trainer:
     # ------------------------------------------------------------ resume
     def resume_latest(self, role: str = "rolling") -> bool:
         """Take up the newest ``role`` checkpoint of this run directory:
-        model, optimizer, step, generators and position. False when there
-        is none."""
+        model, optimizer, step, generators, streaming PCAs and position.
+        False when there is none."""
         step = self.ckpts.latest(role)
         if step is None:
             return False
-        self.state, extras = self.ckpts.restore(role, step, self.state)
+        self.state, pca_sd, loss_pca_sd, extras = self.ckpts.restore(role, step, self.state)
+        # a checkpoint written before the first refresh holds no PCA: keep the fresh one
+        if pca_sd is not None:
+            self.pca = StreamingPCA.from_state_dict(pca_sd)
+        if loss_pca_sd is not None:
+            self.loss_pca = StreamingPCA.from_state_dict(loss_pca_sd)
         if extras is not None:
             self.rng = numpy_rng_from_array(extras["sampler_rng"])
             self.eval_rng = numpy_rng_from_array(extras["eval_rng"])

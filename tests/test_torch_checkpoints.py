@@ -102,7 +102,8 @@ def test_save_and_restore_round_trip_bit_for_bit(tmp_path):
     raw = torch.load(tmp_path / "checkpoints" / "part" / "41" / "state.pt", weights_only=True)
     assert sorted(raw) == ["extras", "model", "optimizer", "step"] and raw["step"] == 41
     fresh = _toy_state()
-    fresh, got = ckpts.restore("part", 41, fresh)
+    fresh, pca, loss_pca, got = ckpts.restore("part", 41, fresh)
+    assert pca is None and loss_pca is None
     assert fresh.step == 41 and got["epoch"] == 2 and got["consumed"] == 0
     assert torch.equal(got["sampler_rng"], torch.from_numpy(extras["sampler_rng"]))
     for a, b in zip(fresh.model.parameters(), state.model.parameters()):
@@ -449,3 +450,114 @@ def test_pn_resume_equals_the_uninterrupted_run(tmp_path):
     assert got == _records(whole, after=5)
     assert {tag for _, tag, _ in got} == {"loss", "learning_rate", "loss_pos", "loss_neg"}
     assert [s for s, tag, _ in got if tag == "loss_neg"] == list(range(6, 13))
+
+
+# ---------------------------------------------------------------- resume with the heads
+
+def _resume_pair(cfg, root, step):
+    """The uninterrupted run and the one stopped after its part checkpoint
+    of ``step`` and taken up again, with their directories removed (each
+    checkpoint holds the full VGG16 and Adam's moments, ~180 MB)."""
+    try:
+        whole, _, _ = _run(cfg, root / "a")
+        resumed, _, ctx = _run(cfg, _stopped_copy(root / "a", root / "b", step),
+                               resume_role="part")
+        saved = resumed.ckpts.load("part", step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert ctx["step"] == step and whole.global_step == resumed.global_step == 24
+    a, b = whole.state.model.state_dict(), resumed.state.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    oa = whole.state.optimizer.state_dict()["state"]
+    ob = resumed.state.optimizer.state_dict()["state"]
+    assert all(torch.equal(oa[i][k], ob[i][k]) for i in oa
+               for k in ("step", "exp_avg", "exp_avg_sq"))
+    assert _records(resumed) == _records(whole, after=step)
+    return whole, resumed, saved
+
+
+@pytest.mark.parametrize("async_pca", [True, False])
+def test_pca_resume_equals_the_uninterrupted_run(tmp_path, async_pca):
+    """``reduction='pca'`` with ``incremental_residual_mm``, stopped after
+    the part checkpoint of step 10 (mid-segment, the updater drained there)
+    and taken up again: parameters, Adam's moments, the losses and both
+    streaming PCAs (every array and count) bit-equal to the uninterrupted
+    run's. Hard mining off (the cache rebuilt at step 10's weights, and
+    whitened by step 10's PCA, changes no tuple)."""
+    model = tcfg.ModelConfig(**MODEL, reduction="pca", out_dim=8)
+    cfg = dataclasses.replace(_cfg(0, save_step=10, eval_step=100), model=model,
+                              async_pca=async_pca,
+                              loss=tcfg.LossConfig(name="incremental_residual_mm", loss_dim=4))
+    whole, resumed, saved = _resume_pair(cfg, tmp_path / "runs", 10)
+    assert saved["pca"]["true_seen"] > 0 and saved["loss_pca"]["true_seen"] > 0
+    for got, want in ((resumed.pca, whole.pca), (resumed.loss_pca, whole.loss_pca)):
+        sa, sb = got.state_dict(), want.state_dict()
+        assert all(np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])) for k in sa), sa.keys()
+
+
+def test_two_fc_resume_restores_the_dropout_generator(tmp_path):
+    """``2fc`` draws dropout masks from the train state's generator, which
+    the checkpoint carries: the run resumed at step 10 is the
+    uninterrupted run, bit for bit; a resume that lost the generator's
+    state would draw other masks."""
+    # NetVLAD-2: a 1,024-wide descriptor keeps the 4,096-wide hidden layer small
+    model = tcfg.ModelConfig(**{**MODEL, "vlad_cores": 2}, reduction="2fc", out_dim=16)
+    cfg = dataclasses.replace(_cfg(0, save_step=10, eval_step=100), model=model)
+    whole, resumed, saved = _resume_pair(cfg, tmp_path / "runs", 10)
+    assert torch.equal(whole.state.rng.get_state(), resumed.state.rng.get_state())
+    assert not torch.equal(saved["rng"], torch.Generator().manual_seed(cfg.seed).get_state())
+
+
+def test_a_checkpoint_from_before_the_pca_restores_with_none(tmp_path):
+    """A payload without ``pca``/``loss_pca`` (written before the first
+    refresh) leaves the trainer's fresh, uninitialized PCAs."""
+    model = tcfg.ModelConfig(**MODEL, reduction="pca", out_dim=8)
+    cfg = dataclasses.replace(_cfg(0), model=model,
+                              loss=tcfg.LossConfig(name="incremental_mm", loss_dim=4))
+    tr = Trainer(cfg, ToyCitySource(**SOURCE), out_dir=str(tmp_path), device="cpu")
+    tr.ckpts.save("part", 0, tr.state, tr._extras(), pca=tr._pca_sd(), loss_pca=tr._loss_pca_sd())
+    assert "pca" not in tr.ckpts.load("part", 0)
+    assert tr.resume_latest("part")
+    assert tr.pca is not None and not tr.pca.initialized and not tr.loss_pca.initialized
+    tr.close()
+
+
+def test_a_jax_run_s_streaming_pcas_go_over_as_they_are(tmp_path):
+    """A JAX run handed over: its parameters through
+    ``train_state_from_flax``, its ``pca`` and ``loss_pca`` state dicts
+    (numpy) as they are into a checkpoint of the port's, which a fresh
+    Trainer takes up; the Trainer's PCAs then hold every array and count of
+    JAX's, and the step is fed JAX's components, mean, variance and loss
+    PCA."""
+    from soft_contrastive_learning_tpu.models.model import init_params as jax_init_params
+    from soft_contrastive_learning_tpu.pca.incremental import StreamingPCA as JaxPCA
+
+    model = dict(MODEL, reduction="pca", out_dim=6, vlad_cores=2)
+    rng = np.random.default_rng(9)
+    pcas = []
+    for dim, width in ((6, 2 * 512), (3, 6)):
+        pca = JaxPCA(dim, 0.4)
+        pca.init(rng.standard_normal((12, width)).astype(np.float32))
+        pca.update(rng.standard_normal((5, width)).astype(np.float32))
+        pcas.append(pca.state_dict())
+    params = _flat(jax_init_params(jcfg.ModelConfig(use_pallas=False, **model),
+                                   jax.random.key(0)))
+    cfg = dataclasses.replace(_cfg(0), model=tcfg.ModelConfig(**model),
+                              loss=tcfg.LossConfig(name="incremental_mm", loss_dim=3))
+    state = train_state_from_flax(cfg, params, 3)
+    tr = Trainer(cfg, ToyCitySource(**SOURCE), out_dir=str(tmp_path), device="cpu")
+    tr.ckpts.save("part", 3, state, tr._extras(), pca=pcas[0], loss_pca=pcas[1])
+    assert tr.resume_latest("part") and tr.global_step == 3
+    for got, want in ((tr.pca, pcas[0]), (tr.loss_pca, pcas[1])):
+        sd = got.state_dict()
+        assert sd.keys() == want.keys()
+        assert all(np.array_equal(np.asarray(sd[k]), np.asarray(want[k])) for k in want)
+    fed = tr._augment_batch({})
+    for key, (sd, name) in {"pca_components": (0, "v"), "pca_mean": (0, "m"),
+                            "pca_variance": (0, "var"), "loss_pca_s": (1, "s"),
+                            "loss_pca_v": (1, "v"), "loss_pca_m": (1, "m")}.items():
+        assert np.array_equal(fed[key].numpy(), pcas[sd][name]), key
+    assert fed["loss_pca_seen"] == float(np.float32(pcas[1]["seen"]))
+    weights = tr.state.model.state_dict()
+    assert all(torch.equal(weights[k], v) for k, v in params_from_flax(params, cfg.model).items())
+    tr.close()

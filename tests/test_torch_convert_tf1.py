@@ -117,6 +117,30 @@ def test_conversion_and_warm_start_match_jax(tmp_path, with_netvlad):
             assert torch.equal(value, fresh[name]), name
 
 
+@pytest.mark.parametrize("reduction,vlad_cores", [("2fc", 4), ("spp", 4), ("none", 0)])
+def test_a_tf1_export_warm_starts_a_head_configuration(tmp_path, reduction, vlad_cores):
+    """The scopes JAX's ``warm_start_params`` copies into a head
+    configuration (no NetVLAD with 'spp' or ``vlad_cores=0``), the donor's
+    arrays there, the dense head the port's fresh init."""
+    tf_vars = _tf1_vars(np.random.default_rng(1), 4)
+    npz = str(tmp_path / "tf1.npz")
+    np.savez(npz, **tf_vars)
+    common = dict(vlad_cores=vlad_cores, reduction=reduction, out_dim=8, image_height=64,
+                  image_width=80)
+    jax_tree, _ = jax_convert.convert_checkpoint(npz)
+    _, jax_copied = jax_warm_start_params(
+        jax_init_params(JaxModelConfig(compute_dtype="float32", use_pallas=False, **common),
+                        jax.random.key(0)), jax_tree)
+    cfg = ModelConfig(**common)
+    outcome, params = _port_load(cfg, npz, default_artifact=False, seed=3)
+    assert outcome == f"warm-started {list(jax_copied)}"
+    fresh = init_params(cfg, 3)
+    assert params.keys() == fresh.keys()
+    for name, value in params.items():
+        if name.split(".")[0] not in jax_copied:
+            assert torch.equal(value, fresh[name]), name
+
+
 def test_raw_tf_checkpoint_is_refused_with_jax_s_message():
     with pytest.raises(RuntimeError, match="export the checkpoint to .npz first"):
         convert_tf1.load_tf1_variables("/nonexistent/model.ckpt-1000")

@@ -742,3 +742,99 @@ def test_winograd_stages_match_their_plain_versions(cuda, b, h, w, c, f):
     assert torch.equal(full, winograd_conv_cuda(x, weight, bias, relu=True))
     with pytest.raises(ValueError, match="C % 32"):
         winograd_stage(0, x[..., :24].contiguous(), weight[:, :24].contiguous())
+
+
+# ---------------------------------------------------------------- heads and the streaming PCAs
+
+@pytest.mark.parametrize("reduction", ["1fc", "2fc", "pca", "spp"])
+def test_heads_on_the_card_match_their_plain_path(cuda, reduction):
+    """Trained backbone and a seeded head at 64x80, fp32: the output and
+    full_out with the kernels at cosine >= 0.99999 to the plain path's; K1
+    once a forward where NetVLAD runs (not with 'spp')."""
+    from soft_contrastive_learning_torch.checkpoints.manager import warm_start_params
+    from soft_contrastive_learning_torch.models.model import init_params
+
+    imgs = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 256, (4, 64, 80, 3), dtype=np.uint8)).to(cuda)
+    outs = []
+    before = netvlad_aggregate_cuda.launches
+    for kernels in (True, False):
+        cfg = ModelConfig(image_height=64, image_width=80, compute_dtype="float32",
+                          reduction=reduction, use_kernels=kernels)
+        params, _ = warm_start_params(init_params(cfg, 0), load_trained_params(
+            cfg=ModelConfig(image_height=64, image_width=80)))
+        model = EmbeddingNet(cfg)
+        model.load_state_dict(params)
+        with torch.inference_mode():
+            outs.append(model.to(cuda).eval()(imgs))
+    assert netvlad_aggregate_cuda.launches == before + (reduction != "spp")
+    for got, want in zip(outs[0], outs[1]):
+        assert got.shape == want.shape
+        cos = (got * want).sum(1) / (got.norm(dim=1) * want.norm(dim=1))
+        assert (cos >= 0.99999).all(), cos
+
+
+def test_dropout_masks_on_the_card_come_from_the_step_s_generator(cuda):
+    """The same CUDA generator state draws the same masks; the global CUDA
+    generator is not touched."""
+    from soft_contrastive_learning_torch.models.heads import dropout
+
+    x = torch.ones(8, 4096, device=cuda)
+    before = torch.cuda.get_rng_state()
+    a = dropout(x, 0.5, torch.Generator(device=cuda).manual_seed(3))
+    b = dropout(x, 0.5, torch.Generator(device=cuda).manual_seed(3))
+    assert torch.equal(a, b) and torch.equal(torch.cuda.get_rng_state(), before)
+    assert abs((a == 0).float().mean().item() - 0.5) < 0.02
+
+
+def test_async_pca_updater_takes_card_tensors(cuda):
+    """Tensors on the card, with a graph: the worker copies them to the host
+    itself, and the state equals the same updates from host arrays."""
+    from soft_contrastive_learning_torch.pca.async_updater import AsyncPCAUpdater
+    from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
+
+    rng = np.random.default_rng(6)
+    blocks = [rng.standard_normal((20, 256)).astype(np.float32) for _ in range(4)]
+    pcas = []
+    for on_card in (True, False):
+        pca = StreamingPCA(8)
+        pca.init(blocks[0])
+        updater = AsyncPCAUpdater(pca, None)
+        for x in blocks[1:]:
+            if on_card:
+                w = torch.from_numpy(x).to(cuda).requires_grad_()
+                updater.submit(w * 1.0, None)
+            else:
+                updater.submit(x, None)
+            updater.feed_states()
+        updater.close()
+        pcas.append(pca.state_dict())
+    assert all(np.array_equal(np.asarray(pcas[0][k]), np.asarray(pcas[1][k])) for k in pcas[0])
+
+
+@pytest.mark.parametrize("name", ["incremental_residual_mm", "incremental_mm"])
+def test_incremental_loss_on_the_card_matches_float64(cuda, name):
+    """At the flagship's width (D = 32,768, loss_dim 64, 2 tuples of 1+12+12):
+    the fp32 loss within 1e-5 of its float64 evaluation, the gradient within
+    5e-4 of its largest entry (the ``losses`` phase's gates)."""
+    from soft_contrastive_learning_torch.core.config import LossConfig, TupleConfig
+    from soft_contrastive_learning_torch.losses.incremental import PCAState
+    from soft_contrastive_learning_torch.losses.registry import build_loss, split_batch
+    from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    emb = torch.randn((50, 32768), generator=gen, device=cuda)
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    pca = StreamingPCA(64)
+    pca.init(np.random.default_rng(8).standard_normal((100, 32768)).astype(np.float32) / 128)
+    fn = build_loss(LossConfig(name=name, loss_dim=64), TupleConfig(), 2)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        st = PCAState(*(torch.as_tensor(np.asarray(a)).to(cuda, dtype)
+                        for a in (pca.s, pca.v, pca.m, np.float32(pca.seen))))
+        e = emb.to(dtype, copy=True).requires_grad_()
+        total = fn(split_batch(e, 2, (1, 12, 12)), {}, st).total
+        res[dtype] = (total.item(), torch.autograd.grad(total, e)[0].double())
+    (v32, g32), (v64, g64) = res[torch.float32], res[torch.float64]
+    assert abs(v32 - v64) <= 1e-5 * max(1.0, abs(v64))
+    assert (g32 - g64).abs().max().item() <= 5e-4 * g64.abs().max().item()

@@ -1,7 +1,8 @@
 """The loss zoo of the PyTorch port against the JAX package: each of the 29
 losses that need no streaming-PCA state, through both registries, on the
-same numpy inputs in fp32; the spectral primitives against numpy's SVD and
-eigh in float64; the configs' derived fields.
+same numpy inputs in fp32, and the four incremental losses against a loss
+PCA fitted by the JAX package's streaming PCA; the spectral primitives
+against numpy's SVD and eigh in float64; the configs' derived fields.
 
 Inputs: T = 2 tuples of 1 + 3 + 4 (quadruplets 1 + 3 + 3 + 1), D = 64. The
 embeddings are random directions with norms in [0.2, 1], and the geometry
@@ -127,9 +128,100 @@ def test_pn_part_alone_is_the_full_result_s(name):
 
 @pytest.mark.parametrize("name", tcfg.INCREMENTAL_LOSSES)
 def test_incremental_losses_raise_naming_the_next_slice(name):
+    """The four incremental losses construct and build, as the JAX
+    package's, with the streaming-PCA state as their third argument."""
     assert name in jreg.LOSS_NAMES
-    with pytest.raises(NotImplementedError, match="incremental-family-and-heads slice"):
-        tcfg.LossConfig(name=name)
+    cfg = tcfg.LossConfig(name=name)
+    assert cfg.incremental and not cfg.pn_loss and cfg.distance_type == "none"
+    assert callable(treg.build_loss(cfg, tcfg.TupleConfig(), 2))
+
+
+# the incremental losses: L = loss_dim components, T tuples of 1 + P + N at
+# width d (12: L + M + 1 = 13 > d, the Gram taken on the D side)
+INC_L = 8
+
+
+def _loss_pca(d, seed):
+    """A loss PCA as the trainer starts one: the JAX streaming PCA fitted
+    on 20 residual-like rows, then updated once; fp32 arrays as fed."""
+    from soft_contrastive_learning_tpu.pca.incremental import StreamingPCA
+
+    rng = np.random.default_rng(seed)
+    pca = StreamingPCA(INC_L, 0.4)
+    pca.init(0.3 * rng.standard_normal((20, d)))
+    pca.update(0.3 * rng.standard_normal((14, d)))
+    return {"s": pca.s, "v": pca.v, "m": pca.m, "seen": np.float32(pca.seen)}
+
+
+def _inc_run(name, emb, st, jax_side):
+    loss = (jcfg if jax_side else tcfg).LossConfig(name=name, loss_dim=INC_L)
+    tuples = (jcfg if jax_side else tcfg).TupleConfig(positives_per_tuple=P,
+                                                      negatives_per_tuple=N)
+    if jax_side:
+        from soft_contrastive_learning_tpu.losses.incremental import PCAState as JaxPCAState
+
+        fn = jreg.build_loss(loss, tuples, T)
+        state = JaxPCAState(**{k: jnp.asarray(v) for k, v in st.items()})
+
+        def total(e):
+            res = fn(jreg.split_batch(e, T, (1, P, N)), {}, state)
+            return res.total, res.pca_in
+
+        (value, pca_in), grad = jax.value_and_grad(total, has_aux=True)(jnp.asarray(emb))
+        return float(value), np.asarray(grad), np.asarray(pca_in)
+    from soft_contrastive_learning_torch.losses.incremental import PCAState
+
+    fn = treg.build_loss(loss, tuples, T)
+    e = torch.from_numpy(emb).requires_grad_()
+    res = fn(treg.split_batch(e, T, (1, P, N)), {},
+             PCAState(**{k: torch.from_numpy(np.asarray(v)) for k, v in st.items()}))
+    (grad,) = torch.autograd.grad(res.total, e)
+    return res.total.item(), grad.numpy(), res.pca_in.detach().numpy()
+
+
+def _det_terms(name, emb, st):
+    """The det variants' loss is a difference of two products of
+    ``INC_L`` singular values, mean over tuples: the mean of |pos product|
+    + |neg product|, in float64."""
+    from soft_contrastive_learning_torch.losses import incremental as inc
+
+    state = inc.PCAState(**{k: torch.as_tensor(np.asarray(v)).double() for k, v in st.items()})
+    g = torch.from_numpy(emb).double().reshape(T, 1 + P + N, -1)
+    a, pos, neg = g[:, :1], g[:, 1 : 1 + P], g[:, 1 + P :]
+    if "residual" in name:
+        pos, neg = pos - a, neg - a
+    else:
+        pos, neg = torch.cat([a, pos], 1), torch.cat([a, neg], 1)
+    prods = [inc.stable_prod(inc.incremental_s(x, state)[:, :INC_L]) for x in (pos, neg)]
+    return (prods[0].abs() + prods[1].abs()).mean().item()
+
+
+@pytest.mark.parametrize("name", tcfg.INCREMENTAL_LOSSES)
+@pytest.mark.parametrize("d", [64, 32, 12])
+def test_incremental_loss_matches_jax(name, d):
+    """Value within 1e-5 relative: of the value for the mm variants, of the
+    products it is the difference of for the det variants (products of ~3e3
+    that differ by ~9 at d = 64: both packages' fp32 Grams put them 3-5e-4
+    of the difference, 5e-7 of the products, from a float64 evaluation);
+    gradient with respect to the embeddings within 5e-5 of its largest
+    entry (the spectral bound: JAX solves the fp32 Gram in fp32, the port
+    in float64; measured at most 6.1e-6); ``pca_in``, the loss PCA's next
+    update (the residuals, or the flat batch), within 1e-6."""
+    rng = np.random.default_rng(d)
+    emb = rng.standard_normal((T * (1 + P + N), d))
+    emb = (emb * rng.uniform(0.2, 1.0, (len(emb), 1))
+           / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
+    st = _loss_pca(d, d + 1)
+    want_v, want_g, want_in = _inc_run(name, emb, st, jax_side=True)
+    got_v, got_g, got_in = _inc_run(name, emb, st, jax_side=False)
+    assert np.isfinite(got_v) and np.isfinite(got_g).all()
+    assert np.abs(want_g).max() > 0
+    scale = _det_terms(name, emb, st) if "det" in name else abs(want_v)
+    assert abs(got_v - want_v) <= 1e-5 * scale, (got_v, want_v, scale)
+    np.testing.assert_allclose(got_g, want_g, rtol=0, atol=5e-5 * np.abs(want_g).max())
+    want_rows = T * (P + N) if "residual" in name else T * (1 + P + N)
+    assert got_in.shape == want_in.shape == (want_rows, d)
+    np.testing.assert_allclose(got_in, want_in, rtol=0, atol=1e-6)
 
 
 def test_loss_names_are_jax_s_in_its_order():

@@ -122,6 +122,42 @@ def test_resize_without_opencv_raises(monkeypatch):
         normalize_geometry(np.zeros((90, 120, 3), np.uint8), H, W, keep_aspect=True)
 
 
+@pytest.mark.parametrize("reduction,vlad_cores", [("1fc", 8), ("3fc", 8), ("spp", 8),
+                                                  ("pca", 8), ("none", 0)])
+def test_reduced_services_match_jax(reduction, vlad_cores):
+    """``/embed`` returns what JAX's does: the dense or SPP output at its
+    width, the raw descriptor for 'pca' and 'none' (here the flattened
+    map); ``embed_dim`` says which. The JAX init carried across, fp32:
+    within 1e-5 of the largest entry; a search over the reduced index
+    finds the same ids."""
+    from flax import traverse_util
+
+    import jax
+
+    from soft_contrastive_learning_tpu.models.model import init_params as jax_init_params
+    from soft_contrastive_learning_torch.models.weights import params_from_flax
+
+    common = dict(vlad_cores=vlad_cores, reduction=reduction, out_dim=24, image_height=H,
+                  image_width=W, compute_dtype="float32")
+    jcfg = JaxModelConfig(use_pallas=False, **common)
+    cfg = ModelConfig(**common)
+    params = jax_init_params(jcfg, jax.random.key(0))
+    flat = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(params, sep="/").items()}
+    imgs = np.random.default_rng(1).integers(0, 256, (5, H, W, 3), dtype=np.uint8)
+    jax_service = JaxDescriptorService(jcfg, params, batch_size=4)
+    want = np.asarray(jax_service.embed(imgs))
+    index = want[:3]
+    jax_service = JaxDescriptorService(jcfg, params, batch_size=4, index=index)
+    service = DescriptorService(cfg, params_from_flax(flat, cfg), batch_size=4, index=index,
+                                device="cpu")
+    got = service.embed(imgs)
+    assert service.embed_dim == jax_service.embed_dim == got.shape[1]
+    assert got.shape[1] == (24 if reduction.endswith("fc") else cfg.descriptor_dim)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(service.search(imgs, k=2)[1],
+                                  np.asarray(jax_service.search(imgs, k=2)[1]))
+
+
 def test_cli_serve_flags():
     args = build_parser().parse_args(["serve", "--index", "f.pickle", "--batch_size", "8"])
     assert (args.index, args.batch_size, args.device, args.port) == ("f.pickle", 8, "cuda", 8377)

@@ -385,3 +385,136 @@ def test_zoo_params_after_two_steps_match(zoo_runs):
             share_bound = max(share_bound, 2 * (floor > 1e-3).float().mean().item())
         assert err.mean().item() <= mean_bound
         assert (err > 1e-3).float().mean().item() <= share_bound
+
+
+# ---------------------------------------------------------------- heads and PCA feeds
+
+# (reduction, loss, loss_dim): the dense head with wms, the PCA projection
+# with an incremental loss on its output, and the 4,096-wide loss PCA of the
+# raw descriptor with a det variant (finite at loss_dim 4)
+HEAD_CASES = (("1fc", "wms", 8), ("pca", "incremental_residual_mm", 8),
+              ("none", "incremental_residual_det", 4))
+HEAD_OUT = 16
+
+
+def _head_cfgs(reduction, loss, loss_dim):
+    j, t = _cfgs("adam")
+    jm = jcfg.ModelConfig(**{**j.model.__dict__, "reduction": reduction, "out_dim": HEAD_OUT})
+    tm = tcfg.ModelConfig(**{**t.model.__dict__, "reduction": reduction, "out_dim": HEAD_OUT})
+    return (jcfg.TrainConfig(**{**j.__dict__, "model": jm,
+                                "loss": jcfg.LossConfig(name=loss, loss_dim=loss_dim)}),
+            tcfg.TrainConfig(**{**t.__dict__, "model": tm,
+                                "loss": tcfg.LossConfig(name=loss, loss_dim=loss_dim)}))
+
+
+def _head_feeds(cfg):
+    """The streaming PCAs' states as the trainer feeds them, fitted by the
+    JAX StreamingPCA on rows at the scale of what they see: unit-norm
+    descriptors' spread for the projection, the whitened outputs' or the
+    descriptors' residuals for the loss PCA."""
+    from soft_contrastive_learning_tpu.pca.incremental import StreamingPCA
+
+    rng = np.random.default_rng(7)
+    d = cfg.model.descriptor_dim
+    feeds = {}
+    if cfg.model.reduction == "pca":
+        pca = StreamingPCA(HEAD_OUT)
+        pca.init(rng.standard_normal((40, d)) / np.sqrt(d) + 1.0 / np.sqrt(d))
+        feeds.update(pca_components=pca.v, pca_mean=pca.m, pca_variance=pca.var)
+    if cfg.loss.incremental:
+        width = cfg.model.output_dim
+        scale = 1.0 if cfg.model.reduction == "pca" else 1.4 / np.sqrt(width)
+        loss_pca = StreamingPCA(cfg.loss.loss_dim)
+        loss_pca.init(scale * rng.standard_normal((30, width)))
+        feeds.update(loss_pca_s=loss_pca.s, loss_pca_v=loss_pca.v, loss_pca_m=loss_pca.m,
+                     loss_pca_seen=np.float32(loss_pca.seen))
+    return feeds
+
+
+def _head_jax_run(case):
+    cfg, _ = _head_cfgs(*case)
+    model = create_model(cfg.model)
+    params = init_params(cfg.model, jax.random.key(0))
+    images, geo = _batch()
+    feeds = {k: jnp.asarray(v) for k, v in _head_feeds(cfg).items()}
+    init = _flat(params)
+    state = jstep.init_train_state(cfg, params)
+    step = jstep.build_train_step(cfg, model, jax_build_loss(cfg.loss, cfg.tuples, 1))
+    metrics, after = [], []
+    for epoch in EPOCHS:
+        state, m = step(state, {"images": jnp.asarray(images), "geo_dist_matrix": jnp.asarray(geo),
+                                "epoch": jnp.float32(epoch), **feeds})
+        metrics.append({k: np.asarray(v) for k, v in m.items()})
+        after.append(_flat(state.params))
+    return init, metrics, after
+
+
+def _head_port_run(case, init):
+    _, cfg = _head_cfgs(*case)
+    model = EmbeddingNet(cfg.model)
+    model.load_state_dict(params_from_flax(init, cfg.model))
+    state = init_train_state(cfg, model)
+    step = build_train_step(cfg, build_loss(cfg.loss, cfg.tuples, 1))
+    images, geo = _batch()
+    feeds = {k: float(v) if np.ndim(v) == 0 else torch.from_numpy(np.asarray(v))
+             for k, v in _head_feeds(_head_cfgs(*case)[0]).items()}
+    metrics, after = [], []
+    for epoch in EPOCHS:
+        state, m = step(state, {"images": torch.from_numpy(images),
+                                "geo_dist_matrix": torch.from_numpy(geo), "epoch": epoch, **feeds})
+        metrics.append({k: v if isinstance(v, float) else v.numpy() for k, v in m.items()})
+        after.append({k: v.clone() for k, v in state.model.state_dict().items()})
+    return metrics, after
+
+
+@pytest.fixture(scope="module", params=HEAD_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def head_runs(request):
+    jax_side = _head_jax_run(request.param)
+    return request.param, jax_side, _head_port_run(request.param, jax_side[0])
+
+
+def test_head_step_losses_and_pca_feeds_match(head_runs):
+    """Both steps' losses within 1e-5 relative: of the loss, and for the det
+    variant of the products it is the margin plus the difference of (about
+    twice the product of the fed singular values; measured 3.9e-7 of it).
+    The metrics carry JAX's PCA feeds and no other: ``pca_in`` (the raw
+    descriptors, 'pca') and ``loss_pca_in`` (the residuals, incremental
+    losses). At the first step (the same weights) ``pca_in`` within 2e-6 of
+    its largest entry (measured 8.4e-7) and ``loss_pca_in`` within 1e-4
+    (measured 2.7e-5): an untrained net's descriptors nearly coincide, so
+    their residuals keep the descriptors' ~1e-7 differences at a thousandth
+    of the size (and the whitening of 'pca' magnifies them further). At the
+    second, after an update that Adam moves near-zero gradients' weights by
+    up to lr in either direction in each package, within 1e-3 (measured
+    1.4e-4)."""
+    (reduction, loss, loss_dim), (_, want, _), (got, _) = head_runs
+    scale = 0.0
+    if "det" in loss:
+        scale = 2 * float(np.prod(_head_feeds(_head_cfgs(reduction, loss, loss_dim)[0])
+                                  ["loss_pca_s"][:loss_dim]))
+    for step, (w, g) in enumerate(zip(want, got)):
+        feeds = {k for k in w if k in ("pca_in", "loss_pca_in")}
+        assert feeds == {k for k in g if k in ("pca_in", "loss_pca_in")}
+        assert ("pca_in" in feeds) == (reduction == "pca")
+        assert ("loss_pca_in" in feeds) == ("incremental" in loss)
+        want_loss = float(w["loss"])
+        assert abs(float(g["loss"]) - want_loss) <= 1e-5 * (abs(want_loss) + scale)
+        for k in feeds:
+            assert g[k].shape == w[k].shape
+            err = np.abs(g[k] - w[k]).max() / np.abs(w[k]).max()
+            bound = 1e-3 if step else (2e-6 if k == "pca_in" else 1e-4)
+            assert err <= bound, (step, k, err)
+
+
+def test_head_step_params_after_two_steps_match(head_runs):
+    """Updates as fractions of lr after each step, as the zoo's: the mean
+    difference under 5e-4 of lr and at most 5% of the weights apart by
+    more than 1e-3 of lr; the dense head's weights among them."""
+    case, (init, _, jax_after), (_, after) = head_runs
+    _, cfg = _head_cfgs(*case)
+    p0 = params_from_flax(init, cfg.model)
+    assert (case[0] == "1fc") == any(k.startswith("fc_head.") for k in p0)
+    for want_flat, got in zip(jax_after, after):
+        err = _update_errors(p0, got, params_from_flax(want_flat, cfg.model))
+        assert err.mean().item() <= 5e-4
+        assert (err > 1e-3).float().mean().item() <= 0.05

@@ -163,8 +163,9 @@ def test_cli_train_flags_are_jax_flags_with_jax_defaults():
     assert ours.pop("fused_wms") is False
     assert set(ours) <= set(jax_defaults)
     assert {k: jax_defaults[k] for k in ours} == ours
-    # the loss zoo's flags (--out_dim, --L and --f come with the reduction heads)
+    # the loss zoo's flags, and the reduction heads' and streaming PCAs'
     assert {"loss", "margin_1", "margin_2", "lam", "msmining", "loss_dim"} <= set(ours)
+    assert {"reduction", "out_dim", "vlad_cores", "L", "f"} <= set(ours)
 
 
 def test_cli_train_runs_a_toy_city_epoch_on_the_cpu(tmp_path):

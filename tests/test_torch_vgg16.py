@@ -117,7 +117,10 @@ def test_params_from_flax_mapping_and_checks():
 
 
 def test_other_reductions_name_the_later_slice():
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        ModelConfig(reduction="1fc")
-    with pytest.raises(NotImplementedError, match="slice"):
-        ModelConfig(vlad_cores=0)
+    """Every reduction and ``vlad_cores=0`` construct (the heads against
+    JAX: ``tests/test_torch_heads.py``), and an unknown reduction raises."""
+    for reduction in ("none", "1fc", "2fc", "3fc", "pca", "spp"):
+        assert ModelConfig(reduction=reduction).reduction == reduction
+    assert ModelConfig(vlad_cores=0).descriptor_dim == 11 * 15 * 512
+    with pytest.raises(ValueError, match="unknown reduction"):
+        ModelConfig(reduction="4fc")
