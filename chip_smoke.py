@@ -16,9 +16,10 @@ failure:
    ring stages and shared memory, and (where cuobjdump is present) the wgmma
    (HGMMA for floating point, IGMMA for integers), TMA-load (UTMALDG) and
    mma.sync (HMMA, IMMA) instructions in each library: probe_gemm, winograd
-   and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA (int8
-   on wgmma), netvlad the TMA loads; wms must hold one kernel function (K3 is
-   one launch), and no topk kernel may spill;
+   and topk must hold HGMMA and UTMALDG, probe_gemm and int8_conv IGMMA and
+   no IMMA (int8 on wgmma; int8_conv fed by TMA), netvlad the TMA loads;
+   wms must hold one kernel function (K3 is one launch), and no topk kernel
+   may spill;
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
    plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
@@ -89,11 +90,32 @@ failure:
    search, squared distances within 1e-5 (the plain version's own fp32 error
    is printed beside), and time /search (embed of the queries and one K2
    launch);
-13. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
+13. serve_int8: the shipped int8-PTQ path (models/quant.py, flagship.py)
+   at the flagship's width from the trained npz: Q1 (the int8 implicit-GEMM
+   conv) and Q1_pool against their plain versions layer by layer at B=8,
+   both fed the same int8 input: every int8 map equal, conv5_3's fp32
+   output within 1 ulp, the packed stem equal to the 3x3 conv of the raw
+   channels, the pools equal; flagship.int8_gate (cosine > 0.999 to the
+   bf16 float path on calibration_images(n=8)); int8 at B=64 and 1,536 and
+   bf16 at 64 and 512 in turns, the model alone (CUDA events) and end to
+   end (DescriptorService.embed, uint8 in, numpy out) with the card's busy
+   share; Q1's per-layer times at B=64 (beside its bound, the plain
+   version, im2col + torch._int_mm and cuDNN's bf16 conv + bias + ReLU) and
+   at 1,536, Q1_pool's beside the plain pool and the library's amax over a
+   2x2 view (F.max_pool2d takes no int8 on CUDA); the int8 forward's other
+   steps timed one by one at 64 and 1,536 (the input's requant, the stem's
+   packed columns, the L2 norm and cast, K1); then `cli quant` from
+   32 PNGs written here (its scales equal to calibrate_scales'), `cli serve
+   --quant_scales` on 127.0.0.1, port 0, in a thread, over a 66,048-row
+   index (an fp16 pickle: 512 int8 descriptors and seeded unit rows, so
+   that /search streams through K2): /healthz, /embed (PNG bytes),
+   /embed_batch and /search equal to the in-process calls, exact Q1,
+   Q1_pool, K1 and K2 counts; then `cli bench --iters 3` (its JSON line);
+14. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
    K1 launch per batch, descriptors at cosine >= 0.999 to the standard
    configuration's and >= 0.99 to the fp32 plain model's, and the model's
    time per batch beside the standard configuration's, in turns;
-14. train: one toy-city epoch (120 poses, 180x240) of the flagship through
+15. train: one toy-city epoch (120 poses, 180x240) of the flagship through
    Trainer.train() from the trained weights: 2 tuples of 1+12+12 (B=50),
    Adam at 5e-6, hard mining 6+6, fused wms (K3), mining every 20 steps
    over a cache of 100, the eval hooks once (before the first step: the
@@ -110,11 +132,11 @@ failure:
    epoch is run whole a second time for the run-to-run floor: the resumed
    run must draw the same batches and end within 10x the floor (at least
    1e-6) of the uninterrupted run's last loss and parameters;
-15. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
+16. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
    (10 per forward: steps, mining embeds, evals), the same checks, the
    standard epoch's first batch within 1e-2 relative of the standard
    configuration's loss, and the step timed against it in turns;
-16. train_files: the same toy city written as the prep pipeline's tree
+17. train_files: the same toy city written as the prep pipeline's tree
    (shuffled/, anchors/, clusters/, PNGs) with the port's writer, and `cli
    train` from it on the host feed (no device image pool: decoded on 8
    threads, built ahead by the Prefetcher) for 20 steps (the anchor list cut
@@ -126,7 +148,7 @@ failure:
    run-to-run floor (at least 1e-6) of the uninterrupted run, on its
    batches; decode img/s (as written, and every row Paeth) and the host-fed
    step beside the pooled one;
-17. losses: the 29 losses that need no streaming-PCA state (all of
+18. losses: the 29 losses that need no streaming-PCA state (all of
    LOSS_NAMES but incremental_*) at B = 50 on the trained flagship's
    descriptors of a batch from a dense toy city (1,200 poses 0.79 m apart,
    so that the 12 positives are mostly distinct), once for (1,12,12) and
@@ -144,7 +166,7 @@ failure:
    the logs of their top 512 values; cuSOLVER's
    eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
    float64 (the port's solve: must converge on all);
-18. train_zoo: `cli train --toy_city` from the trained weights on the
+19. train_zoo: `cli train --toy_city` from the trained weights on the
    pooled path with no --loss (so wrd) for 20 steps, then 10 steps each of
    pairwise_distance_neg_eigenvalue (PN: two forwards, two backwards, two
    Adam updates a step) and quadruplet: steps, refreshes, exact K1 and
@@ -153,7 +175,7 @@ failure:
    beside the median interval between step calls; then each loss's step
    and the flagship's wms step (K3) on one batch in turns, on the device
    and on the host behind queued work;
-19. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
+20. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
    and vlad_cores=0's flattened map) from the trained backbone and a seeded
    head, B = 50: widths, finite, cosine >= 0.99 to the fp32 plain path on
    the card (pca projected by a StreamingPCA fitted on 600 images; its
@@ -162,7 +184,7 @@ failure:
    index images to 512-D, pads them to 66,048 rows and searches 64 queries
    (K2 at D = 512): 16 index images at rank 0, squared distances within
    1e-5 of |q|^2 of an fp64 search;
-20. train_heads: `cli train` at the flagship's width from the trained
+21. train_heads: `cli train` at the flagship's width from the trained
    weights: --reduction pca --loss incremental_residual_mm (6 steps) and
    --reduction none with it (the 32,768-wide loss PCA, 4 steps), both from
    a prep tree of a 1,200-pose city with mining windows of 600 images (more
@@ -176,18 +198,18 @@ failure:
    step time beside the interval between step calls and each refresh's
    PCA fits, the host's PCA update at each width and the (2, 525, 525)
    float64 eigensolve;
-21. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+22. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
    img/s;
-22. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+23. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-23. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+24. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -197,7 +219,7 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-24. write the whole report with the card's name and power limit to
+25. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -245,13 +267,13 @@ def phase_build(torch, report):
     kernels, and, where cuobjdump is present, how many HGMMA and IGMMA
     (wgmma, floating point and integer), UTMALDG (TMA load) and HMMA / IMMA
     (mma.sync) instructions each library's SASS holds: probe_gemm, winograd
-    and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA. No
-    topk kernel may spill."""
+    and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA,
+    int8_conv IGMMA and UTMALDG and no IMMA. No topk kernel may spill."""
     import shutil
 
     from soft_contrastive_learning_torch.ops import winograd as plain_winograd
     from soft_contrastive_learning_torch.ops.kernels import (
-        _build, netvlad, probe_gemm, topk, winograd)
+        _build, int8_conv, netvlad, probe_gemm, topk, winograd)
 
     seconds = _build.build()
     print(f"build: {_build.kernel_names()} in {seconds:.1f} s (0 = already built)")
@@ -284,6 +306,8 @@ def phase_build(torch, report):
                 fail(f"probe_gemm: int8 is not on integer wgmma alone ({sass})")
             if name == "netvlad" and not sass["UTMALDG"]:
                 fail(f"netvlad: the built library holds no TMA load ({sass})")
+            if name == "int8_conv" and (sass["IMMA"] or not (sass["IGMMA"] and sass["UTMALDG"])):
+                fail(f"int8_conv: Q1 is not on integer wgmma fed by TMA alone ({sass})")
         if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
             fail(f"topk: a kernel spills registers: {funcs}")
         if name == "wms" and len(funcs) != 1:
@@ -317,6 +341,12 @@ def phase_build(torch, report):
               f"{n} {plain_winograd.block_rows(h, w)}x{32 // plain_winograd.block_rows(h, w)}"
               for n, (h, w) in (("conv2", (90, 120)), ("conv3", (45, 60)), ("conv4", (22, 30)),
                                 ("conv5", (11, 15)))))
+    q1 = int8_conv._lib()
+    q1_tiles = {f"{bn}x{bk}": tuple(q1.scl_int8_conv_config(what, bn, bk) for what in (3, 2))
+                for bn, bk in ((64, 32), (64, 64), (128, 64), (128, 128), (256, 128))}
+    print(f"Q1: pixel tiles of {q1.scl_int8_conv_config(0, 0, 0)}x"
+          f"{q1.scl_int8_conv_config(1, 0, 0)}; (BN x BK): ring stages, dynamic shared memory: "
+          + ", ".join(f"{key} {st}, {sm}" for key, (st, sm) in q1_tiles.items()))
     k2 = topk._lib()
     k2_ring = {k: (k2.scl_topk_stages(k), k2.scl_topk_smem_bytes(k)) for k in (5, 128)}
     print("K2: clusters of 2 blocks sharing the query loads by TMA multicast, "
@@ -327,7 +357,8 @@ def phase_build(torch, report):
                                for k, (st, sm) in k2_ring.items()},
                            k1=dict(cluster=k1.scl_netvlad_cluster_blocks(), smem=k1_smem,
                                    resident_clusters=k1_active),
-                           k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem))
+                           k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem),
+                           q1={key: dict(stages=st, smem=sm) for key, (st, sm) in q1_tiles.items()})
 
 
 def vlad_inputs(torch, b, seed, logit_dtype=None):
@@ -458,7 +489,7 @@ def phase_k2(torch, report):
     torch.cuda.empty_cache()
 
 
-KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages")
+KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages", "Q1", "Q1_pool")
 
 
 class LaunchCounts:
@@ -466,6 +497,7 @@ class LaunchCounts:
     entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
 
     def __init__(self, report, path):
+        from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_conv, int8_pool
         from soft_contrastive_learning_torch.ops.kernels.netvlad import (
             netvlad_aggregate_cuda, netvlad_backward_cuda)
         from soft_contrastive_learning_torch.ops.kernels.probe_gemm import probe_gemm
@@ -477,7 +509,7 @@ class LaunchCounts:
         self.report, self.path = report, path
         self.wrappers = dict(zip(KERNEL_IDS, (
             netvlad_aggregate_cuda, netvlad_backward_cuda, topk_l2_cuda, wms_loss_cuda,
-            winograd_conv_cuda, probe_gemm, winograd_stage)))
+            winograd_conv_cuda, probe_gemm, winograd_stage, int8_conv, int8_pool)))
         for fn in self.wrappers.values():
             fn.launches = 0
 
@@ -488,7 +520,7 @@ class LaunchCounts:
         if any(count != expect.get(kid, 0) for kid, count in counts.items()):
             fail(f"{self.path}: kernel launches {counts}, expected {expect}")
         for kid, count in counts.items():
-            self.report[kid].setdefault("launches_by_path", {})[self.path] = count
+            self.report.setdefault(kid, {}).setdefault("launches_by_path", {})[self.path] = count
         return counts
 
 
@@ -633,6 +665,414 @@ def phase_serve(torch, np, report, shared):
                            model_ms_per_batch64=embed_ms, search=search)
     print(f"serve: embed {512 / e2e_s:.1f} img/s end to end (service.embed, 512 images), "
           f"model alone {64e3 / embed_ms:.1f} img/s ({embed_ms:.3f} ms per batch of 64)")
+
+
+def im2col_int_mm(torch, x, w_kn):
+    """The nearest library route to one Q1 layer: the im2col of int8 x
+    (B, H, W, C) by 9 shifted slices (the stem's packed columns as they
+    are), then ``torch._int_mm`` by the (K, F) weights, int32 out."""
+    b, h, w, c = x.shape
+    if w_kn.shape[0] == c:  # the stem's 1x1 conv of packed columns
+        cols = x.reshape(-1, c)
+    else:
+        p = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([p[:, r:r + h, s:s + w] for r in range(3) for s in range(3)],
+                         dim=3).reshape(-1, 9 * c)
+    return torch._int_mm(cols, w_kn)
+
+
+def q1_times(torch, stack, params, images, reps, yardsticks):
+    """Per layer of the int8 stack on ``images`` (uint8 on the card): Q1's
+    ms, its bound, and with ``yardsticks`` the plain version's ms (float64
+    conv), im2col + ``torch._int_mm`` and cuDNN's bf16 conv + bias + ReLU on
+    the same shape; per pool Q1_pool's ms, bound and (yardsticks) plain ms
+    and the library's (``amax`` over the 2x2 windows of a view)."""
+    import torch.nn.functional as F
+
+    from soft_contrastive_learning_torch.models.quant import CONV_NAMES, _images, _requant
+    from soft_contrastive_learning_torch.models.vgg16 import VGG_BLOCKS
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, stem_columns)
+    from soft_contrastive_learning_torch.perf import common
+
+    b = images.shape[0]
+    raw = _requant(_images(images) - stack.average_rgb, stack.scale_in)
+    x = raw
+    convs, pools = [], []
+    names = [n for specs in VGG_BLOCKS for n, _, _ in specs]
+    for i, layer in enumerate(stack.layers):
+        xin = stem_columns(x) if i == 0 else x
+        args = (layer["weight"], layer["mult"], layer["bias"], layer["inv_next"], layer["relu"],
+                layer["out_f32"])
+        _, h, w, c = xin.shape
+        f = layer["weight"].shape[0]
+        c_true = 3 if i == 0 else c
+        k = 9 * c_true
+        out_bytes = 4 if layer["out_f32"] else 1
+        bound, by = common.bound_ms(2.0 * b * h * w * k * f,
+                                    b * h * w * (c_true + f * out_bytes) + k * f, common.INT8_OPS)
+        row = dict(layer=CONV_NAMES[i], b=b, h=h, w=w, c=c_true, f=f,
+                   ms=common.time_ms(lambda: int8_conv(xin, *args), reps),
+                   bound_ms=bound, bound_by=by)
+        if yardsticks:
+            row["plain_ms"] = common.time_ms(lambda: int8_conv_plain(xin, *args), 1)
+            w_kn = layer["weight"].reshape(f, -1).t().contiguous()
+            row["library_ms"] = common.time_ms(lambda: im2col_int_mm(torch, xin, w_kn), reps)
+            conv = params[f"vgg16.{CONV_NAMES[i].replace('/', '.')}.weight"]
+            wb = conv.cuda().bfloat16()
+            bb = params[f"vgg16.{CONV_NAMES[i].replace('/', '.')}.bias"].cuda().bfloat16()
+            xb = (x if i == 0 else xin).permute(0, 3, 1, 2).bfloat16()
+            row["cudnn_bf16_ms"] = common.time_ms(
+                lambda: F.relu(F.conv2d(xb, wb, bb, padding=1)), reps)
+            del w_kn, wb, xb
+        convs.append(row)
+        y = int8_conv(xin, *args)
+        del xin
+        if layer["pool"]:
+            _, h, w, c = y.shape
+            bound, by = common.bound_ms(0.0, b * h * w * c + b * (h // 2) * (w // 2) * c)
+            prow = dict(after=names[i], b=b, h=h, w=w, c=c,
+                        ms=common.time_ms(lambda: int8_pool(y), reps), bound_ms=bound,
+                        bound_by=by)
+            if yardsticks:
+                prow["plain_ms"] = common.time_ms(lambda: int8_pool_plain(y), reps)
+                # the library's one call for it (F.max_pool2d refuses int8 on
+                # CUDA): amax over the 2x2 windows of a view of the map
+                prow["library_ms"] = common.time_ms(
+                    lambda: y[:, : h // 2 * 2, : w // 2 * 2].view(
+                        b, h // 2, 2, w // 2, 2, c).amax((2, 4)), reps)
+            pools.append(prow)
+            x = int8_pool(y)
+        else:
+            x = y
+        del y
+    return convs, pools
+
+
+def int8_forward_parts(torch, embedder, images, reps):
+    """ms of the int8 forward of ``images`` (uint8 on the card) and of each
+    of its steps on its own: the input's cast, centring and requant, the
+    stem's packed columns, Q1 and Q1_pool (the stack less those two), the
+    channel L2-norm with the cast to the compute dtype, and NetVLAD (K1)."""
+    from soft_contrastive_learning_torch.core.config import torch_dtype
+    from soft_contrastive_learning_torch.models.quant import _images, _requant
+    from soft_contrastive_learning_torch.models.vgg16 import l2_normalize
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import stem_columns
+    from soft_contrastive_learning_torch.perf import common
+
+    stack, dtype = embedder.stack, torch_dtype(embedder.cfg.compute_dtype)
+
+    def requant():
+        return _requant(_images(images) - stack.average_rgb, stack.scale_in)
+
+    with torch.inference_mode():  # as the forward runs
+        raw = requant()
+        fmap = stack(images)
+        feat = l2_normalize(fmap, dim=-1).to(dtype).float()
+        parts = dict(forward_ms=common.time_ms(lambda: embedder(images), reps),
+                     requant_ms=common.time_ms(requant, reps),
+                     stem_columns_ms=common.time_ms(lambda: stem_columns(raw), reps),
+                     stack_ms=common.time_ms(lambda: stack(images), reps),
+                     l2norm_cast_ms=common.time_ms(
+                         lambda: l2_normalize(fmap, dim=-1).to(dtype).float(), reps),
+                     netvlad_ms=common.time_ms(lambda: embedder.model.netvlad(feat), reps))
+    parts["stack_kernels_ms"] = parts["stack_ms"] - parts["requant_ms"] - parts["stem_columns_ms"]
+    return parts
+
+
+def phase_serve_int8(torch, np, report, shared):
+    """The shipped int8-PTQ serving path (models/quant.py, flagship.py) at
+    the flagship's width from the trained npz: Q1 and Q1_pool against their
+    plain versions layer by layer, the int8 gate, the rates beside bf16,
+    `cli quant`, then `cli serve --quant_scales` answering HTTP requests
+    (K2 on /search), then `cli bench`."""
+    import base64
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+
+    from soft_contrastive_learning_torch import cli, flagship
+    from soft_contrastive_learning_torch.models.quant import (
+        QuantizedConvStack, QuantizedEmbedder, _images, _quantize_weight, _requant,
+        calibrate_scales, load_scales)
+    from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, stem_columns)
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.serving import DescriptorService
+    from soft_contrastive_learning_torch.utils.io import save_img, save_pickle
+
+    t_phase = time.perf_counter()
+    cfg = flagship.flagship_model_config()
+    params = shared["params"]
+    calib = flagship.calibration_images(cfg, 8)
+    scales = calibrate_scales(params, calib, "cuda")
+    stack = QuantizedConvStack(params, scales, "cuda")
+
+    # 1. Q1 and Q1_pool against their plain versions, layer by layer, B = 8,
+    # both fed the same int8 input: the int8 maps equal, conv5_3's fp32 within
+    # 1 ulp (the same fp32 multiply and add), the pools equal; the packed stem
+    # equal to the plain 3x3 conv of the raw three channels
+    x = _requant(_images(calib, "cuda") - stack.average_rgb, stack.scale_in)
+    stem = stack.layers[0]
+    stem_k8, _ = _quantize_weight(params["vgg16.block1.conv1_1.weight"].cuda())
+    stem_args = (stem["mult"], stem["bias"], stem["inv_next"], stem["relu"], stem["out_f32"])
+    if not torch.equal(int8_conv(stem_columns(x), stem["weight"], *stem_args),
+                       int8_conv_plain(x, stem_k8, *stem_args)):
+        fail("Q1's packed stem differs from the plain 3x3 conv of the raw channels")
+    q1_err = 0.0
+    for i, layer in enumerate(stack.layers):
+        xin = stem_columns(x) if i == 0 else x
+        args = (layer["weight"], layer["mult"], layer["bias"], layer["inv_next"], layer["relu"],
+                layer["out_f32"])
+        got, want = int8_conv(xin, *args), int8_conv_plain(xin, *args)
+        torch.cuda.synchronize()
+        if layer["out_f32"]:
+            ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
+            q1_err = (got - want).abs().max().item()
+            if ulps > 1 or not torch.isfinite(got).all():
+                fail(f"Q1 conv5_3: its fp32 output {ulps} ulp from the plain version's")
+        elif not torch.equal(got, want):
+            fail(f"Q1 layer {i}: {int((got != want).sum())} int8 values differ from the plain "
+                 "version's")
+        if layer["pool"]:
+            x, want = int8_pool(got), int8_pool_plain(got)
+            torch.cuda.synchronize()
+            if not torch.equal(x, want):
+                fail(f"Q1_pool after layer {i}: {int((x != want).sum())} values differ")
+        else:
+            x = got
+    fmap = x
+    print(f"serve_int8: Q1 against its plain version at B=8, the trained stack's 13 layers: every "
+          f"int8 map equal, the packed stem equal to the 3x3 conv, conv5_3 fp32 max-abs "
+          f"{q1_err:.3g} (within 1 ulp); Q1_pool equal after each of the 4 blocks")
+    if not torch.equal(fmap, stack(calib)):
+        fail("serve_int8: the stack's conv5_3 map differs from the layer-by-layer run")
+
+    # 2. the gate: the int8 descriptor against the bf16 float path on the card
+    _, _, cos = flagship.int8_gate(cfg, params, calib, device="cuda")
+    print(f"serve_int8: int8_gate on calibration_images(n=8): cosine {cos:.6f} to the bf16 float "
+          f"path (threshold {flagship.INT8_COSINE_THRESHOLD})")
+
+    # 3. the rates: model alone (CUDA events) and end to end (DescriptorService.embed,
+    # uint8 in, numpy out), int8 and bf16 in turns, and the card's busy share
+    rng = np.random.default_rng(SEED + 11)
+    imgs = blocky_images(rng, flagship.SERVING_BATCH)
+    x_card = torch.from_numpy(imgs).cuda()
+    int8_embed = QuantizedEmbedder(cfg, params, scales=scales, device="cuda")
+    bf16_embed = flagship.float_forward(cfg, params, "cuda")
+    fns = {"int8": lambda b: int8_embed(x_card[:b]), "bf16": lambda b: bf16_embed(x_card[:b])}
+    batches = {("int8", "small"): 64, ("bf16", "small"): 64,
+               ("int8", "big"): flagship.SERVING_BATCH,
+               ("bf16", "big"): flagship.BF16_CONFIRM_BATCH}
+    model_ms = {key: [] for key in batches}
+    for size, reps in (("small", 10), ("big", 3)):
+        for prec in ("int8", "bf16", "bf16", "int8"):
+            b = batches[(prec, size)]
+            model_ms[(prec, size)].append(common.time_ms(lambda: fns[prec](b), reps))
+    rates = {}
+    for (prec, size), runs in model_ms.items():
+        b = batches[(prec, size)]
+        ms = statistics.mean(runs)
+        rates[f"{prec}_B{b}"] = dict(batch=b, model_ms=ms, model_runs=runs,
+                                     model_img_s=b * 1e3 / ms)
+    for size in ("small", "big"):
+        services = {}
+        for prec in ("int8", "bf16"):
+            b = batches[(prec, size)]
+            services[prec] = DescriptorService(
+                cfg, params, batch_size=b, quant_scales=scales if prec == "int8" else None)
+        for prec in ("int8", "bf16", "bf16", "int8"):
+            b = batches[(prec, size)]
+            n = 8 * b if size == "small" else b
+            row = rates[f"{prec}_B{b}"]
+            services[prec].embed(imgs[:b])  # warm
+            t0 = time.perf_counter()
+            out = services[prec].embed(imgs[:n])
+            wall = time.perf_counter() - t0
+            if out.shape != (n, cfg.descriptor_dim) or not np.isfinite(out).all():
+                fail(f"serve_int8: {prec} embed of {n} images gave {out.shape} or non-finite")
+            row.setdefault("e2e_runs", []).append(n / wall)
+            row["e2e_images"] = n
+            row["busy_share"] = row["model_ms"] * (n // b) / (1e3 * wall)
+        del services
+    for key, row in rates.items():
+        row["e2e_img_s"] = statistics.mean(row["e2e_runs"])
+        print(f"serve_int8: {key}: model alone {row['model_img_s']:.1f} img/s "
+              f"({row['model_ms']:.3f} ms a batch), end to end {row['e2e_img_s']:.1f} img/s "
+              f"(DescriptorService.embed of {row['e2e_images']} images), card busy "
+              f"{100 * row['busy_share']:.1f}%")
+    parts = {b: int8_forward_parts(torch, int8_embed, x_card[:b], reps)
+             for b, reps in ((64, 10), (flagship.SERVING_BATCH, 3))}
+    for b, part in parts.items():
+        print(f"serve_int8: the int8 forward at B={b}, {part['forward_ms']:.3f} ms: input "
+              f"requant {part['requant_ms']:.4f}, the stem's packed columns "
+              f"{part['stem_columns_ms']:.4f}, Q1 + Q1_pool {part['stack_kernels_ms']:.3f}, L2 "
+              f"norm + cast {part['l2norm_cast_ms']:.4f}, NetVLAD (K1) {part['netvlad_ms']:.4f}")
+    del x_card, int8_embed, bf16_embed
+    torch.cuda.empty_cache()
+
+    # Q1's rows: per layer at B = 64 (with the plain version, im2col +
+    # torch._int_mm and cuDNN's bf16 conv + bias + ReLU) and at SERVING_BATCH
+    conv64, pool64 = q1_times(torch, stack, params, torch.from_numpy(imgs[:64]).cuda(), 10, True)
+    conv_big, pool_big = q1_times(torch, stack, params, torch.from_numpy(imgs).cuda(), 3, False)
+    torch.cuda.empty_cache()
+    for row, big in zip(conv64, conv_big):
+        print(f"Q1 {row['layer']} {row['h']}x{row['w']} C={row['c']} F={row['f']}: B=64 "
+              f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_by']}; plain "
+              f"{row['plain_ms']:.3f}; im2col + _int_mm {row['library_ms']:.4f}; cuDNN bf16 "
+              f"{row['cudnn_bf16_ms']:.4f}), B={big['b']} {big['ms']:.3f} ms (bound "
+              f"{big['bound_ms']:.3f})")
+    for row, big in zip(pool64, pool_big):
+        print(f"Q1_pool after {row['after']} {row['h']}x{row['w']}x{row['c']}: B=64 "
+              f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"amax of a 2x2 view {row['library_ms']:.4f}), B={big['b']} {big['ms']:.3f} ms")
+
+    def total(rows, key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    report.setdefault("Q1", {}).update(
+        name="int8_conv", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/int8_conv.cu",
+        replaces="soft_contrastive_learning_tpu/models/quant.py:224",
+        max_abs_err=q1_err, ms=total(conv64, "ms"), plain_ms=total(conv64, "plain_ms"),
+        bound_ms=total(conv64, "bound_ms"), bound_by="operations",
+        library_ms=total(conv64, "library_ms"), cudnn_bf16_ms=total(conv64, "cudnn_bf16_ms"),
+        ms_big=total(conv_big, "ms"), bound_ms_big=total(conv_big, "bound_ms"),
+        per_layer=conv64, per_layer_big=conv_big)
+    report.setdefault("Q1_pool", {}).update(
+        name="int8_pool", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/int8_conv.cu",
+        replaces="soft_contrastive_learning_tpu/models/quant.py:239",
+        max_abs_err=0.0, ms=total(pool64, "ms"), plain_ms=total(pool64, "plain_ms"),
+        bound_ms=total(pool64, "bound_ms"), bound_by="bytes",
+        library_ms=total(pool64, "library_ms"), ms_big=total(pool_big, "ms"),
+        per_pool=pool64, per_pool_big=pool_big)
+    print(f"Q1: a forward's 13 launches at B=64 {report['Q1']['ms']:.3f} ms (bound "
+          f"{report['Q1']['bound_ms']:.3f}, operations; plain {report['Q1']['plain_ms']:.1f}; "
+          f"im2col + _int_mm {report['Q1']['library_ms']:.3f}; cuDNN bf16 conv + bias + ReLU "
+          f"{report['Q1']['cudnn_bf16_ms']:.3f}), at B={flagship.SERVING_BATCH} "
+          f"{report['Q1']['ms_big']:.3f} ms (bound {report['Q1']['bound_ms_big']:.3f})")
+
+    # 4. `cli quant` from PNGs written here, then `cli serve --quant_scales` on
+    # 127.0.0.1, port 0, over a 66,048-row index (so /search streams through K2)
+    work = Path(tempfile.mkdtemp(prefix="serve_int8_"))
+    png_dir = work / "pngs"
+    png_dir.mkdir()
+    index_imgs = shared["index_imgs"]
+    for i in range(32):
+        save_img(index_imgs[i], str(png_dir / f"{i:03d}.png"))
+    scales_path = work / "scales.json"
+    t0 = time.perf_counter()
+    if cli.main(["quant", "--image_dir", str(png_dir), "--checkpoint", str(TRAINED_PARAMS_PATH),
+                 "--out", str(scales_path), "--num_images", "32"]) != 0:
+        fail("serve_int8: cli quant failed")
+    quant_s = time.perf_counter() - t0
+    written = load_scales(str(scales_path))
+    want = calibrate_scales(params, index_imgs[:32].astype(np.float32), "cuda")
+    if set(written) != set(want) or any(abs(written[k] - want[k]) > 1e-6 * want[k]
+                                        for k in want):
+        fail(f"serve_int8: cli quant's scales {written} differ from calibrate_scales' {want}")
+
+    n_rows, dim = 66048, cfg.descriptor_dim
+    t0 = time.perf_counter()
+    writer = DescriptorService(cfg, params, batch_size=64, quant_scales=written)
+    rows = np.empty((n_rows, dim), np.float16)
+    rows[:512] = writer.embed(index_imgs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for s in range(512, n_rows, 4096):
+        e = min(s + 4096, n_rows)
+        v = torch.randn((e - s, dim), generator=gen, device="cuda")
+        rows[s:e] = (v / v.norm(dim=1, keepdim=True)).half().cpu().numpy()
+    del writer
+    index_path = work / "index.pickle"
+    save_pickle(rows, str(index_path))
+    del rows
+    index_s = time.perf_counter() - t0
+
+    counts = LaunchCounts(report, "serve_int8")
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args([
+        "serve", "--quant_scales", str(scales_path), "--index", str(index_path), "--host",
+        "127.0.0.1", "--port", "0", "--batch_size", "64"])
+    server = cli.build_server(args)
+    service = server.service
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    start_s = time.perf_counter() - t0
+
+    def post(path, body, ctype="application/json"):
+        req = urllib.request.Request(url + path, data=body, headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health != {"status": "ok", "backend": "cuda", "dim": dim}:
+            fail(f"serve_int8: /healthz answered {health}")
+        pngs = [(png_dir / f"{i:03d}.png").read_bytes() for i in range(8)]
+        t0 = time.perf_counter()
+        one = np.asarray(post("/embed", pngs[0], "image/png")["descriptor"], np.float32)
+        embed_ms = 1e3 * (time.perf_counter() - t0)
+        local = service.embed(index_imgs[:1])[0]
+        err_embed = float(np.abs(one - local).max())
+        batch_body = json.dumps({"images_b64": [base64.b64encode(p).decode()
+                                                for p in pngs[:4]]}).encode()
+        many = np.asarray(post("/embed_batch", batch_body)["descriptors"], np.float32)
+        err_batch = float(np.abs(many - service.embed(index_imgs[:4])).max())
+        query_imgs = np.concatenate([index_imgs[:4], blocky_images(rng, 4)])
+        query_pngs = pngs[:4]
+        for i, im in enumerate(query_imgs[4:]):
+            save_img(im, str(work / f"q{i}.png"))
+            query_pngs.append((work / f"q{i}.png").read_bytes())
+        search_body = json.dumps({"images_b64": [base64.b64encode(p).decode()
+                                                 for p in query_pngs], "k": 5}).encode()
+        t0 = time.perf_counter()
+        found = post("/search", search_body)
+        search_ms = 1e3 * (time.perf_counter() - t0)
+        local_d, local_i = service.search(query_imgs, k=5)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    torch.cuda.synchronize()
+    # 6 batches of 64 or fewer (3 requests, 3 in-process calls): 13 Q1, 4
+    # Q1_pool and 1 K1 launches each; 2 searches over 66,048 rows: K2
+    launches = counts.read({"K1": 6, "K2": 2, "Q1": 78, "Q1_pool": 24})
+    if err_embed > 1e-6 or err_batch > 1e-6:
+        fail(f"serve_int8: HTTP descriptors differ from the in-process embed ({err_embed}, "
+             f"{err_batch})")
+    http_i = np.asarray(found["indices"])
+    if not np.array_equal(http_i, local_i) or not (http_i[:4, 0] == np.arange(4)).all():
+        fail(f"serve_int8: /search ids {http_i[:, 0]} differ from the in-process search "
+             f"{local_i[:, 0]} or miss the index images")
+    print(f"serve_int8: cli quant of 32 PNGs {quant_s:.1f} s (scales equal to calibrate_scales'); "
+          f"index of {n_rows} x {dim} (fp16 pickle) written in {index_s:.1f} s; cli serve "
+          f"--quant_scales up in {start_s:.1f} s; /healthz ok, /embed {embed_ms:.1f} ms (max-abs "
+          f"{err_embed:.3g} to the in-process embed), /embed_batch of 4 ({err_batch:.3g}), "
+          f"/search of 8, k=5, {search_ms:.1f} ms: ids equal to the in-process search, the 4 "
+          f"index images at rank 0; launches {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # 5. `cli bench`, few iterations
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench", "--iters", "3"])
+    line = out.getvalue().strip().splitlines()[-1]
+    bench = json.loads(line)
+    if rc != 0 or bench["detail"].get("skipped") or len(bench["detail"]["configs"]) != 2 \
+            or not bench["value"]:
+        fail(f"serve_int8: cli bench: {line}")
+    print(f"serve_int8: cli bench --iters 3: {line}")
+    report["serve_int8"] = dict(
+        gate_cosine=cos, rates=rates, forward_parts=parts, quant_s=quant_s, index_s=index_s, server_start_s=start_s,
+        embed_request_ms=embed_ms, search_request_ms=search_ms, bench=bench,
+        seconds=time.perf_counter() - t_phase)
+    print(f"serve_int8: phase {report['serve_int8']['seconds']:.1f} s")
 
 
 def phase_serve_winograd(torch, np, report, shared):
@@ -3152,6 +3592,7 @@ def main() -> int:
     phase_probes(torch, report)
     shared: dict = {}  # what a later phase takes from an earlier one
     phase_serve(torch, np, report, shared)
+    phase_serve_int8(torch, np, report, shared)
     phase_serve_winograd(torch, np, report, shared)
     phase_train(torch, np, report, shared)
     phase_train_winograd(torch, np, report, shared)
@@ -3169,8 +3610,8 @@ def main() -> int:
     # K3, the 1fc /search for K2, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it
     paths = ("train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
-             "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve",
-             "probes")
+             "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
+             "serve", "probes")
     for kid in KERNEL_IDS:
         by_path = report[kid]["launches_by_path"]
         report[kid]["launches"] = next((by_path[p] for p in paths if by_path.get(p)), 0)
@@ -3194,6 +3635,10 @@ def main() -> int:
     print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],
                       "topn": report["topn"], "topn_250k": report["topn_250k"]}))
     print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))
+    print(json.dumps({"serve_int8": report["serve_int8"],
+                      "Q1_per_layer": report["Q1"]["per_layer"],
+                      "Q1_per_layer_big": report["Q1"]["per_layer_big"],
+                      "Q1_pool_per_pool": report["Q1_pool"]["per_pool"]}))
     print(json.dumps({"train": report["train"], "train_winograd": report["train_winograd"],
                       "K1_backward": report["K1_backward"],
                       "K4_backward": report["K4_backward"]}))

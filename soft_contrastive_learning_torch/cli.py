@@ -1,9 +1,13 @@
-"""Command line of the port: ``serve``, ``train``, ``infer``, ``topn`` and
-``roc``.
+"""Command line of the port: ``serve``, ``train``, ``infer``, ``topn``,
+``roc``, ``quant`` and ``bench``.
 
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
         --index features.pickle
+    python -m soft_contrastive_learning_torch.cli quant --image_dir pngs \
+        --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz --out scales.json
+    python -m soft_contrastive_learning_torch.cli serve --quant_scales scales.json
+    python -m soft_contrastive_learning_torch.cli bench
     python -m soft_contrastive_learning_torch.cli train \
         --img_root <prep>/downsized --shuffled_root <prep>/data/shuffled \
         --anchor_root <prep>/data/anchors --loc_ref_root <prep>/data/clusters
@@ -40,9 +44,18 @@ JAX's. A flagship npz loads only where its keys match the architecture
 npz that holds it. The Winograd
 configuration has no flag, as in ``scl-tpu``: pass
 ``ModelConfig(winograd=True)`` to ``DescriptorService`` or ``Trainer``.
-``train --fused_wms True`` (the port's only flag beyond ``scl-tpu``'s and
-``--device``) sets ``LossConfig.fused_wms``, which ``scl-tpu`` sets in code
-only. ``roc`` draws its figure with matplotlib, which a host may lack; the
+``train --fused_wms True`` sets ``LossConfig.fused_wms``, which ``scl-tpu``
+sets in code only; ``bench --iters`` sets the timed forwards per
+configuration (these two and ``--device`` are the port's only flags beyond
+``scl-tpu``'s). ``quant`` calibrates the int8-PTQ activation scales
+(``models/quant.py``) from the PNGs of ``--image_dir`` (JPEG and the other
+extensions JAX lists are refused by the port's decoder) and writes JAX's
+JSON; ``serve --quant_scales`` serves through the int8 stack (Q1 on the
+card: a build or launch failure fails the command, nothing falls back).
+``bench`` is the embed benchmark (``benchmark.py``); ``bench --train``
+(JAX's ``bench_train.py``) is refused: it needs ``async_mining``, the next
+item of ROADMAP.md's Queue 1. ``bench`` keeps the flags of JAX's train-loop
+benchmark with their defaults, and refuses any of them set otherwise. ``roc`` draws its figure with matplotlib, which a host may lack; the
 curves themselves are ``evaluation/roc.py::correctly_localized_curve``.
 """
 
@@ -125,7 +138,9 @@ def _load_model_params(cfg, checkpoint: str, default_artifact: bool, seed: int =
     return cfg, params
 
 
-def cmd_serve(args) -> int:
+def build_server(args):
+    """The ``serve`` command's service and HTTP server, built and not
+    started; the service is the server's ``service`` attribute."""
     from soft_contrastive_learning_torch.core.config import ModelConfig
     from soft_contrastive_learning_torch.serving import DescriptorService, serve
     from soft_contrastive_learning_torch.utils.io import load_pickle
@@ -134,14 +149,79 @@ def cmd_serve(args) -> int:
                       out_dim=args.out_dim)
     cfg, params = _load_model_params(cfg, args.checkpoint, default_artifact=True)
     index = np.asarray(load_pickle(args.index)) if args.index else None
+    quant_scales = None
+    if args.quant_scales:
+        from soft_contrastive_learning_torch.models.quant import load_scales
+
+        quant_scales = load_scales(args.quant_scales)
     service = DescriptorService(cfg, params, batch_size=args.batch_size, index=index,
-                                device=args.device)
+                                device=args.device, quant_scales=quant_scales)
     server = serve(service, host=args.host, port=args.port)
+    server.service = service
+    return server
+
+
+def cmd_serve(args) -> int:
+    server = build_server(args)
     print(f"serving on http://{args.host}:{server.server_address[1]}")
     try:
         server.serve_forever()
     finally:
         server.server_close()
+    return 0
+
+
+def cmd_quant(args) -> int:
+    """Calibrate the int8-PTQ activation scales (``models/quant.py``) from
+    sample images and write them as JSON for ``serve --quant_scales``."""
+    from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_device
+    from soft_contrastive_learning_torch.models.model import init_params
+    from soft_contrastive_learning_torch.models.quant import calibrate_scales, save_scales
+    from soft_contrastive_learning_torch.utils.cv import normalize_geometry
+    from soft_contrastive_learning_torch.utils.io import IMAGE_EXTENSIONS, load_img
+
+    cfg = ModelConfig(vlad_cores=args.vlad_cores, reduction=args.reduction,
+                      out_dim=args.out_dim)
+    if args.checkpoint:
+        cfg, params = _load_model_params(cfg, args.checkpoint, default_artifact=False)
+    elif not args.allow_random:
+        # scales calibrated on random weights are wrong for any real model
+        print("error: --checkpoint (npz or run dir) required; scales calibrated on randomly "
+              "initialized weights would silently mis-quantize a real model. Pass "
+              "--allow_random to override for smoke tests.")
+        return 1
+    else:
+        params = init_params(cfg, 0)
+    names = sorted(n for n in os.listdir(args.image_dir)
+                   if os.path.splitext(n)[1].lower() in IMAGE_EXTENSIONS)[: args.num_images]
+    if not names:
+        print(f"no images in {args.image_dir}")
+        return 1
+    imgs = np.stack([
+        normalize_geometry(load_img(os.path.join(args.image_dir, n)), cfg.image_height,
+                           cfg.image_width, keep_aspect=cfg.vlad_cores > 0)
+        for n in names]).astype(np.float32)
+    scales = calibrate_scales(params, imgs, resolve_device(args.device))
+    save_scales(scales, args.out)
+    print(f"calibrated {len(scales)} conv scales from {len(imgs)} images -> {args.out}")
+    return 0
+
+
+# flags of JAX's train-loop benchmark (bench_train.py) with their defaults
+BENCH_TRAIN_FLAGS = {"train": False, "tuples_per_batch": 2, "num_points": 600, "no_cache": False,
+                     "steps_per_dispatch": 1, "async_mining": False}
+
+
+def cmd_bench(args) -> int:
+    asked = [f"--{k}" for k, default in BENCH_TRAIN_FLAGS.items() if getattr(args, k) != default]
+    if asked:
+        raise SystemExit(
+            f"bench {' '.join(asked)}: the train-loop benchmark (JAX's bench_train.py) is not "
+            "ported: it runs the trainer with async_mining, the next item of ROADMAP.md's "
+            "Queue 1, and comes after it")
+    from soft_contrastive_learning_torch import benchmark
+
+    benchmark.main(["--iters", str(args.iters), "--device", args.device])
     return 0
 
 
@@ -355,8 +435,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8377)
+    p.add_argument("--quant_scales", default="",
+                   help="JSON of int8 PTQ activation scales (the quant command's output): "
+                        "serve with the int8 conv stack")
     p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("quant", help="calibrate int8 PTQ activation scales")
+    p.add_argument("--checkpoint", default="",
+                   help="training-run directory, flagship-layout params npz or TF1 export npz")
+    p.add_argument("--image_dir", required=True)
+    p.add_argument("--num_images", type=int, default=32)
+    p.add_argument("--out", required=True, help="output scales JSON")
+    p.add_argument("--allow_random", action="store_true",
+                   help="permit calibration without a checkpoint (smoke only)")
+    p.add_argument("--vlad_cores", type=int, default=64)
+    p.add_argument("--reduction", default="none")
+    p.add_argument("--out_dim", type=int, default=512)
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_quant)
+
+    p = sub.add_parser("bench", help="embedding-throughput benchmark")
+    # the train-loop benchmark's flags (bench_train.py): not ported yet, refused
+    # unless left at their defaults
+    p.add_argument("--train", action="store_true")
+    p.add_argument("--tuples_per_batch", type=int, default=BENCH_TRAIN_FLAGS["tuples_per_batch"])
+    p.add_argument("--num_points", type=int, default=BENCH_TRAIN_FLAGS["num_points"])
+    p.add_argument("--no_cache", action="store_true")
+    p.add_argument("--steps_per_dispatch", type=int,
+                   default=BENCH_TRAIN_FLAGS["steps_per_dispatch"])
+    p.add_argument("--async_mining", action="store_true")
+    p.add_argument("--iters", type=int, default=0,
+                   help="timed forwards per configuration (default: 120 int8, 30 bf16)")
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_bench)
 
     p = sub.add_parser("train", help="train the embedding network")
     _add_train_flags(p)

@@ -7,7 +7,9 @@ at 180x240, bf16 convs, raw 32,768-D descriptor, wms loss over 2 tuples of
 1+12+12 with Adam at 5e-6. ``use_kernels`` is the counterpart of
 ``use_pallas``: the NetVLAD aggregation goes through the hand-written CUDA
 kernel on a CUDA device. ``winograd`` has the JAX field's meaning;
-``packed_stem`` is not ported.
+``packed_stem`` (the TPU's width-packed stem, ``ops/packed_stem.py``) is
+refused at construction: it is not ported (the port's ROADMAP.md, Queue 1
+item 8).
 
 Every ``reduction`` (none | 1fc | 2fc | 3fc | pca | spp), ``vlad_cores=0``
 and all 33 losses construct. Two knobs raise ``NotImplementedError`` at
@@ -79,8 +81,14 @@ class ModelConfig:
     # packages send the same layers through that arithmetic. Same parameter
     # tree, so one set of weights serves both configurations.
     winograd: bool = False
+    # the TPU's width-packed stem (JAX ops/packed_stem.py): refused, not ported
+    packed_stem: bool = False
 
     def __post_init__(self):
+        if self.packed_stem:
+            raise NotImplementedError(
+                "packed_stem (the width-packed stem that fills the TPU's 128-lane tiles) is "
+                "not ported: ROADMAP.md, Queue 1 item 8 (time conv1_1 and conv1_2 first)")
         if self.reduction not in REDUCTIONS:
             raise ValueError(f"unknown reduction {self.reduction!r}; expected one of "
                              f"{REDUCTIONS}")

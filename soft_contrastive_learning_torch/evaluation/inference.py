@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Mapping, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +36,10 @@ class DescriptorExtractor:
     """EmbeddingNet on ``device`` with ``params`` (a state_dict, see
     ``models/weights.py``), fed fixed-size uint8 batches. ``portrait``
     swaps the input's height and width; ``raw_descriptor`` returns the
-    descriptor before the reduction head (``full_out``), else its output."""
+    descriptor before the reduction head (``full_out``), else its output.
+    With ``quant_scales`` (``models/quant.py``'s activation scales) it
+    embeds through ``QuantizedEmbedder``, the int8-PTQ conv stack (Q1 on a
+    CUDA device), with the weights quantized once here."""
 
     def __init__(
         self,
@@ -46,15 +49,22 @@ class DescriptorExtractor:
         device: str | torch.device = "cuda",
         portrait: bool = False,
         raw_descriptor: bool = True,
+        quant_scales: Optional[Mapping[str, float]] = None,
     ):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.portrait = portrait
         self.raw = raw_descriptor
-        model = EmbeddingNet(cfg)
-        model.load_state_dict(params)
-        self._embed = build_embed_step(model.to(self.device))
+        if quant_scales is not None:
+            from soft_contrastive_learning_torch.models.quant import QuantizedEmbedder
+
+            self._embed = QuantizedEmbedder(cfg, params, scales=dict(quant_scales),
+                                            device=self.device).embed
+        else:
+            model = EmbeddingNet(cfg)
+            model.load_state_dict(params)
+            self._embed = build_embed_step(model.to(self.device))
         self._pool = ThreadPoolExecutor(max_workers=8)  # decode threads for extract_files
 
     def extract_images(self, images: Sequence[np.ndarray]) -> np.ndarray:

@@ -3,7 +3,7 @@
 
 Protocol (JSON unless noted):
   GET  /healthz            -> {"status": "ok", "backend": "cuda"|"cpu", "dim": D}
-  POST /embed              -> body: PNG/JPEG bytes (Content-Type image/*)
+  POST /embed              -> body: PNG bytes (Content-Type image/*)
                               resp: {"descriptor": [...]}
   POST /embed_batch        -> body: {"images_b64": ["...", ...]}
                               resp: {"descriptors": [[...], ...]}
@@ -14,7 +14,11 @@ Protocol (JSON unless noted):
 ``/embed`` returns the raw descriptor with ``reduction`` ``none`` and
 ``pca`` (``pca`` whitening is the top-N sweep's, downstream), and the
 reduced output (FC, SPP) otherwise, as JAX's; ``dim`` says which.
-The index is copied to the device once. A search over more than
+Uploads are decoded by the port's PNG decoder (``utils/io.py::decode_img``,
+no OpenCV); JPEG and the other formats it refuses get a 400 with its
+reason. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
+``cli quant`` writes them) the service embeds through the int8-PTQ stack
+(Q1 on a CUDA device). The index is copied to the device once. A search over more than
 ``STREAM_MIN_ROWS`` rows with k <= 128 streams the index through K2
 (``ops/topk.py::topk_l2_streamed``); smaller ones take the dense path.
 """
@@ -34,17 +38,9 @@ from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_dev
 from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
 from soft_contrastive_learning_torch.ops.kernels.topk import MAX_K
 from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_streamed
+from soft_contrastive_learning_torch.utils.io import decode_img
 
 STREAM_MIN_ROWS = 65536  # as soft_contrastive_learning_tpu/serving.py:95
-
-
-def _decode_image(data: bytes) -> np.ndarray:
-    import cv2
-
-    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        raise ValueError("undecodable image payload")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 class DescriptorService:
@@ -58,12 +54,14 @@ class DescriptorService:
         batch_size: int = 16,
         index=None,  # (R, D) descriptor index: numpy array or tensor
         device: str | torch.device = "cuda",
+        quant_scales: Optional[Mapping[str, float]] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.extractor = DescriptorExtractor(cfg, params, batch_size=batch_size,
                                              device=self.device,
-                                             raw_descriptor=cfg.reduction in ("none", "pca"))
+                                             raw_descriptor=cfg.reduction in ("none", "pca"),
+                                             quant_scales=quant_scales)
         self.index: Optional[torch.Tensor] = None
         if index is not None:
             self.index = torch.as_tensor(index, dtype=torch.float32, device=self.device)
@@ -117,15 +115,15 @@ def make_handler(service: DescriptorService):
                 length = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(length)
                 if self.path == "/embed":
-                    desc = service.embed([_decode_image(raw)])[0]
+                    desc = service.embed([decode_img(raw, "upload")])[0]
                     self._send(200, {"descriptor": desc.tolist()})
                 elif self.path == "/embed_batch":
                     req = json.loads(raw)
-                    imgs = [_decode_image(base64.b64decode(s)) for s in req["images_b64"]]
+                    imgs = [decode_img(base64.b64decode(s), "upload") for s in req["images_b64"]]
                     self._send(200, {"descriptors": service.embed(imgs).tolist()})
                 elif self.path == "/search":
                     req = json.loads(raw)
-                    imgs = [_decode_image(base64.b64decode(s)) for s in req["images_b64"]]
+                    imgs = [decode_img(base64.b64decode(s), "upload") for s in req["images_b64"]]
                     d, i = service.search(imgs, int(req.get("k", 5)))
                     self._send(200, {"indices": i.tolist(), "distances": d.tolist()})
                 else:

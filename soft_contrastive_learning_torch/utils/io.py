@@ -9,7 +9,8 @@ header, every value kept as a string.
 Images are PNG only, read and written by the port's own codec on numpy and
 the standard library's ``zlib`` (no OpenCV or PIL, on any host):
 
-- ``load_img`` takes 8-bit gray, gray + alpha, RGB and RGBA, not interlaced,
+- ``load_img`` (a file) and ``decode_img`` (its bytes, as an HTTP upload
+  brings them) take 8-bit gray, gray + alpha, RGB and RGBA, not interlaced,
   with any of the five row filters, and returns RGB uint8 as
   ``cv2.imread(IMREAD_COLOR)`` followed by BGR -> RGB does: alpha dropped,
   gray repeated over the three channels. It checks every chunk's CRC and
@@ -219,10 +220,21 @@ def _unfilter(px: np.ndarray, types: np.ndarray) -> np.ndarray:
     return out
 
 
+# the file extensions an image directory is read for (JAX evaluation/parity.py's
+# list); the decoder refuses all but PNG
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
+
+
 def load_img(path: str) -> np.ndarray:
-    """Read a PNG file as an (H, W, 3) RGB uint8 array."""
+    """Read a PNG file as an (H, W, 3) RGB uint8 array (``decode_img``)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_img(f.read(), path)
+
+
+def decode_img(data: bytes, path: str = "image") -> np.ndarray:
+    """Decode PNG bytes as an (H, W, 3) RGB uint8 array; ``path`` names the
+    source in the reason a refused file is given (JPEG, palette, 16-bit and
+    Adam7 PNGs, anything else)."""
     if data[:3] == b"\xff\xd8\xff":
         raise ValueError(f"{path}: a JPEG file; the port decodes PNG only (it has no JPEG "
                          "decoder)")

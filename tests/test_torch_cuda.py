@@ -838,3 +838,81 @@ def test_incremental_loss_on_the_card_matches_float64(cuda, name):
     (v32, g32), (v64, g64) = res[torch.float32], res[torch.float64]
     assert abs(v32 - v64) <= 1e-5 * max(1.0, abs(v64))
     assert (g32 - g64).abs().max().item() <= 5e-4 * g64.abs().max().item()
+
+
+def _q1_inputs(device, b, h, w, c, f, taps, seed):
+    """Seeded int8 x (B, H, W, C) and K-major w (F, T, T, C) over the full
+    int8 range, and an epilogue's fp32 mult and bias at the trained stack's
+    magnitudes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=gen, device=device, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (f, taps, taps, c), generator=gen, device=device,
+                       dtype=torch.int8)
+    mult = torch.rand(f, generator=gen, device=device) * 4e-4 / c
+    bias = torch.randn(f, generator=gen, device=device)
+    return x, wt, mult, bias
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (2, 11, 15, 512, 512),   # conv5's map: a ragged tile in both directions
+    (2, 22, 30, 256, 512),   # conv4_1
+    (1, 45, 60, 128, 256),   # conv3_1
+    (1, 18, 24, 64, 128),    # C = 64 (BK 64), F = 128 (BN 128)
+    (3, 9, 17, 64, 64),      # BN 64, odd sizes
+    (1, 5, 7, 32, 64),       # BK 32, a map smaller than one tile
+])
+@pytest.mark.parametrize("out_f32,relu", [(False, True), (False, False), (True, False)])
+def test_q1_int8_conv_equals_its_plain_version(cuda, b, h, w, c, f, out_f32, relu):
+    """Q1 (implicit GEMM on integer wgmma fed by TMA, SAME padding by TMA's
+    zero fill, the epilogue fused) against int8_conv_plain: the int8 maps
+    equal, the fp32 output equal (the same fp32 multiply and add)."""
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain)
+
+    x, wt, mult, bias = _q1_inputs(cuda, b, h, w, c, f, 3, b + h + w + c + f)
+    inv = float(np.float32(1.0 / 0.05))
+    got = int8_conv(x, wt, mult, bias, inv, relu, out_f32)
+    want = int8_conv_plain(x, wt, mult, bias, inv, relu, out_f32)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape == (b, h, w, f)
+    if out_f32:
+        assert torch.equal(got, want), (got - want).abs().max().item()
+    else:
+        assert torch.equal(got, want), (got != want).sum().item()
+        assert got.abs().max().item() > 0
+
+
+def test_q1_stem_columns_through_the_kernel(cuda):
+    """The stem (C = 3): packed 3x3 columns through Q1 as a 1x1 conv (BK 32)
+    equal the plain 3x3 conv of the raw three channels."""
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain, stem_columns, stem_weight)
+
+    x, wt, mult, bias = _q1_inputs(cuda, 2, 13, 21, 3, 64, 3, 11)
+    inv = float(np.float32(1.0 / 0.02))
+    got = int8_conv(stem_columns(x), stem_weight(wt), mult, bias, inv, True, False)
+    want = int8_conv_plain(x, wt, mult, bias, inv, True, False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got != want).sum().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 180, 240, 64), (3, 11, 15, 512), (1, 45, 60, 256)])
+def test_q1_pool_equals_its_plain_version(cuda, shape):
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_pool, int8_pool_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randint(-128, 128, shape, generator=gen, device=cuda, dtype=torch.int8)
+    got = int8_pool(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_pool_plain(x))
+
+
+def test_q1_refuses_what_it_does_not_take(cuda):
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_conv, int8_pool
+
+    x, wt, mult, bias = _q1_inputs(cuda, 1, 8, 8, 48, 64, 3, 3)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int8_conv(x, wt, mult, bias, 1.0, True, False)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_pool(torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=cuda))

@@ -66,7 +66,10 @@ EVAL_SLICE = ("utils/io.py", "utils/experiments.py", "data/pipeline.py", "data/c
               "evaluation/roc.py", "train/trainer.py", "cli.py",
               # the streaming PCAs and the heads
               "pca/incremental.py", "pca/async_updater.py", "losses/incremental.py",
-              "models/heads.py", "train/mining_manager.py")
+              "models/heads.py", "train/mining_manager.py",
+              # the int8-PTQ serving path: its HTTP upload decodes without OpenCV
+              "models/quant.py", "ops/kernels/int8_conv.py", "flagship.py", "benchmark.py",
+              "serving.py")
 
 
 @pytest.mark.parametrize("module", EVAL_SLICE)
@@ -85,7 +88,7 @@ def test_the_file_pipeline_imports_no_image_or_plot_library(module):
 
 def test_every_kernel_source_exports_its_c_entry_points():
     names = _build.kernel_names()
-    assert names == ["netvlad", "probe_gemm", "topk", "winograd", "wms"]
+    assert names == ["int8_conv", "netvlad", "probe_gemm", "topk", "winograd", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
     assert "int scl_topk_l2(" in text["topk"] and "int scl_topk_num_lists(" in text["topk"]
@@ -121,6 +124,14 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert not any(lib in t.lower() for t in (gemm, sm90) for lib in ("cublas", "cudnn", "cutlass",
                                                                        "torch"))
     assert all("scl_cuda_error_string" in t for t in text.values())
+    # Q1's int8 conv is its own: an implicit GEMM on integer wgmma, the input
+    # gathered tap by tap as 4-D TMA boxes (no im2col), and Q1_pool beside it
+    q1 = text["int8_conv"]
+    assert "int scl_int8_conv(" in q1 and "int scl_int8_pool(" in q1
+    assert "wgmma_m64n256k32_s8" in q1 and "tma_load_4d" in q1 and "setmaxnreg" in q1
+    assert "rintf" in q1 and "__fmul_rn" in q1 and "__fadd_rn" in q1 and "roundf" not in q1
+    assert q1.count("__global__") == 2 and "mma_sync" not in q1
+    assert not any(lib in q1.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
 
 
 def test_build_targets_hopper_and_stays_in_the_checkout():

@@ -9,6 +9,7 @@ import threading
 import urllib.error
 import urllib.request
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -162,6 +163,9 @@ def test_cli_serve_flags():
     args = build_parser().parse_args(["serve", "--index", "f.pickle", "--batch_size", "8"])
     assert (args.index, args.batch_size, args.device, args.port) == ("f.pickle", 8, "cuda", 8377)
     assert args.vlad_cores == 64 and args.reduction == "none"
+    assert args.quant_scales == ""
+    args = build_parser().parse_args(["serve", "--quant_scales", "s.json", "--device", "cpu"])
+    assert (args.quant_scales, args.device) == ("s.json", "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -213,6 +217,32 @@ def test_http_embed_batch_and_search(server_url):
     assert np.asarray(payload["distances"]).shape == (3, 2)
 
 
+def test_http_upload_decodes_without_opencv(server_url, monkeypatch, tmp_path):
+    """The upload decoder is the port's PNG codec: with cv2 unimportable, a
+    PNG posted to the live server returns JAX's descriptor, and a JPEG gets
+    a 400 with the decoder's reason."""
+    import cv2
+
+    from soft_contrastive_learning_torch.utils.io import save_img
+
+    url, imgs, index = server_url
+    ok, jpeg = cv2.imencode(".jpg", imgs[0])
+    assert ok
+    monkeypatch.setitem(sys.modules, "cv2", None)  # makes `import cv2` fail
+    path = str(tmp_path / "up.png")
+    save_img(imgs[0], path)
+    with open(path, "rb") as f:
+        png = f.read()
+    status, payload = _post(url + "/embed", png, "image/png")
+    assert status == 200
+    np.testing.assert_allclose(np.asarray(payload["descriptor"]), index[0], atol=ATOL)
+    status, payload = _post(url + "/embed", jpeg.tobytes(), "image/jpeg")
+    assert status == 400 and "JPEG" in payload["error"] and "PNG only" in payload["error"]
+    body = json.dumps({"images_b64": [base64.b64encode(jpeg.tobytes()).decode()]}).encode()
+    status, payload = _post(url + "/embed_batch", body)
+    assert status == 400 and "JPEG" in payload["error"]
+
+
 def test_http_embed_and_errors(server_url):
     url, imgs, index = server_url
     status, payload = _post(url + "/embed", _png(imgs[0]), "image/png")
@@ -220,3 +250,64 @@ def test_http_embed_and_errors(server_url):
     np.testing.assert_allclose(np.asarray(payload["descriptor"]), index[0], atol=ATOL)
     assert _post(url + "/embed", b"not an image", "image/png")[0] == 400
     assert _post(url + "/nope", b"{}")[0] == 404
+
+
+@pytest.fixture(scope="module")
+def quant_services():
+    """JAX's service and the port's with the same int8 scales (JAX's
+    calibration on the trained weights), fp32 heads, at 64x80. JAX's
+    service runs its ``quantized_embed`` eagerly, as tests/test_quant.py
+    runs it; its jitted embed is kept beside it (``jitted``): under jit
+    XLA's CPU backend contracts the dequant's multiply and add, which flips
+    int8 ties (tests/test_torch_quant.py), so the jitted descriptors sit at
+    row cosine ~0.9999 to JAX's own eager ones, and to the port's."""
+    from soft_contrastive_learning_tpu.models.quant import calibrate_scales, quantized_embed
+
+    jcfg = JaxModelConfig(image_height=H, image_width=W, compute_dtype="float32",
+                          use_pallas=False)
+    jparams = flagship.load_trained_params(jcfg)
+    rng = np.random.default_rng(6)
+    imgs = rng.integers(0, 256, (9, H, W, 3), dtype=np.uint8)
+    scales = calibrate_scales(jparams, imgs[:4].astype(np.float32))
+
+    def jax_service(index=None):
+        svc = JaxDescriptorService(jcfg, jparams, batch_size=4, index=index,
+                                   quant_scales=scales)
+        jitted = svc.extractor._embed
+        svc.extractor._embed = lambda p, x: quantized_embed(jcfg, p, scales, x)
+        return svc, jitted
+
+    index = np.asarray(jax_service()[0].embed(imgs[:6]))
+    svc, jitted = jax_service(index)
+    cfg = ModelConfig(image_height=H, image_width=W, compute_dtype="float32")
+    service = DescriptorService(cfg, load_trained_params(cfg=cfg), batch_size=4, index=index,
+                                device="cpu", quant_scales=scales)
+    return svc, service, imgs, (jparams, jitted)
+
+
+def _row_cos(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def test_quantized_service_matches_jax(quant_services):
+    """``quant_scales``: the port's int8 service against JAX's with the same
+    scales: the same width, row cosine >= 0.99999; against JAX's jitted
+    embed as close as JAX's own eager embed is (within 1e-9)."""
+    jax_service, service, imgs, (jparams, jitted) = quant_services
+    got = service.embed(imgs)
+    want = jax_service.embed(imgs)
+    assert service.embed_dim == jax_service.embed_dim == got.shape[1] == 64 * 512
+    assert _row_cos(got, want).min() >= 0.99999
+    jit_full = np.asarray(jitted(jparams, jnp.asarray(imgs[:4]))[1])
+    assert (_row_cos(got[:4], jit_full) >= _row_cos(want[:4], jit_full) - 1e-9).all()
+
+
+@pytest.mark.parametrize("stream_min_rows", [65536, 4])
+def test_quantized_search_matches_jax_on_both_branches(quant_services, monkeypatch,
+                                                       stream_min_rows):
+    jax_service, service, imgs, _ = quant_services
+    monkeypatch.setattr(serving, "STREAM_MIN_ROWS", stream_min_rows)
+    got_d, got_i = service.search(imgs, k=3)
+    np.testing.assert_array_equal(got_i, np.asarray(jax_service.search(imgs, k=3)[1]))
+    np.testing.assert_array_equal(got_i[:6, 0], np.arange(6))
