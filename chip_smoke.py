@@ -17,7 +17,9 @@ failure:
    (HGMMA for floating point, IGMMA for integers), TMA-load (UTMALDG) and
    mma.sync (HMMA, IMMA) instructions in each library: probe_gemm, winograd
    and topk must hold HGMMA and UTMALDG, probe_gemm and int8_conv IGMMA and
-   no IMMA (int8 on wgmma; int8_conv fed by TMA), netvlad the TMA loads;
+   no IMMA (int8 on wgmma; int8_conv fed by TMA loads and draining its
+   output by TMA stores, UTMASTG), netvlad the TMA loads; Q1's tile shapes
+   per layer (ring stages, shared memory, resident weights) and Q1_stem's;
    wms must hold one kernel function (K3 is one launch), and no topk kernel
    may spill;
 2. print the card's name and power limit (nvidia-smi);
@@ -91,26 +93,29 @@ failure:
    is printed beside), and time /search (embed of the queries and one K2
    launch);
 13. serve_int8: the shipped int8-PTQ path (models/quant.py, flagship.py)
-   at the flagship's width from the trained npz: Q1 (the int8 implicit-GEMM
-   conv) and Q1_pool against their plain versions layer by layer at B=8,
-   both fed the same int8 input: every int8 map equal, conv5_3's fp32
-   output within 1 ulp, the packed stem equal to the 3x3 conv of the raw
-   channels, the pools equal; flagship.int8_gate (cosine > 0.999 to the
+   at the flagship's width from the trained npz: Q1_stem (conv1_1 with the
+   input's requant and 3x3 gather) against its plain version on the raw
+   images, uint8 and fp32, and Q1 (the persistent int8 implicit-GEMM conv)
+   and Q1_pool against theirs layer by layer at B=8, both fed the same int8
+   input: every int8 map equal, conv5_3's fp32 output within 1 ulp, the
+   pools equal; flagship.int8_gate (cosine > 0.999 to the
    bf16 float path on calibration_images(n=8)); int8 at B=64 and 1,536 and
    bf16 at 64 and 512 in turns, the model alone (CUDA events) and end to
    end (DescriptorService.embed, uint8 in, numpy out) with the card's busy
    share; Q1's per-layer times at B=64 (beside its bound, the plain
    version, im2col + torch._int_mm and cuDNN's bf16 conv + bias + ReLU) and
-   at 1,536, Q1_pool's beside the plain pool and the library's amax over a
-   2x2 view (F.max_pool2d takes no int8 on CUDA); the int8 forward's other
-   steps timed one by one at 64 and 1,536 (the input's requant, the stem's
-   packed columns, the L2 norm and cast, K1); then `cli quant` from
+   at 1,536, Q1_stem's beside its own bound (3 input bytes a pixel, 64 out)
+   and plain version, Q1_pool's beside the plain pool and the library's amax
+   over a 2x2 view (F.max_pool2d takes no int8 on CUDA); the int8 forward's
+   steps timed one by one at 64 and 1,536 (Q1_stem, Q1 + Q1_pool, the L2
+   norm and cast, K1); then `cli quant` from
    32 PNGs written here (its scales equal to calibrate_scales'), `cli serve
    --quant_scales` on 127.0.0.1, port 0, in a thread, over a 66,048-row
    index (an fp16 pickle: 512 int8 descriptors and seeded unit rows, so
    that /search streams through K2): /healthz, /embed (PNG bytes),
    /embed_batch and /search equal to the in-process calls, exact Q1,
-   Q1_pool, K1 and K2 counts; then `cli bench --iters 3` (its JSON line);
+   Q1_stem, Q1_pool, K1 and K2 counts; then `cli bench --iters 3` (its JSON
+   line);
 14. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
    K1 launch per batch, descriptors at cosine >= 0.999 to the standard
    configuration's and >= 0.99 to the fp32 plain model's, and the model's
@@ -260,15 +265,23 @@ def eighths(torch, gen, shape, out=None, rows_per_chunk=2048):
     return out
 
 
+# Q1's layers of the flagship (conv1_2 .. conv5_3): (C, F, fp32 out)
+Q1_LAYERS = {"conv1_2": (64, 64, False), "conv2_1": (64, 128, False),
+             "conv2_2": (128, 128, False), "conv3_1": (128, 256, False),
+             "conv3_x": (256, 256, False), "conv4_1": (256, 512, False),
+             "conv4_x": (512, 512, False), "conv5_3": (512, 512, True)}
+
+
 def phase_build(torch, report):
     """Build every kernel library (one nvcc per source, all at once), then
     print per kernel function what ptxas said (registers, spills, static
     shared memory), the dynamic shared memory and cluster of the rebuilt
     kernels, and, where cuobjdump is present, how many HGMMA and IGMMA
     (wgmma, floating point and integer), UTMALDG (TMA load) and HMMA / IMMA
-    (mma.sync) instructions each library's SASS holds: probe_gemm, winograd
-    and topk must hold HGMMA and UTMALDG, probe_gemm IGMMA and no IMMA,
-    int8_conv IGMMA and UTMALDG and no IMMA. No topk kernel may spill."""
+    (mma.sync) and UTMASTG (TMA store) instructions each library's SASS
+    holds: probe_gemm, winograd and topk must hold HGMMA and UTMALDG,
+    probe_gemm IGMMA and no IMMA, int8_conv IGMMA, UTMALDG and UTMASTG and no
+    IMMA. No topk kernel may spill."""
     import shutil
 
     from soft_contrastive_learning_torch.ops import winograd as plain_winograd
@@ -297,7 +310,8 @@ def phase_build(torch, report):
         if cuobjdump:
             text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                                   capture_output=True, text=True, timeout=120).stdout
-            sass = {op: text.count(op) for op in ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")}
+            sass = {op: text.count(op)
+                    for op in ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "HMMA", "IMMA")}
             print(f"sass {name}: {sass}")
             if name in ("probe_gemm", "winograd", "topk") and not (sass["HGMMA"]
                                                                    and sass["UTMALDG"]):
@@ -306,8 +320,10 @@ def phase_build(torch, report):
                 fail(f"probe_gemm: int8 is not on integer wgmma alone ({sass})")
             if name == "netvlad" and not sass["UTMALDG"]:
                 fail(f"netvlad: the built library holds no TMA load ({sass})")
-            if name == "int8_conv" and (sass["IMMA"] or not (sass["IGMMA"] and sass["UTMALDG"])):
-                fail(f"int8_conv: Q1 is not on integer wgmma fed by TMA alone ({sass})")
+            if name == "int8_conv" and (sass["IMMA"] or not (
+                    sass["IGMMA"] and sass["UTMALDG"] and sass["UTMASTG"])):
+                fail(f"int8_conv: Q1 is not on integer wgmma fed by TMA loads, stored by TMA, "
+                     f"alone ({sass})")
         if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
             fail(f"topk: a kernel spills registers: {funcs}")
         if name == "wms" and len(funcs) != 1:
@@ -342,11 +358,24 @@ def phase_build(torch, report):
               for n, (h, w) in (("conv2", (90, 120)), ("conv3", (45, 60)), ("conv4", (22, 30)),
                                 ("conv5", (11, 15)))))
     q1 = int8_conv._lib()
-    q1_tiles = {f"{bn}x{bk}": tuple(q1.scl_int8_conv_config(what, bn, bk) for what in (3, 2))
-                for bn, bk in ((64, 32), (64, 64), (128, 64), (128, 128), (256, 128))}
-    print(f"Q1: pixel tiles of {q1.scl_int8_conv_config(0, 0, 0)}x"
-          f"{q1.scl_int8_conv_config(1, 0, 0)}; (BN x BK): ring stages, dynamic shared memory: "
-          + ", ".join(f"{key} {st}, {sm}" for key, (st, sm) in q1_tiles.items()))
+    q1_tiles = {}
+    for layer, (c, f, f32) in Q1_LAYERS.items():
+        th, tw, bn, bk, cons = int8_conv.tile_shape(c, f, f32)
+        stages, smem, _, per_sm, resident = (
+            q1.scl_int8_conv_config(what, th, bn, bk, int(f32), cons, c) for what in range(5))
+        q1_tiles[layer] = dict(tile=(th, tw, bn, bk), consumers=cons, stages=stages, smem=smem,
+                               blocks_per_sm=per_sm, resident_weights=bool(resident))
+    stem_stages, stem_smem, stem_th, stem_tw, stem_f, stem_cons = (
+        q1.scl_int8_stem_config(what) for what in range(6))
+    q1_tiles["conv1_1 (Q1_stem)"] = dict(tile=(stem_th, stem_tw, stem_f, 32), consumers=stem_cons,
+                                         stages=stem_stages, smem=stem_smem,
+                                         blocks_per_sm=3 - stem_cons, resident_weights=True)
+    print("Q1 per layer (TH x TW pixels by BN channels, BK a step; consumer warpgroups, blocks "
+          "an SM, ring stages, dynamic shared memory, resident weights): " + "; ".join(
+              f"{layer} {'x'.join(map(str, t['tile'][:2]))} by {t['tile'][2]}, BK {t['tile'][3]}: "
+              f"{t['consumers']}, {t['blocks_per_sm']}, "
+              f"{t['stages']}, {t['smem']}, {t['resident_weights']}"
+              for layer, t in q1_tiles.items()))
     k2 = topk._lib()
     k2_ring = {k: (k2.scl_topk_stages(k), k2.scl_topk_smem_bytes(k)) for k in (5, 128)}
     print("K2: clusters of 2 blocks sharing the query loads by TMA multicast, "
@@ -358,7 +387,7 @@ def phase_build(torch, report):
                            k1=dict(cluster=k1.scl_netvlad_cluster_blocks(), smem=k1_smem,
                                    resident_clusters=k1_active),
                            k4=dict(cluster=plain_winograd.CLUSTER, smem=k4_smem),
-                           q1={key: dict(stages=st, smem=sm) for key, (st, sm) in q1_tiles.items()})
+                           q1=q1_tiles)
 
 
 def vlad_inputs(torch, b, seed, logit_dtype=None):
@@ -489,7 +518,8 @@ def phase_k2(torch, report):
     torch.cuda.empty_cache()
 
 
-KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages", "Q1", "Q1_pool")
+KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages", "Q1", "Q1_pool",
+              "Q1_stem")
 
 
 class LaunchCounts:
@@ -497,7 +527,8 @@ class LaunchCounts:
     entry, read by ``read()`` into ``report[kernel]['launches_by_path']``."""
 
     def __init__(self, report, path):
-        from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_conv, int8_pool
+        from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+            int8_conv, int8_pool, int8_stem)
         from soft_contrastive_learning_torch.ops.kernels.netvlad import (
             netvlad_aggregate_cuda, netvlad_backward_cuda)
         from soft_contrastive_learning_torch.ops.kernels.probe_gemm import probe_gemm
@@ -509,7 +540,7 @@ class LaunchCounts:
         self.report, self.path = report, path
         self.wrappers = dict(zip(KERNEL_IDS, (
             netvlad_aggregate_cuda, netvlad_backward_cuda, topk_l2_cuda, wms_loss_cuda,
-            winograd_conv_cuda, probe_gemm, winograd_stage, int8_conv, int8_pool)))
+            winograd_conv_cuda, probe_gemm, winograd_stage, int8_conv, int8_pool, int8_stem)))
         for fn in self.wrappers.values():
             fn.launches = 0
 
@@ -669,65 +700,75 @@ def phase_serve(torch, np, report, shared):
 
 def im2col_int_mm(torch, x, w_kn):
     """The nearest library route to one Q1 layer: the im2col of int8 x
-    (B, H, W, C) by 9 shifted slices (the stem's packed columns as they
-    are), then ``torch._int_mm`` by the (K, F) weights, int32 out."""
+    (B, H, W, C) by 9 shifted slices, then ``torch._int_mm`` by the (K, F)
+    weights, int32 out."""
     b, h, w, c = x.shape
-    if w_kn.shape[0] == c:  # the stem's 1x1 conv of packed columns
-        cols = x.reshape(-1, c)
-    else:
-        p = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-        cols = torch.cat([p[:, r:r + h, s:s + w] for r in range(3) for s in range(3)],
-                         dim=3).reshape(-1, 9 * c)
+    p = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([p[:, r:r + h, s:s + w] for r in range(3) for s in range(3)],
+                     dim=3).reshape(-1, 9 * c)
     return torch._int_mm(cols, w_kn)
 
 
+def stem_args(stack):
+    """Q1_stem's arguments after the images, from a QuantizedConvStack."""
+    stem = stack.layers[0]
+    return (stack.average_rgb, stack.inv_in, stem["weight"], stem["mult"], stem["bias"],
+            stem["inv_next"], stem["relu"])
+
+
 def q1_times(torch, stack, params, images, reps, yardsticks):
-    """Per layer of the int8 stack on ``images`` (uint8 on the card): Q1's
-    ms, its bound, and with ``yardsticks`` the plain version's ms (float64
-    conv), im2col + ``torch._int_mm`` and cuDNN's bf16 conv + bias + ReLU on
-    the same shape; per pool Q1_pool's ms, bound and (yardsticks) plain ms
-    and the library's (``amax`` over the 2x2 windows of a view)."""
+    """Q1_stem's row on ``images`` (uint8 on the card: ms, bound, with
+    ``yardsticks`` the plain version's ms), then per later layer of the int8
+    stack Q1's ms, its bound, and with ``yardsticks`` the plain version's ms
+    (float64 conv), im2col + ``torch._int_mm`` and cuDNN's bf16 conv + bias
+    + ReLU on the same shape; per pool Q1_pool's ms, bound and (yardsticks)
+    plain ms and the library's (``amax`` over the 2x2 windows of a view)."""
     import torch.nn.functional as F
 
-    from soft_contrastive_learning_torch.models.quant import CONV_NAMES, _images, _requant
+    from soft_contrastive_learning_torch.models.quant import CONV_NAMES
     from soft_contrastive_learning_torch.models.vgg16 import VGG_BLOCKS
     from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
-        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, stem_columns)
+        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, int8_stem, int8_stem_plain)
     from soft_contrastive_learning_torch.perf import common
 
-    b = images.shape[0]
-    raw = _requant(_images(images) - stack.average_rgb, stack.scale_in)
-    x = raw
+    b, h, w, _ = images.shape
+    sargs = stem_args(stack)
+    f = sargs[2].shape[0]
+    # the stem reads 3 bytes a pixel and writes F: bound by its bytes
+    bound, by = common.bound_ms(2.0 * b * h * w * 27 * f, b * h * w * (3 + f) + 32 * f,
+                                common.INT8_OPS)
+    stem_row = dict(layer=CONV_NAMES[0], b=b, h=h, w=w, c=3, f=f,
+                    ms=common.time_ms(lambda: int8_stem(images, *sargs), reps),
+                    bound_ms=bound, bound_by=by)
+    if yardsticks:
+        stem_row["plain_ms"] = common.time_ms(lambda: int8_stem_plain(images, *sargs), reps)
+    x = int8_stem(images, *sargs)
     convs, pools = [], []
     names = [n for specs in VGG_BLOCKS for n, _, _ in specs]
-    for i, layer in enumerate(stack.layers):
-        xin = stem_columns(x) if i == 0 else x
+    for i, layer in enumerate(stack.layers[1:], start=1):
         args = (layer["weight"], layer["mult"], layer["bias"], layer["inv_next"], layer["relu"],
                 layer["out_f32"])
-        _, h, w, c = xin.shape
+        _, h, w, c = x.shape
         f = layer["weight"].shape[0]
-        c_true = 3 if i == 0 else c
-        k = 9 * c_true
         out_bytes = 4 if layer["out_f32"] else 1
-        bound, by = common.bound_ms(2.0 * b * h * w * k * f,
-                                    b * h * w * (c_true + f * out_bytes) + k * f, common.INT8_OPS)
-        row = dict(layer=CONV_NAMES[i], b=b, h=h, w=w, c=c_true, f=f,
-                   ms=common.time_ms(lambda: int8_conv(xin, *args), reps),
+        bound, by = common.bound_ms(2.0 * b * h * w * 9 * c * f,
+                                    b * h * w * (c + f * out_bytes) + 9 * c * f, common.INT8_OPS)
+        row = dict(layer=CONV_NAMES[i], b=b, h=h, w=w, c=c, f=f,
+                   ms=common.time_ms(lambda: int8_conv(x, *args), reps),
                    bound_ms=bound, bound_by=by)
         if yardsticks:
-            row["plain_ms"] = common.time_ms(lambda: int8_conv_plain(xin, *args), 1)
+            row["plain_ms"] = common.time_ms(lambda: int8_conv_plain(x, *args), 1)
             w_kn = layer["weight"].reshape(f, -1).t().contiguous()
-            row["library_ms"] = common.time_ms(lambda: im2col_int_mm(torch, xin, w_kn), reps)
+            row["library_ms"] = common.time_ms(lambda: im2col_int_mm(torch, x, w_kn), reps)
             conv = params[f"vgg16.{CONV_NAMES[i].replace('/', '.')}.weight"]
             wb = conv.cuda().bfloat16()
             bb = params[f"vgg16.{CONV_NAMES[i].replace('/', '.')}.bias"].cuda().bfloat16()
-            xb = (x if i == 0 else xin).permute(0, 3, 1, 2).bfloat16()
+            xb = x.permute(0, 3, 1, 2).bfloat16()
             row["cudnn_bf16_ms"] = common.time_ms(
                 lambda: F.relu(F.conv2d(xb, wb, bb, padding=1)), reps)
             del w_kn, wb, xb
         convs.append(row)
-        y = int8_conv(xin, *args)
-        del xin
+        y = int8_conv(x, *args)
         if layer["pool"]:
             _, h, w, c = y.shape
             bound, by = common.bound_ms(0.0, b * h * w * c + b * (h // 2) * (w // 2) * c)
@@ -746,37 +787,31 @@ def q1_times(torch, stack, params, images, reps, yardsticks):
         else:
             x = y
         del y
-    return convs, pools
+    return stem_row, convs, pools
 
 
 def int8_forward_parts(torch, embedder, images, reps):
     """ms of the int8 forward of ``images`` (uint8 on the card) and of each
-    of its steps on its own: the input's cast, centring and requant, the
-    stem's packed columns, Q1 and Q1_pool (the stack less those two), the
-    channel L2-norm with the cast to the compute dtype, and NetVLAD (K1)."""
+    of its steps on its own: Q1_stem (the input's requant, its 3x3 gather
+    and conv1_1), Q1 and Q1_pool (the stack less the stem), the channel
+    L2-norm with the cast to the compute dtype, and NetVLAD (K1)."""
     from soft_contrastive_learning_torch.core.config import torch_dtype
-    from soft_contrastive_learning_torch.models.quant import _images, _requant
     from soft_contrastive_learning_torch.models.vgg16 import l2_normalize
-    from soft_contrastive_learning_torch.ops.kernels.int8_conv import stem_columns
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_stem
     from soft_contrastive_learning_torch.perf import common
 
     stack, dtype = embedder.stack, torch_dtype(embedder.cfg.compute_dtype)
-
-    def requant():
-        return _requant(_images(images) - stack.average_rgb, stack.scale_in)
-
+    sargs = stem_args(stack)
     with torch.inference_mode():  # as the forward runs
-        raw = requant()
         fmap = stack(images)
         feat = l2_normalize(fmap, dim=-1).to(dtype).float()
         parts = dict(forward_ms=common.time_ms(lambda: embedder(images), reps),
-                     requant_ms=common.time_ms(requant, reps),
-                     stem_columns_ms=common.time_ms(lambda: stem_columns(raw), reps),
+                     stem_ms=common.time_ms(lambda: int8_stem(images, *sargs), reps),
                      stack_ms=common.time_ms(lambda: stack(images), reps),
                      l2norm_cast_ms=common.time_ms(
                          lambda: l2_normalize(fmap, dim=-1).to(dtype).float(), reps),
                      netvlad_ms=common.time_ms(lambda: embedder.model.netvlad(feat), reps))
-    parts["stack_kernels_ms"] = parts["stack_ms"] - parts["requant_ms"] - parts["stem_columns_ms"]
+    parts["stack_kernels_ms"] = parts["stack_ms"] - parts["stem_ms"]
     return parts
 
 
@@ -794,11 +829,10 @@ def phase_serve_int8(torch, np, report, shared):
 
     from soft_contrastive_learning_torch import cli, flagship
     from soft_contrastive_learning_torch.models.quant import (
-        QuantizedConvStack, QuantizedEmbedder, _images, _quantize_weight, _requant,
-        calibrate_scales, load_scales)
+        QuantizedConvStack, QuantizedEmbedder, calibrate_scales, load_scales)
     from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
     from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
-        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, stem_columns)
+        int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, int8_stem, int8_stem_plain)
     from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.serving import DescriptorService
     from soft_contrastive_learning_torch.utils.io import save_img, save_pickle
@@ -810,23 +844,26 @@ def phase_serve_int8(torch, np, report, shared):
     scales = calibrate_scales(params, calib, "cuda")
     stack = QuantizedConvStack(params, scales, "cuda")
 
-    # 1. Q1 and Q1_pool against their plain versions, layer by layer, B = 8,
-    # both fed the same int8 input: the int8 maps equal, conv5_3's fp32 within
-    # 1 ulp (the same fp32 multiply and add), the pools equal; the packed stem
-    # equal to the plain 3x3 conv of the raw three channels
-    x = _requant(_images(calib, "cuda") - stack.average_rgb, stack.scale_in)
-    stem = stack.layers[0]
-    stem_k8, _ = _quantize_weight(params["vgg16.block1.conv1_1.weight"].cuda())
-    stem_args = (stem["mult"], stem["bias"], stem["inv_next"], stem["relu"], stem["out_f32"])
-    if not torch.equal(int8_conv(stem_columns(x), stem["weight"], *stem_args),
-                       int8_conv_plain(x, stem_k8, *stem_args)):
-        fail("Q1's packed stem differs from the plain 3x3 conv of the raw channels")
+    # 1. Q1_stem against its plain version on the raw images, fp32 and uint8;
+    # Q1 and Q1_pool against theirs, layer by layer, B = 8, both fed the same
+    # int8 input: the int8 maps equal, conv5_3's fp32 within 1 ulp (the same
+    # fp32 multiply and add), the pools equal
+    sargs = stem_args(stack)
+    calib_f32 = torch.from_numpy(calib).cuda()
+    stem_err = pool_err = 0
+    for images in (calib_f32, torch.from_numpy(np.rint(calib).astype(np.uint8)).cuda()):
+        got, want = int8_stem(images, *sargs), int8_stem_plain(images, *sargs)
+        torch.cuda.synchronize()
+        stem_err = max(stem_err, int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"Q1_stem on {images.dtype} images: {int((got != want).sum())} int8 values "
+                 "differ from the plain version's")
+    x = int8_stem(calib_f32, *sargs)
     q1_err = 0.0
-    for i, layer in enumerate(stack.layers):
-        xin = stem_columns(x) if i == 0 else x
+    for i, layer in enumerate(stack.layers[1:], start=1):
         args = (layer["weight"], layer["mult"], layer["bias"], layer["inv_next"], layer["relu"],
                 layer["out_f32"])
-        got, want = int8_conv(xin, *args), int8_conv_plain(xin, *args)
+        got, want = int8_conv(x, *args), int8_conv_plain(x, *args)
         torch.cuda.synchronize()
         if layer["out_f32"]:
             ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max().item()
@@ -839,14 +876,15 @@ def phase_serve_int8(torch, np, report, shared):
         if layer["pool"]:
             x, want = int8_pool(got), int8_pool_plain(got)
             torch.cuda.synchronize()
+            pool_err = max(pool_err, int((x.int() - want.int()).abs().max()))
             if not torch.equal(x, want):
                 fail(f"Q1_pool after layer {i}: {int((x != want).sum())} values differ")
         else:
             x = got
     fmap = x
-    print(f"serve_int8: Q1 against its plain version at B=8, the trained stack's 13 layers: every "
-          f"int8 map equal, the packed stem equal to the 3x3 conv, conv5_3 fp32 max-abs "
-          f"{q1_err:.3g} (within 1 ulp); Q1_pool equal after each of the 4 blocks")
+    print(f"serve_int8: at B=8, the trained stack: Q1_stem equal to its plain version from fp32 "
+          f"and uint8 pixels; Q1 on the 12 later layers: every int8 map equal, conv5_3 fp32 "
+          f"max-abs {q1_err:.3g} (within 1 ulp); Q1_pool equal after each of the 4 blocks")
     if not torch.equal(fmap, stack(calib)):
         fail("serve_int8: the stack's conv5_3 map differs from the layer-by-layer run")
 
@@ -906,18 +944,24 @@ def phase_serve_int8(torch, np, report, shared):
     parts = {b: int8_forward_parts(torch, int8_embed, x_card[:b], reps)
              for b, reps in ((64, 10), (flagship.SERVING_BATCH, 3))}
     for b, part in parts.items():
-        print(f"serve_int8: the int8 forward at B={b}, {part['forward_ms']:.3f} ms: input "
-              f"requant {part['requant_ms']:.4f}, the stem's packed columns "
-              f"{part['stem_columns_ms']:.4f}, Q1 + Q1_pool {part['stack_kernels_ms']:.3f}, L2 "
-              f"norm + cast {part['l2norm_cast_ms']:.4f}, NetVLAD (K1) {part['netvlad_ms']:.4f}")
+        print(f"serve_int8: the int8 forward at B={b}, {part['forward_ms']:.3f} ms: Q1_stem (the "
+              f"input's requant, gather and conv1_1) {part['stem_ms']:.4f}, Q1 + Q1_pool "
+              f"{part['stack_kernels_ms']:.3f}, L2 norm + cast {part['l2norm_cast_ms']:.4f}, "
+              f"NetVLAD (K1) {part['netvlad_ms']:.4f}")
     del x_card, int8_embed, bf16_embed
     torch.cuda.empty_cache()
 
     # Q1's rows: per layer at B = 64 (with the plain version, im2col +
     # torch._int_mm and cuDNN's bf16 conv + bias + ReLU) and at SERVING_BATCH
-    conv64, pool64 = q1_times(torch, stack, params, torch.from_numpy(imgs[:64]).cuda(), 10, True)
-    conv_big, pool_big = q1_times(torch, stack, params, torch.from_numpy(imgs).cuda(), 3, False)
+    stem64, conv64, pool64 = q1_times(torch, stack, params, torch.from_numpy(imgs[:64]).cuda(),
+                                      10, True)
+    stem_big, conv_big, pool_big = q1_times(torch, stack, params, torch.from_numpy(imgs).cuda(),
+                                            3, False)
     torch.cuda.empty_cache()
+    print(f"Q1_stem {stem64['h']}x{stem64['w']} C=3 F={stem64['f']} from uint8 pixels: B=64 "
+          f"{stem64['ms']:.4f} ms (bound {stem64['bound_ms']:.4f}, {stem64['bound_by']}; plain "
+          f"{stem64['plain_ms']:.3f}), B={stem_big['b']} {stem_big['ms']:.3f} ms (bound "
+          f"{stem_big['bound_ms']:.3f})")
     for row, big in zip(conv64, conv_big):
         print(f"Q1 {row['layer']} {row['h']}x{row['w']} C={row['c']} F={row['f']}: B=64 "
               f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_by']}; plain "
@@ -942,15 +986,22 @@ def phase_serve_int8(torch, np, report, shared):
         library_ms=total(conv64, "library_ms"), cudnn_bf16_ms=total(conv64, "cudnn_bf16_ms"),
         ms_big=total(conv_big, "ms"), bound_ms_big=total(conv_big, "bound_ms"),
         per_layer=conv64, per_layer_big=conv_big)
+    report.setdefault("Q1_stem", {}).update(
+        name="int8_stem", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/int8_conv.cu",
+        replaces="soft_contrastive_learning_tpu/models/quant.py:207",
+        max_abs_err=stem_err, ms=stem64["ms"], plain_ms=stem64["plain_ms"],
+        bound_ms=stem64["bound_ms"], bound_by=stem64["bound_by"], library_ms=None,
+        ms_big=stem_big["ms"], bound_ms_big=stem_big["bound_ms"], row=stem64, row_big=stem_big)
     report.setdefault("Q1_pool", {}).update(
         name="int8_pool", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/int8_conv.cu",
         replaces="soft_contrastive_learning_tpu/models/quant.py:239",
-        max_abs_err=0.0, ms=total(pool64, "ms"), plain_ms=total(pool64, "plain_ms"),
+        max_abs_err=pool_err, ms=total(pool64, "ms"), plain_ms=total(pool64, "plain_ms"),
         bound_ms=total(pool64, "bound_ms"), bound_by="bytes",
         library_ms=total(pool64, "library_ms"), ms_big=total(pool_big, "ms"),
         per_pool=pool64, per_pool_big=pool_big)
-    print(f"Q1: a forward's 13 launches at B=64 {report['Q1']['ms']:.3f} ms (bound "
+    print(f"Q1: a forward's 12 launches at B=64 {report['Q1']['ms']:.3f} ms (bound "
           f"{report['Q1']['bound_ms']:.3f}, operations; plain {report['Q1']['plain_ms']:.1f}; "
           f"im2col + _int_mm {report['Q1']['library_ms']:.3f}; cuDNN bf16 conv + bias + ReLU "
           f"{report['Q1']['cudnn_bf16_ms']:.3f}), at B={flagship.SERVING_BATCH} "
@@ -1040,9 +1091,9 @@ def phase_serve_int8(torch, np, report, shared):
         server.server_close()
         thread.join(timeout=60)
     torch.cuda.synchronize()
-    # 6 batches of 64 or fewer (3 requests, 3 in-process calls): 13 Q1, 4
-    # Q1_pool and 1 K1 launches each; 2 searches over 66,048 rows: K2
-    launches = counts.read({"K1": 6, "K2": 2, "Q1": 78, "Q1_pool": 24})
+    # 6 batches of 64 or fewer (3 requests, 3 in-process calls): 1 Q1_stem,
+    # 12 Q1, 4 Q1_pool and 1 K1 launches each; 2 searches over 66,048 rows: K2
+    launches = counts.read({"K1": 6, "K2": 2, "Q1": 72, "Q1_stem": 6, "Q1_pool": 24})
     if err_embed > 1e-6 or err_batch > 1e-6:
         fail(f"serve_int8: HTTP descriptors differ from the in-process embed ({err_embed}, "
              f"{err_batch})")
@@ -3636,6 +3687,7 @@ def main() -> int:
                       "topn": report["topn"], "topn_250k": report["topn_250k"]}))
     print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))
     print(json.dumps({"serve_int8": report["serve_int8"],
+                      "Q1_stem": {key: report["Q1_stem"][key] for key in ("row", "row_big")},
                       "Q1_per_layer": report["Q1"]["per_layer"],
                       "Q1_per_layer_big": report["Q1"]["per_layer_big"],
                       "Q1_pool_per_pool": report["Q1_pool"]["per_pool"]}))

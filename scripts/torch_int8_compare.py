@@ -12,8 +12,11 @@ At B = 64 and 1,536 on seeded uint8 images it times, by CUDA events:
 
 * the whole forward (``QuantizedEmbedder``, calibrated on
   ``flagship.calibration_images``);
-* the stem's packed columns (``int8_conv.stem_columns``) of the requantized
-  input, on their own.
+* the stem: conv1_1 from the uint8 images, the input's requant included
+  (``int8_conv.int8_stem`` where the tree has it; else the requant and
+  ``stem_columns`` in torch ops, then Q1 on the packed columns), and, where
+  the tree packs columns in torch ops, that packing on its own;
+* Q1 on each later layer (conv1_2 .. conv5_3), fed the stack's own maps.
 
 Prints the card's name and power limit, then one JSON line. Imports no JAX.
 """
@@ -52,9 +55,9 @@ def main() -> int:
 
     import soft_contrastive_learning_torch as port
     from soft_contrastive_learning_torch import flagship
-    from soft_contrastive_learning_torch.models.quant import (
-        QuantizedEmbedder, _images, _requant)
-    from soft_contrastive_learning_torch.ops.kernels.int8_conv import stem_columns
+    from soft_contrastive_learning_torch.models import quant
+    from soft_contrastive_learning_torch.models.quant import CONV_NAMES, QuantizedEmbedder
+    from soft_contrastive_learning_torch.ops.kernels import int8_conv as q1
 
     if not Path(port.__file__).resolve().is_relative_to(root):
         print(f"imported the port from {port.__file__}, not from {root}", file=sys.stderr)
@@ -67,16 +70,45 @@ def main() -> int:
     cfg = flagship.flagship_model_config()
     params, provenance = flagship.flagship_params(cfg)
     emb = QuantizedEmbedder(cfg, params, flagship.calibration_images(cfg), device="cuda")
+    stack = emb.stack
+    stem = stack.layers[0]
+    tail = (stem["weight"], stem["mult"], stem["bias"], stem["inv_next"], stem["relu"])
+    if hasattr(q1, "int8_stem"):  # the stem in one kernel
+        def run_stem(x):
+            return q1.int8_stem(x, stack.average_rgb, stack.inv_in, *tail)
+
+        def requant(x):
+            return None
+    else:  # the input's requant and the packed columns in torch ops, then Q1
+        def requant(x):
+            return quant._requant(quant._images(x) - stack.average_rgb, stack.scale_in)
+
+        def run_stem(x):
+            return q1.int8_conv(q1.stem_columns(requant(x)), *tail, stem["out_f32"])
+
     u8 = np.random.default_rng(0).integers(
         0, 256, (flagship.SERVING_BATCH, cfg.image_height, cfg.image_width, 3), np.uint8)
     x_all = torch.from_numpy(u8).cuda()
     out = dict(label=args.label or str(root), params=provenance)
     for b, reps in ((64, 10), (flagship.SERVING_BATCH, 3)):
         x = x_all[:b]
-        raw = _requant(_images(x) - emb.stack.average_rgb, emb.stack.scale_in)
-        out[f"B{b}"] = dict(forward_ms=time_ms(torch, lambda: emb(x), reps),
-                            stem_columns_ms=time_ms(torch, lambda: stem_columns(raw), reps))
+        row = dict(forward_ms=time_ms(torch, lambda: emb(x), reps),
+                   stem_ms=time_ms(torch, lambda: run_stem(x), reps))
+        raw = requant(x)
+        if raw is not None:
+            row["stem_columns_ms"] = time_ms(torch, lambda: q1.stem_columns(raw), reps)
         del raw
+        a8, layers = run_stem(x), {}
+        for name, layer in zip(CONV_NAMES[1:], stack.layers[1:]):
+            largs = (layer["weight"], layer["mult"], layer["bias"], layer["inv_next"],
+                     layer["relu"], layer["out_f32"])
+            layers[name] = time_ms(torch, lambda: q1.int8_conv(a8, *largs), reps)
+            y = q1.int8_conv(a8, *largs)
+            a8 = q1.int8_pool(y) if layer["pool"] else y
+        del a8, y
+        row["q1_layers_ms"] = layers
+        row["q1_ms"] = sum(layers.values())
+        out[f"B{b}"] = row
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

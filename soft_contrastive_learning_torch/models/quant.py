@@ -12,7 +12,9 @@ Scheme, as JAX's (standard symmetric post-training quantization):
 * each conv runs int8 x int8 -> int32 through Q1 (``ops/kernels/int8_conv.py``
   on a CUDA device) with dequant, bias, ReLU and the next layer's requant in
   its epilogue, and the 2x2 max-pools run on the requantized int8 (Q1_pool):
-  only int8 tensors materialize between convs;
+  only int8 tensors materialize between convs; the first conv (Q1_stem)
+  centres and requantizes the raw uint8 or fp32 image itself, so no fp32 or
+  column copy of the input materializes either;
 * conv5_3 comes out as fp32 with no ReLU, for the channel L2-norm and the
   heads (NetVLAD through K1 on bf16 features, SPP, dense), in the compute
   dtype as in JAX.
@@ -21,7 +23,8 @@ Differences from JAX, none in the values: the weights are quantized once,
 when ``QuantizedConvStack`` is built (JAX quantizes them inside each jitted
 call), and laid out K-major as (F, 3, 3, C) int8 (``wgmma`` takes s8 only
 K-major); the stem (C = 3) runs as a 1x1 conv of packed 3x3 columns
-(``int8_conv.stem_columns``), the same integer sums.
+(``int8_conv.int8_stem``: the columns built in the kernel on the card, by
+``stem_columns`` on the CPU), the same integer sums.
 ``ModelConfig(packed_stem=True)`` (a TPU lane-packing rewrite) is refused:
 ROADMAP.md, Queue 1 item 8.
 
@@ -44,7 +47,7 @@ from soft_contrastive_learning_torch.models.vgg16 import VGG_BLOCKS, l2_normaliz
 from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
     int8_conv,
     int8_pool,
-    stem_columns,
+    int8_stem,
     stem_weight,
 )
 
@@ -57,11 +60,16 @@ def _param(params: Mapping[str, torch.Tensor], conv: str, leaf: str) -> torch.Te
     return params[f"vgg16.{conv.replace('/', '.')}.{leaf}"]
 
 
-def _images(images, device=None) -> torch.Tensor:
-    """NHWC images (uint8 or float, numpy or tensor) as fp32 RGB."""
+def _images(images, device=None, keep_uint8: bool = False) -> torch.Tensor:
+    """NHWC images (uint8 or float, numpy or tensor) as RGB (a gray image
+    expanded) on ``device``: fp32, or with ``keep_uint8`` as Q1_stem reads
+    them, uint8 kept as it is (another dtype cast to fp32), contiguous."""
     x = torch.as_tensor(np.asarray(images) if not isinstance(images, torch.Tensor) else images)
-    x = x.to(device or x.device).float()
-    return x.expand(-1, -1, -1, 3) if x.shape[-1] == 1 else x
+    x = x.to(device or x.device)
+    if not (keep_uint8 and x.dtype == torch.uint8):
+        x = x.float()
+    x = x.expand(-1, -1, -1, 3) if x.shape[-1] == 1 else x
+    return x.contiguous() if keep_uint8 else x
 
 
 def _inv(scale: float) -> float:
@@ -126,23 +134,18 @@ def _quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return k8.permute(0, 2, 3, 1).contiguous(), s
 
 
-def _requant(y: torch.Tensor, scale: float) -> torch.Tensor:
-    inv = torch.tensor(_inv(scale), dtype=torch.float32, device=y.device)
-    return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
-
-
 class QuantizedConvStack:
     """The int8 VGG16 conv stack with its weights quantized once onto
     ``device``. Calling it maps NHWC images to the fp32 conv5_3 map
     (pre-normalization)."""
 
-    def __init__(self, params, scales: Dict[str, float], device="cpu"):
+    def __init__(self, params, scales: Dict[str, float], device="cuda"):
         missing = sorted(set(CONV_NAMES) - set(scales))
         if missing:
             raise ValueError(f"quantization scales lack {missing}")
         self.device = torch.device(device)
         self.average_rgb = params["vgg16.average_rgb"].float().to(self.device)
-        self.scale_in = scales[CONV_NAMES[0]]
+        self.inv_in = _inv(scales[CONV_NAMES[0]])  # the input's requant
         self.layers = []
         idx = 0
         for bi, specs in enumerate(VGG_BLOCKS):
@@ -163,11 +166,13 @@ class QuantizedConvStack:
                 idx += 1
 
     def __call__(self, images) -> torch.Tensor:
-        a8 = _requant(_images(images, self.device) - self.average_rgb, self.scale_in)
+        stem = self.layers[0]  # conv1_1: no pool
+        a8 = int8_stem(_images(images, self.device, keep_uint8=True), self.average_rgb,
+                       self.inv_in, stem["weight"], stem["mult"], stem["bias"], stem["inv_next"],
+                       stem["relu"])
         y = None
-        for i, layer in enumerate(self.layers):
-            x = stem_columns(a8) if i == 0 else a8
-            y = int8_conv(x, layer["weight"], layer["mult"], layer["bias"], layer["inv_next"],
+        for layer in self.layers[1:]:
+            y = int8_conv(a8, layer["weight"], layer["mult"], layer["bias"], layer["inv_next"],
                           layer["relu"], layer["out_f32"])
             a8 = int8_pool(y) if layer["pool"] else y
         return y  # conv5_3: no pool, no ReLU

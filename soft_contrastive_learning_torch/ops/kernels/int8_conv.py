@@ -1,28 +1,33 @@
-"""Q1: the int8 convolution of the post-training-quantized VGG16 stack, and
-Q1_pool, its 2x2 max-pool on int8, as hand-written CUDA kernels for Hopper.
+"""Q1: the int8 convolution of the post-training-quantized VGG16 stack,
+Q1_stem: its first conv with the input's requant, and Q1_pool, its 2x2
+max-pool on int8, as hand-written CUDA kernels for Hopper.
 
 They replace XLA work, not a Pallas kernel: the int8 ``conv_general_dilated``
 (int8 x int8 -> int32) of ``soft_contrastive_learning_tpu/models/quant.py::
-quantized_conv_stack`` with its fused elementwise epilogue, and its
-``reduce_window`` max on int8. PyTorch has no int8 convolution on CUDA. The
-kernels are in ``csrc/int8_conv.cu``; its source note gives the bound and the
-design: an implicit GEMM (M = B H W pixels, N = F, K = 9 C) on integer
+quantized_conv_stack`` with its fused elementwise epilogue, the input's
+centring and requant before the first conv, and its ``reduce_window`` max on
+int8. PyTorch has no int8 convolution on CUDA. The kernels are in
+``csrc/int8_conv.cu``; its source note gives the bound and the design: a
+persistent implicit GEMM (M = B H W pixels, N = F, K = 9 C) on integer
 ``wgmma`` fed by TMA, the input gathered tap by tap as 4-D boxes of the NHWC
 map (zero-filled past the edge: SAME padding without a padded copy or an
 im2col in memory), exact int32 sums, and the epilogue
 ``y = float(acc) * m[f] + bias[f]`` then ReLU and ``rint(y * inv_next)``
-clipped to +-127 as int8, or y as fp32 for the stack's last conv.
+clipped to +-127 as int8, or y as fp32 for the stack's last conv, stored
+through shared memory by TMA.
 
-Weights come K-major, (F, T, T, C) int8 (``wgmma`` takes s8 only K-major).
-The stem (C = 3) does not fit TMA's 16-byte rows: ``stem_columns`` packs each
-pixel's 27 (r, s, c) values, padded to 32, into a (B, H, W, 32) map that a
-1x1 conv (T = 1) takes, and ``stem_weight`` the matching (F, 1, 1, 32).
+Weights come K-major, (F, 3, 3, C) int8 (``wgmma`` takes s8 only K-major).
+The stem (C = 3) does not fit TMA's 16-byte rows: Q1_stem's producer
+requantizes the raw image and gathers each pixel's 27 (r, s, c) values,
+padded to 32, itself; ``stem_weight`` gives the matching (F, 1, 1, 32)
+weights. Its plain version materializes the same columns (``stem_columns``)
+for a 1x1 conv in ``int8_conv_plain``; Q1 itself takes only 3x3 convs.
 
 Beside the kernels, ``int8_conv_plain`` (``F.conv2d`` in float64 on the int8
 values, exact since every sum is below 2^53, cast to int32, then to fp32,
-and the same epilogue in separate torch ops) and ``int8_pool_plain``. The
-wrappers take them for CPU tensors; for CUDA tensors they launch the kernels
-or raise.
+and the same epilogue in separate torch ops), ``int8_stem_plain`` and
+``int8_pool_plain``. The wrappers take them for CPU tensors; for CUDA
+tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -36,30 +41,54 @@ import torch.nn.functional as F
 from soft_contrastive_learning_torch.ops.kernels import _build
 
 STEM_K = 32  # the stem's 27 column values padded to one wgmma depth of int8
+STEM_F = 64  # the stem's output channels (Q1_stem's one tile width)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_conv")
-    lib.scl_int8_conv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 10
+    lib.scl_int8_conv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 11
                                   + [ctypes.c_void_p])
     lib.scl_int8_conv.restype = ctypes.c_int
+    lib.scl_int8_stem.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float]
+                                  + [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+                                  + [ctypes.c_void_p])
+    lib.scl_int8_stem.restype = ctypes.c_int
     lib.scl_int8_pool.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.scl_int8_pool.restype = ctypes.c_int
-    lib.scl_int8_conv_config.argtypes = [ctypes.c_int] * 3
+    lib.scl_int8_conv_config.argtypes = [ctypes.c_int] * 7
     lib.scl_int8_conv_config.restype = ctypes.c_int
+    lib.scl_int8_stem_config.argtypes = [ctypes.c_int]
+    lib.scl_int8_stem_config.restype = ctypes.c_int
     return lib
 
 
-def tile_shape(c: int, f: int) -> tuple:
-    """(BN, BK) of the launch for C input and F output channels: the widest
-    of 256/128/64 output channels and 128/64/32 input channels (one swizzle
-    row) that divide them. Raises where none does."""
-    bk = next((bk for bk in (128, 64, 32) if c % bk == 0), None)
-    bn = next((bn for bn in (256, 128, 64) if f % bn == 0), None)
-    if bk is None or bn is None:
-        raise ValueError(f"Q1 takes C a multiple of 32 and F a multiple of 64, got C={c}, F={f}")
-    return bn, bk
+TILE_W = 16  # pixel columns of every tile
+
+
+def tile_shape(c: int, f: int, out_f32: bool = False) -> tuple:
+    """(TH, TW, BN, BK, CONS) of Q1's launch for C input and F output
+    channels: a tile of TH x 16 pixels by BN output channels, K in steps of
+    BK input channels (one swizzle row), CONS consumer warpgroups a block.
+    The fp32 output (conv5_3) takes 8 x 16 tiles by 256 at BK 64 (its staged
+    tile is 4 bytes a value, 128 KB), two consumers sharing one, one block an
+    SM; int8 output at F a multiple of 256 (conv3_x .. conv5_2) likewise at
+    BK 128 where C allows it. The other int8 layers have short K and large
+    maps: F a multiple of 128 (conv2_x) takes 16 x 16 tiles by 128, two
+    consumers sharing one; C = F = 64 (conv1_2) 8 x 16 tiles by 64 with its
+    36 KB of weights kept in shared memory, one consumer each and two blocks
+    an SM, so that one block's epilogue runs beside the other's products.
+    Raises for a layer none of these take."""
+    if c % 64 or (f % 128 and (f, c) != (64, 64)) or (out_f32 and f % 256):
+        raise ValueError(f"Q1 takes C and F multiples of 64, F of 128 but at C = F = 64, F of "
+                         f"256 for an fp32 output, got C={c}, F={f}, fp32 output {out_f32}")
+    if out_f32:
+        return 8, TILE_W, 256, 64, 2
+    if f % 256 == 0 and c % 128 == 0:
+        return 8, TILE_W, 256, 128, 2
+    if f % 128 == 0:
+        return 16, TILE_W, 128, 64, 2
+    return 8, TILE_W, 64, 64, 1
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor) -> int:
@@ -98,12 +127,14 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
               inv_next: float, relu: bool, out_f32: bool) -> torch.Tensor:
-    """``int8_conv_plain``'s function through Q1 for CUDA tensors, the plain
-    version for CPU tensors. ``inv_next`` must be an fp32 value (the kernel
-    takes it as one). Raises on anything the kernel does not take."""
+    """``int8_conv_plain``'s function through Q1 for CUDA tensors (a 3x3 conv),
+    the plain version for CPU tensors. ``inv_next`` must be an fp32 value (the
+    kernel takes it as one). Raises on anything the kernel does not take."""
     t = _check(x, w, mult, bias)
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, mult, bias, inv_next, relu, out_f32)
+    if t != 3:
+        raise ValueError(f"Q1 takes a 3x3 conv, got w {tuple(w.shape)}")
     if x.device.type != "cuda" or any(v.device != x.device for v in (w, mult, bias)):
         raise ValueError(f"Q1: x on {x.device}, w on {w.device}, mult on {mult.device}, "
                          f"bias on {bias.device}")
@@ -111,10 +142,11 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.
         raise ValueError("Q1 takes contiguous tensors")
     b, h, wd, c = x.shape
     f = w.shape[0]
-    bn, bk = tile_shape(c, f)
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("Q1: TMA needs 16-byte-aligned x and w")
-    tiles = -(-h // 8) * -(-wd // 16) * (f // bn)
+    th, tw, bn, bk, cons = tile_shape(c, f, out_f32)
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or mult.data_ptr() % 8 or bias.data_ptr() % 8:
+        raise ValueError("Q1: TMA needs 16-byte-aligned x and w, the epilogue 8-byte-aligned "
+                         "mult and bias")
+    tiles = -(-h // th) * -(-wd // tw) * (f // bn)
     if b * tiles >= 2**31 or b * h * wd * max(c, f) >= 2**62:
         raise ValueError(f"Q1: grid out of range for x {tuple(x.shape)}")
     out = torch.empty((b, h, wd, f), dtype=torch.float32 if out_f32 else torch.int8,
@@ -123,7 +155,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.
     with torch.cuda.device(x.device):
         err = lib.scl_int8_conv(x.data_ptr(), w.data_ptr(), out.data_ptr(), mult.data_ptr(),
                                 bias.data_ptr(), float(inv_next), int(relu), int(out_f32),
-                                b, h, wd, c, f, t * t, bn, bk,
+                                b, h, wd, c, f, th, bn, bk, cons,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "Q1 int8_conv")
     int8_conv.launches += 1
@@ -188,3 +220,73 @@ def stem_weight(w: torch.Tensor) -> torch.Tensor:
     f = w.shape[0]
     flat = w.reshape(f, -1)
     return F.pad(flat, (0, STEM_K - flat.shape[1])).reshape(f, 1, 1, STEM_K).contiguous()
+
+
+def requant_plain(y: torch.Tensor, inv: float) -> torch.Tensor:
+    """fp32 y -> ``clip(round(y * inv), -127, 127)`` as int8 (round half to
+    even), ``inv`` an fp32 value."""
+    inv_t = torch.tensor(inv, dtype=torch.float32, device=y.device)
+    return torch.clamp(torch.round(y * inv_t), -127, 127).to(torch.int8)
+
+
+def _check_stem(images, average_rgb, w, mult, bias) -> None:
+    if images.ndim != 4 or images.shape[-1] != 3:
+        raise ValueError(f"Q1_stem takes RGB images (B, H, W, 3), got {tuple(images.shape)}")
+    if w.dtype != torch.int8 or w.shape != (STEM_F, 1, 1, STEM_K):
+        raise ValueError(f"Q1_stem takes the packed int8 weights ({STEM_F}, 1, 1, {STEM_K}) of "
+                         f"stem_weight, got {tuple(w.shape)} {w.dtype}")
+    for name, v, n in (("average_rgb", average_rgb, 3), ("mult", mult, STEM_F),
+                       ("bias", bias, STEM_F)):
+        if v.shape != (n,) or v.dtype != torch.float32:
+            raise ValueError(f"Q1_stem takes an fp32 {name} of shape ({n},), got "
+                             f"{tuple(v.shape)} {v.dtype}")
+
+
+def int8_stem_plain(images: torch.Tensor, average_rgb: torch.Tensor, inv_in: float,
+                    w: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor, inv_next: float,
+                    relu: bool = True) -> torch.Tensor:
+    """Q1_stem's function in plain torch ops: the images (B, H, W, 3) as fp32,
+    centred by ``average_rgb`` and requantized by ``inv_in``, then the 3x3
+    conv of those int8 values as ``stem_columns`` by the packed ``w``
+    (``stem_weight``) through ``int8_conv_plain``'s epilogue: (B, H, W, 64)
+    int8."""
+    _check_stem(images, average_rgb, w, mult, bias)
+    a8 = requant_plain(images.float() - average_rgb, inv_in)
+    return int8_conv_plain(stem_columns(a8), w, mult, bias, inv_next, relu, False)
+
+
+def int8_stem(images: torch.Tensor, average_rgb: torch.Tensor, inv_in: float, w: torch.Tensor,
+              mult: torch.Tensor, bias: torch.Tensor, inv_next: float,
+              relu: bool = True) -> torch.Tensor:
+    """``int8_stem_plain``'s function through Q1_stem for CUDA tensors (images
+    uint8 or fp32, contiguous: the kernel reads the raw pixels), the plain
+    version for CPU tensors. ``inv_in`` and ``inv_next`` must be fp32 values."""
+    _check_stem(images, average_rgb, w, mult, bias)
+    if images.device.type == "cpu":
+        return int8_stem_plain(images, average_rgb, inv_in, w, mult, bias, inv_next, relu)
+    if images.device.type != "cuda" or any(v.device != images.device
+                                           for v in (average_rgb, w, mult, bias)):
+        raise ValueError(f"Q1_stem: images on {images.device}, the rest on "
+                         f"{[str(v.device) for v in (average_rgb, w, mult, bias)]}")
+    if images.dtype not in (torch.uint8, torch.float32):
+        raise TypeError(f"Q1_stem takes uint8 or fp32 images, got {images.dtype}")
+    if not all(v.is_contiguous() for v in (images, average_rgb, w, mult, bias)):
+        raise ValueError("Q1_stem takes contiguous tensors")
+    if w.data_ptr() % 16 or mult.data_ptr() % 8 or bias.data_ptr() % 8:
+        raise ValueError("Q1_stem: TMA needs 16-byte-aligned w, the epilogue 8-byte-aligned "
+                         "mult and bias")
+    b, h, wd, _ = images.shape  # a grid past 2^31 tiles is refused by the launch
+    out = torch.empty((b, h, wd, STEM_F), dtype=torch.int8, device=images.device)
+    lib = _lib()
+    with torch.cuda.device(images.device):
+        err = lib.scl_int8_stem(images.data_ptr(), int(images.dtype == torch.float32),
+                                average_rgb.data_ptr(), float(inv_in), w.data_ptr(),
+                                out.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+                                float(inv_next), int(relu), b, h, wd,
+                                torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "Q1_stem int8_stem")
+    int8_stem.launches += 1
+    return out
+
+
+int8_stem.launches = 0

@@ -859,18 +859,24 @@ def _q1_inputs(device, b, h, w, c, f, taps, seed):
     (1, 45, 60, 128, 256),   # conv3_1
     (1, 18, 24, 64, 128),    # C = 64 (BK 64), F = 128 (BN 128)
     (3, 9, 17, 64, 64),      # BN 64, odd sizes
-    (1, 5, 7, 32, 64),       # BK 32, a map smaller than one tile
+    (1, 5, 7, 64, 64),       # a map smaller than one tile
 ])
 @pytest.mark.parametrize("out_f32,relu", [(False, True), (False, False), (True, False)])
 def test_q1_int8_conv_equals_its_plain_version(cuda, b, h, w, c, f, out_f32, relu):
     """Q1 (implicit GEMM on integer wgmma fed by TMA, SAME padding by TMA's
     zero fill, the epilogue fused) against int8_conv_plain: the int8 maps
-    equal, the fp32 output equal (the same fp32 multiply and add)."""
+    equal, the fp32 output equal (the same fp32 multiply and add). Q1 takes
+    the fp32 output (the stack's conv5_3) at F a multiple of 256 only and
+    refuses it below."""
     from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
         int8_conv, int8_conv_plain)
 
     x, wt, mult, bias = _q1_inputs(cuda, b, h, w, c, f, 3, b + h + w + c + f)
     inv = float(np.float32(1.0 / 0.05))
+    if out_f32 and f % 256:
+        with pytest.raises(ValueError, match="F of 256 for an fp32 output"):
+            int8_conv(x, wt, mult, bias, inv, relu, out_f32)
+        return
     got = int8_conv(x, wt, mult, bias, inv, relu, out_f32)
     want = int8_conv_plain(x, wt, mult, bias, inv, relu, out_f32)
     torch.cuda.synchronize()
@@ -883,17 +889,109 @@ def test_q1_int8_conv_equals_its_plain_version(cuda, b, h, w, c, f, out_f32, rel
 
 
 def test_q1_stem_columns_through_the_kernel(cuda):
-    """The stem (C = 3): packed 3x3 columns through Q1 as a 1x1 conv (BK 32)
-    equal the plain 3x3 conv of the raw three channels."""
+    """The stem (C = 3): the packed 3x3 columns that Q1_stem gathers in its
+    producer, by ``stem_weight``, equal the plain 3x3 conv (no columns) of
+    the requantized three channels."""
     from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
-        int8_conv, int8_conv_plain, stem_columns, stem_weight)
+        int8_conv_plain, int8_stem, requant_plain, stem_weight)
 
-    x, wt, mult, bias = _q1_inputs(cuda, 2, 13, 21, 3, 64, 3, 11)
-    inv = float(np.float32(1.0 / 0.02))
-    got = int8_conv(stem_columns(x), stem_weight(wt), mult, bias, inv, True, False)
+    _, wt, mult, bias = _q1_inputs(cuda, 1, 1, 1, 3, 64, 3, 11)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    img = torch.randint(0, 256, (2, 13, 21, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    avg = torch.tensor([123.68, 116.779, 103.939], device=cuda)
+    inv_in, inv = float(np.float32(1.0 / 1.2)), float(np.float32(1.0 / 0.02))
+    mult = mult * 10.0
+    got = int8_stem(img, avg, inv_in, stem_weight(wt), mult, bias, inv)
+    want = int8_conv_plain(requant_plain(img.float() - avg, inv_in), wt, mult, bias, inv, True,
+                           False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got != want).sum().item()
+    assert got.abs().max().item() > 0
+
+
+# (C, F, fp32 out) reaching each tile shape tile_shape picks: int8 8x16 tiles
+# by 64 at BK 64 with the weights resident (C = F = 64: one consumer
+# warpgroup, two blocks an SM); 16x16 by 128 at BK 64, F one tile or several,
+# also where F is a multiple of 256 but C not of 128; 8x16 by 256 at BK 128;
+# fp32 8x16 by 256 at BK 64
+Q1_TILE_CASES = [(64, 64, False), (64, 128, False), (128, 128, False), (64, 256, False),
+                 (128, 384, False), (128, 256, False), (512, 512, False), (64, 256, True),
+                 (128, 512, True), (512, 512, True)]
+
+
+@pytest.mark.parametrize("h,w", [(11, 15), (13, 21), (45, 60)])
+@pytest.mark.parametrize("c,f,out_f32", Q1_TILE_CASES)
+def test_q1_every_tile_shape_at_the_edge_maps(cuda, c, f, out_f32, h, w):
+    """Every tile shape Q1 compiles, on maps whose edges cut its tiles (TMA's
+    zero fill on the loads, its clipping on the stores): equal to the plain
+    version, int8 and fp32."""
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        _lib, int8_conv, int8_conv_plain, tile_shape)
+
+    th, _, bn, bk, cons = tile_shape(c, f, out_f32)
+    assert _lib().scl_int8_conv_config(0, th, bn, bk, int(out_f32), cons, c) >= 4
+    assert _lib().scl_int8_conv_config(4, th, bn, bk, int(out_f32), cons, c) == (bn == 64)
+    x, wt, mult, bias = _q1_inputs(cuda, 2, h, w, c, f, 3, c + f + h + w)
+    inv = float(np.float32(1.0 / 0.05))
+    got = int8_conv(x, wt, mult, bias, inv, True, out_f32)
+    want = int8_conv_plain(x, wt, mult, bias, inv, True, out_f32)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, h, w, f) and got.dtype == want.dtype
+    assert torch.equal(got, want), (got != want).sum().item()
+
+
+@pytest.mark.parametrize("b,h,w,c,f", [
+    (64, 45, 60, 128, 256),   # 1,536 tiles: many more than resident blocks
+    (7, 90, 120, 64, 128),    # 2,688 tiles, not a multiple of the SM count
+    (1, 180, 240, 64, 64),    # B = 1: 180 tiles over the full map
+    (1, 11, 15, 512, 512),    # 4 tiles: fewer than the SMs
+    (3, 22, 30, 512, 512),    # 36 tiles at K = 4,608
+])
+def test_q1_persistent_grid(cuda, b, h, w, c, f):
+    """The persistent blocks walk every tile once, whatever the count of
+    tiles against the SMs: equal to the plain version, and the same bits
+    twice."""
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_conv_plain)
+
+    x, wt, mult, bias = _q1_inputs(cuda, b, h, w, c, f, 3, b * h + w + c + f)
+    inv = float(np.float32(1.0 / 0.05))
+    got = int8_conv(x, wt, mult, bias, inv, True, False)
+    again = int8_conv(x, wt, mult, bias, inv, True, False)
     want = int8_conv_plain(x, wt, mult, bias, inv, True, False)
     torch.cuda.synchronize()
     assert torch.equal(got, want), (got != want).sum().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("b,h,w", [(2, 11, 15), (2, 13, 21), (2, 45, 60), (3, 180, 240),
+                                   (1, 1, 1)])
+def test_q1_stem_equals_its_plain_version(cuda, dtype, b, h, w):
+    """Q1_stem (the requant of the raw pixels, the 3x3 gather into 32-byte A
+    rows and conv1_1 in one kernel) against its plain version (the torch
+    requant, ``stem_columns``, the plain conv): the int8 maps equal, from
+    uint8 and from fp32 pixels, on maps whose edges cut its 8x16 tiles."""
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_stem, int8_stem_plain, stem_weight)
+
+    gen = torch.Generator(device=cuda).manual_seed(b + h + w)
+    if dtype == torch.uint8:
+        img = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    else:
+        img = torch.rand((b, h, w, 3), generator=gen, device=cuda) * 255.0
+    avg = torch.tensor([123.68, 116.779, 103.939], device=cuda)
+    inv_in = float(np.float32(1.0 / 1.2))
+    _, wt, mult, bias = _q1_inputs(cuda, 1, 1, 1, 3, 64, 3, 5)
+    mult = mult * 10.0
+    inv = float(np.float32(1.0 / 0.02))
+    args = (avg, inv_in, stem_weight(wt), mult, bias, inv)
+    got = int8_stem(img, *args)
+    want = int8_stem_plain(img, *args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, h, w, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want), (got != want).sum().item()
+    assert got.abs().max().item() > 0
 
 
 @pytest.mark.parametrize("shape", [(2, 180, 240, 64), (3, 11, 15, 512), (1, 45, 60, 256)])
@@ -909,10 +1007,25 @@ def test_q1_pool_equals_its_plain_version(cuda, shape):
 
 
 def test_q1_refuses_what_it_does_not_take(cuda):
-    from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_conv, int8_pool
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+        int8_conv, int8_pool, int8_stem, stem_weight)
 
     x, wt, mult, bias = _q1_inputs(cuda, 1, 8, 8, 48, 64, 3, 3)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="multiples of 64"):
         int8_conv(x, wt, mult, bias, 1.0, True, False)
+    x, wt, mult, bias = _q1_inputs(cuda, 1, 8, 8, 64, 64, 1, 3)
+    with pytest.raises(ValueError, match="3x3"):
+        int8_conv(x, wt, mult, bias, 1.0, True, False)
+    for c, f in ((256, 64), (64, 192)):  # F = 64 only at C = 64, its weights resident
+        x, wt, mult, bias = _q1_inputs(cuda, 1, 8, 8, c, f, 3, 3)
+        with pytest.raises(ValueError, match="F of 128 but at C = F = 64"):
+            int8_conv(x, wt, mult, bias, 1.0, True, False)
     with pytest.raises(ValueError, match="multiple of 16"):
         int8_pool(torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=cuda))
+    _, w3, mult, bias = _q1_inputs(cuda, 1, 1, 1, 3, 64, 3, 3)
+    avg = torch.zeros(3, device=cuda)
+    with pytest.raises(TypeError, match="uint8 or fp32"):
+        int8_stem(torch.zeros((1, 4, 4, 3), dtype=torch.int32, device=cuda), avg, 1.0,
+                  stem_weight(w3), mult, bias, 1.0)
+    with pytest.raises(ValueError, match="packed int8 weights"):
+        int8_stem(torch.zeros((1, 4, 4, 3), device=cuda), avg, 1.0, w3, mult, bias, 1.0)

@@ -124,12 +124,17 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert not any(lib in t.lower() for t in (gemm, sm90) for lib in ("cublas", "cudnn", "cutlass",
                                                                        "torch"))
     assert all("scl_cuda_error_string" in t for t in text.values())
-    # Q1's int8 conv is its own: an implicit GEMM on integer wgmma, the input
-    # gathered tap by tap as 4-D TMA boxes (no im2col), and Q1_pool beside it
+    # Q1's int8 conv is its own: a persistent implicit GEMM on integer wgmma,
+    # the input gathered tap by tap as 4-D TMA boxes (no im2col), the output
+    # stored by TMA; Q1_stem (the same kernel with the stem's producer) and
+    # Q1_pool beside it
     q1 = text["int8_conv"]
     assert "int scl_int8_conv(" in q1 and "int scl_int8_pool(" in q1
+    assert "int scl_int8_stem(" in q1 and "int scl_int8_stem_config(" in q1
     assert "wgmma_m64n256k32_s8" in q1 and "tma_load_4d" in q1 and "setmaxnreg" in q1
-    assert "rintf" in q1 and "__fmul_rn" in q1 and "__fadd_rn" in q1 and "roundf" not in q1
+    assert "tma_store_4d" in q1 and "gridDim.x" in q1
+    assert "rintf" in q1 and "__fmul_rn" in q1 and "__fadd_rn" in q1 and "__fsub_rn" in q1
+    assert "roundf" not in q1
     assert q1.count("__global__") == 2 and "mma_sync" not in q1
     assert not any(lib in q1.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
 

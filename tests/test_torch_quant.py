@@ -42,6 +42,8 @@ from soft_contrastive_learning_torch.models.weights import params_from_flax
 from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
     int8_conv_plain,
     int8_pool,
+    int8_stem,
+    requant_plain,
     stem_columns,
     stem_weight,
 )
@@ -168,7 +170,7 @@ def test_every_layer_matches_jax_fed_jaxs_input(flagship_like, hw):
     else:
         _, _, jparams, params, x = _setup(hw=hw, n=8)
         scales = jq.calibrate_scales(jparams, jnp.asarray(x))
-    stack = tq.QuantizedConvStack(params, scales)
+    stack = tq.QuantizedConvStack(params, scales, device="cpu")
     layers = _jax_layers(jparams, scales, x)
     # JAX's own stack ends where the unrolled one does
     np.testing.assert_array_equal(
@@ -194,6 +196,64 @@ def test_every_layer_matches_jax_fed_jaxs_input(flagship_like, hw):
             np.testing.assert_array_equal(int8_pool(torch.from_numpy(want.copy())).numpy(),
                                           pooled)
     assert off_by_one <= 1e-4 * total, (off_by_one, total)
+
+
+def _jax_stem_eager(jparams, scales, images):
+    """JAX's input requant and first int8 layer (conv1_1 with its ReLU and
+    conv1_2's requant), op by op as ``quantized_conv_stack`` writes them,
+    eagerly: no jit, so no contraction of the dequant's multiply and add."""
+    vgg = jparams["vgg16"]
+    a = jnp.asarray(images).astype(jnp.float32) - vgg["average_rgb"].astype(jnp.float32)
+    a8 = jq._requant(a, scales[jq.CONV_NAMES[0]])
+    k8, sk = jq._quantize_weight(vgg["block1"]["conv1_1"]["kernel"].astype(jnp.float32))
+    y32 = jax.lax.conv_general_dilated(a8, k8, (1, 1), "SAME",
+                                       dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                       preferred_element_type=jnp.int32)
+    y = y32.astype(jnp.float32) * (scales[jq.CONV_NAMES[0]] * sk) + \
+        vgg["block1"]["conv1_1"]["bias"].astype(jnp.float32)
+    return np.asarray(a8), np.asarray(jq._requant(jax.nn.relu(y), scales[jq.CONV_NAMES[1]]))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("hw", [(11, 15), (13, 21), (45, 60)])
+def test_int8_stem_plain_route_is_jaxs_requant_and_first_layer(flagship_like, dtype, hw):
+    """``int8_stem`` on CPU tensors (its plain route: requant, the packed
+    columns, the 1x1 conv and epilogue) gives exactly the int8 map of JAX's
+    input requant and conv1_1, from uint8 and from fp32 pixels; its requant
+    alone is JAX's ``_requant`` of the centred images."""
+    _, _, jparams, params, _, scales = flagship_like
+    rng = np.random.default_rng(hw[0] * hw[1])
+    if dtype == "uint8":
+        x = rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    else:
+        x = rng.random((2, *hw, 3), np.float32) * 255.0
+    params = dict(params)  # a trained-like centring (the init's average_rgb is zero)
+    params["vgg16.average_rgb"] = torch.tensor([123.68, 116.779, 103.939])
+    jparams = jax.tree_util.tree_map(lambda v: v, jparams)
+    jparams["vgg16"] = dict(jparams["vgg16"], average_rgb=jnp.asarray([123.68, 116.779, 103.939]))
+    want_a8, want = _jax_stem_eager(jparams, scales, x)
+    stack = tq.QuantizedConvStack(params, scales, device="cpu")
+    stem = stack.layers[0]
+    got_a8 = requant_plain(torch.from_numpy(x).float() - stack.average_rgb, stack.inv_in)
+    np.testing.assert_array_equal(got_a8.numpy(), want_a8)
+    got = int8_stem(torch.from_numpy(x), stack.average_rgb, stack.inv_in, stem["weight"],
+                    stem["mult"], stem["bias"], stem["inv_next"], stem["relu"])
+    assert got.dtype == torch.int8 and got.shape == (2, *hw, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_whole_stack_equals_jaxs_eager_stack(flagship_like, dtype):
+    """The port's conv stack (``int8_stem``, then ``int8_conv`` and
+    ``int8_pool`` on the CPU) gives JAX's eager ``quantized_conv_stack``
+    conv5_3 map bit for bit, from uint8 and from fp32 pixels."""
+    _, _, jparams, params, x, scales = flagship_like
+    if dtype == "uint8":
+        x = np.random.default_rng(7).integers(0, 256, x.shape, dtype=np.uint8)
+    want = np.asarray(jq.quantized_conv_stack(jparams["vgg16"], scales, jnp.asarray(x)))
+    got = tq.QuantizedConvStack(params, scales, device="cpu")(x).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def _top5(queries, index):
