@@ -141,7 +141,22 @@ failure:
    (10 per forward: steps, mining embeds, evals), the same checks, the
    standard epoch's first batch within 1e-2 relative of the standard
    configuration's loss, and the step timed against it in turns;
-17. train_files: the same toy city written as the prep pipeline's tree
+17. train_async: the train phase's epoch with async_mining, in turns with
+   the synchronous one (sync, async, async, sync): the async runs spawn a
+   worker at every boundary but the epoch's first (anchors 20-100), land 6
+   refreshes as the sync runs do, launch K1, its backward and K3 exactly as
+   train does, write 60 finite losses and leave no worker thread; an async
+   refresh from the same weights gives the sync refresh's window and
+   neighbour order bit for bit; each run's refresh wall (sync and async),
+   steady-window step and with_mining img/s are printed;
+18. bench_train: `cli bench --train` at JAX's defaults (600 poses, 2 tuples,
+   50 device steps) three ways, synchronous, --async_mining and --no_cache,
+   in a fresh temporary directory (the first builds the decoded-uint8
+   cache): each JSON line printed, every number finite, with_mining_step_ms
+   at least 0.9x sustained_step_ms, 300 timed steps, K1 and its backward
+   launched as the runs' steps, refreshes and evals call them, no K3; the
+   two phases' wall time;
+19. train_files: the same toy city written as the prep pipeline's tree
    (shuffled/, anchors/, clusters/, PNGs) with the port's writer, and `cli
    train` from it on the host feed (no device image pool: decoded on 8
    threads, built ahead by the Prefetcher) for 20 steps (the anchor list cut
@@ -153,7 +168,7 @@ failure:
    run-to-run floor (at least 1e-6) of the uninterrupted run, on its
    batches; decode img/s (as written, and every row Paeth) and the host-fed
    step beside the pooled one;
-18. losses: the 29 losses that need no streaming-PCA state (all of
+20. losses: the 29 losses that need no streaming-PCA state (all of
    LOSS_NAMES but incremental_*) at B = 50 on the trained flagship's
    descriptors of a batch from a dense toy city (1,200 poses 0.79 m apart,
    so that the 12 positives are mostly distinct), once for (1,12,12) and
@@ -171,7 +186,7 @@ failure:
    the logs of their top 512 values; cuSOLVER's
    eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
    float64 (the port's solve: must converge on all);
-19. train_zoo: `cli train --toy_city` from the trained weights on the
+21. train_zoo: `cli train --toy_city` from the trained weights on the
    pooled path with no --loss (so wrd) for 20 steps, then 10 steps each of
    pairwise_distance_neg_eigenvalue (PN: two forwards, two backwards, two
    Adam updates a step) and quadruplet: steps, refreshes, exact K1 and
@@ -180,7 +195,7 @@ failure:
    beside the median interval between step calls; then each loss's step
    and the flagship's wms step (K3) on one batch in turns, on the device
    and on the host behind queued work;
-20. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
+22. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
    and vlad_cores=0's flattened map) from the trained backbone and a seeded
    head, B = 50: widths, finite, cosine >= 0.99 to the fp32 plain path on
    the card (pca projected by a StreamingPCA fitted on 600 images; its
@@ -189,7 +204,7 @@ failure:
    index images to 512-D, pads them to 66,048 rows and searches 64 queries
    (K2 at D = 512): 16 index images at rank 0, squared distances within
    1e-5 of |q|^2 of an fp64 search;
-21. train_heads: `cli train` at the flagship's width from the trained
+23. train_heads: `cli train` at the flagship's width from the trained
    weights: --reduction pca --loss incremental_residual_mm (6 steps) and
    --reduction none with it (the 32,768-wide loss PCA, 4 steps), both from
    a prep tree of a 1,200-pose city with mining windows of 600 images (more
@@ -203,18 +218,18 @@ failure:
    step time beside the interval between step calls and each refresh's
    PCA fits, the host's PCA update at each width and the (2, 525, 525)
    float64 eigensolve;
-22. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+24. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
    img/s;
-23. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+25. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-24. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+26. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -224,7 +239,7 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-25. write the whole report with the card's name and power limit to
+27. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -1881,11 +1896,12 @@ def instrument(torch, tr, pooled=True):
 
 
 def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=None,
-                resume=None):
+                resume=None, hook=None):
     """One epoch through Trainer.train() from ``params``, every step timed
     on the device; fails unless the kernels launched ``expect`` times on it.
     ``out_dir``: a run directory that outlives the call (default: a
-    temporary one); ``resume``: the checkpoint role to take up from it first.
+    temporary one); ``resume``: the checkpoint role to take up from it first;
+    ``hook(tr)``: called on the instrumented trainer before the epoch.
     Returns the trainer (``instrument``: ``tr.drawn``, the image indices of
     every sample drawn), per-step losses and ms, the epoch's
     wall seconds and how many of them the eval hooks took (they render the
@@ -1899,6 +1915,8 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=No
         if resume is not None and not tr.resume_latest(resume):
             fail(f"{path}: no '{resume}' checkpoint to resume from in {out_dir}")
         instrument(torch, tr, pooled=cfg.device_image_pool)
+        if hook is not None:
+            hook(tr)
         t0 = time.perf_counter()  # set-up: render the city into the card's image pool
         tr._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))
         pool_s = time.perf_counter() - t0
@@ -2172,6 +2190,158 @@ def phase_train_winograd(torch, np, report, shared):
         median_step_ms=med, img_s=1e3 * b / med, epoch_s=epoch_s, eval_s=eval_s, save_s=save_s,
         epoch_img_s=60 * b / (epoch_s - eval_s - save_s), step_ms_by_config=step_ms_by,
         first_batch_rel_to_standard=rel, first_loss=losses[0], last_loss=losses[-1], evals=evals)
+
+
+# ---------------------------------------------------------------- async mining
+def phase_train_async(torch, np, report, shared):
+    """The train phase's epoch with ``async_mining``: every refresh but the
+    epoch's first on a worker thread, embedding with a copy of the
+    boundary's weights while the steps go on. In turns with the synchronous
+    epoch (sync, async, async, sync): each async run spawns at every
+    boundary but the first, lands as many refreshes as the sync run, and
+    launches K1, its backward and K3 exactly as the train phase does; then,
+    from the same weights, an async refresh's window and neighbour order
+    equal a sync refresh's bit for bit; no worker thread is left."""
+    import dataclasses
+    import threading
+
+    t_phase = time.perf_counter()
+    sync_cfg = train_config()
+    async_cfg = dataclasses.replace(sync_cfg, async_mining=True)
+    params, source, b = shared["train_params"], shared["source"], sync_cfg.images_per_batch
+    expect = {"K1": EPOCH_FORWARDS, "K1_bwd": 60, "K3": 60 + 2}
+    runs = {"sync": [], "async": []}
+    for turn, mode in enumerate(("sync", "async", "async", "sync")):
+        spawned = []
+
+        def spy(tr):
+            spawn = tr._spawn_mining_refresh
+            tr._spawn_mining_refresh = lambda *a: (spawned.append(a[1]), spawn(*a))[1]
+
+        cfg = async_cfg if mode == "async" else sync_cfg
+        path = "train_async" if turn == 1 else f"train_async_{mode}_{turn}"
+        tr, losses, step_ms, (epoch_s, eval_s, save_s), _, launches, _, _ = train_epoch(
+            torch, np, report, path, cfg, params, source, expect, hook=spy)
+        spans = tr.timer.summary()
+        left = [t.name for t in threading.enumerate() if t.name == "mining-refresh"]
+        want_spawned = [20, 40, 60, 80, 100] if mode == "async" else []
+        if (spawned != want_spawned or tr.mining.refresh_count != 6 or tr.global_step != 60
+                or tr._mining_thread is not None or left):
+            fail(f"{path}: spawned at {spawned} (expected {want_spawned}), "
+                 f"{tr.mining.refresh_count} refreshes, {tr.global_step} steps, worker left: "
+                 f"{tr._mining_thread} {left}")
+        if len(losses) != 60 or not np.isfinite(losses).all():
+            fail(f"{path}: {len(losses)} losses, finite: {np.isfinite(losses).all()}")
+        refresh = {name: (spans[name]["total_s"] / spans[name]["count"], spans[name]["count"])
+                   for name in ("mining_refresh", "mining_refresh_async") if name in spans}
+        runs[mode].append(dict(
+            epoch_s=epoch_s, eval_s=eval_s, save_s=save_s,
+            with_mining_img_s=60 * b / (epoch_s - eval_s - save_s),
+            median_step_ms=statistics.median(step_ms[1:]), refresh_s=refresh,
+            steady_ms=1e3 * spans["segment_steady"]["total_s"] / spans["segment_steady"]["count"],
+            launches=launches, first_loss=losses[0], last_loss=losses[-1]))
+        print(f"{path}: {mode} mining, with_mining {runs[mode][-1]['with_mining_img_s']:.1f} "
+              f"img/s (epoch {epoch_s:.2f} s, evals {eval_s:.2f} s, writes {save_s:.2f} s), "
+              f"steady windows {runs[mode][-1]['steady_ms']:.3f} ms a step, median step "
+              f"{runs[mode][-1]['median_step_ms']:.3f} ms; refresh wall (mean s, count) "
+              f"{refresh}; spawned at {spawned}; launches {launches}")
+
+    # from the same weights: an async refresh's window equals a sync one's
+    # the last trainer's image pool and weights are still on the card
+    meta = source.epoch_meta(sync_cfg.local_ref_set, 0)
+    anchors = np.asarray(source.anchor_indices(sync_cfg.local_ref_set, sync_cfg.train_ref_r, 0),
+                         dtype=int)
+    tr._ensure_image_pool(meta)
+    tr._mining_refresh(0, 20, 1, meta, anchors)
+    want = (tr.mining_cache._indices.copy(), tr.mining_cache._order.copy())
+    tr.mining_cache.refresh(np.zeros(1, dtype=int), np.zeros((1, 1), dtype=int))
+    tr._spawn_mining_refresh(0, 20, 1, meta, anchors)
+    tr._join_mining()
+    got = (tr.mining_cache._indices, tr.mining_cache._order)
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        fail("train_async: an async refresh's window or order differs from a sync refresh's "
+             f"from the same weights ({int((got[1] != want[1]).sum())} order entries)")
+    seconds = time.perf_counter() - t_phase
+    mean = {mode: statistics.mean(r["with_mining_img_s"] for r in rs) for mode, rs in runs.items()}
+    print(f"train_async: async refresh == sync refresh from the same weights (window and "
+          f"{want[1].shape} order bit-equal); with_mining img/s sync {mean['sync']:.1f}, async "
+          f"{mean['async']:.1f} (mean of 2 turns each); phase {seconds:.1f} s")
+    report["train_async"] = dict(turns=runs, with_mining_img_s=mean, same_content=True,
+                                 seconds=seconds)
+
+
+BENCH_TRAIN_RUNS = (("sync", []), ("async", ["--async_mining"]), ("no_cache", ["--no_cache"]))
+
+
+def bench_train_launches(cfg, num_points, scan_iters):
+    """K1 and its backward on one ``cli bench --train`` run: 2 x scan_iters
+    device steps, two epochs of steps, each epoch's refreshes (cache_size +
+    mining_step images in chunks of a batch) and one eval (the held-out
+    loss's batches and the localization embeds of both regions)."""
+    b, tpb = cfg.images_per_batch, cfg.tuples_per_batch
+    steps = -(-num_points // tpb)  # train_ref_r 1: every pose an anchor
+    refreshes = len([s for s in range(0, num_points, tpb) if s % cfg.mining_step == 0])
+    chunks = -(-(cfg.mining_cache_size + cfg.mining_step) // b)
+    n_ref = -(-num_points // cfg.eval_ref_r)
+    evals = cfg.num_eval_queries // tpb + 2 * (-(-n_ref // b) + -(-cfg.num_eval_queries // b))
+    bwd = 2 * scan_iters + 2 * steps
+    return {"K1": bwd + 2 * (refreshes * chunks + evals), "K1_bwd": bwd}
+
+
+def phase_bench_train(torch, np, report, shared):
+    """``cli bench --train`` at JAX's defaults (600 poses, 2 tuples, 50 device
+    steps) three ways: synchronous mining, --async_mining and --no_cache,
+    in one fresh temporary directory (the first run builds the decoded
+    cache, the second reads it). Each run's JSON line is printed; every
+    number must be finite and with_mining_step_ms at least 0.9x
+    sustained_step_ms; K1 and its backward launch as the runs' steps,
+    refreshes and evals call them, K3 never (JAX's bench trains the plain
+    wms)."""
+    import contextlib
+    import io
+
+    from soft_contrastive_learning_torch import bench_train, cli
+
+    t_phase = time.perf_counter()
+    cfg = bench_train.flagship_toy_config(2, 600)
+    expect = bench_train_launches(cfg, 600, 50)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    results = {}
+    saved_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tempfile.tempdir = tmp_dir  # the bench's scratch (and decoded cache) under it
+        try:
+            for name, flags in BENCH_TRAIN_RUNS:
+                counts = LaunchCounts(report, "bench_train" + ("" if name == "sync" else
+                                                               f"_{name}"))
+                log = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(log):  # the trainer's per-step lines
+                    rc = cli.main(["bench", "--train", *flags])
+                seconds = time.perf_counter() - t0
+                (out / f"bench_train_{name}.log").write_text(log.getvalue())
+                launches = counts.read(expect)
+                line = log.getvalue().strip().splitlines()[-1]
+                res = json.loads(line)
+                d = res["detail"]
+                numbers = [res["value"]] + [v for v in d.values() if isinstance(v, (int, float))]
+                if rc != 0 or not np.isfinite(numbers).all():
+                    fail(f"bench_train {name}: rc {rc}, a number not finite: {line}")
+                if not d["with_mining_step_ms"] >= 0.9 * d["sustained_step_ms"]:
+                    fail(f"bench_train {name}: with_mining_step_ms {d['with_mining_step_ms']} "
+                         f"< 0.9 x sustained_step_ms {d['sustained_step_ms']}")
+                if d["async_mining"] != (name == "async") or d["decoded_cache"] != (
+                        name != "no_cache") or d["steps"] != 300:
+                    fail(f"bench_train {name}: the run's settings are not the ones asked: {d}")
+                print(line)
+                print(f"bench_train {name}: {seconds:.1f} s; launches {launches}")
+                results[name] = dict(result=res, seconds=seconds, launches=launches)
+        finally:
+            tempfile.tempdir = saved_tmp
+    seconds = time.perf_counter() - t_phase
+    print(f"bench_train: three runs in {seconds:.1f} s")
+    report["bench_train"] = dict(runs=results, seconds=seconds)
 
 
 # ---------------------------------------------------------------- file-fed training
@@ -3647,6 +3817,8 @@ def main() -> int:
     phase_serve_winograd(torch, np, report, shared)
     phase_train(torch, np, report, shared)
     phase_train_winograd(torch, np, report, shared)
+    phase_train_async(torch, np, report, shared)
+    phase_bench_train(torch, np, report, shared)
     phase_train_files(torch, np, report, shared)
     phase_losses(torch, np, report, shared)
     phase_train_zoo(torch, np, report, shared)
@@ -3660,7 +3832,7 @@ def main() -> int:
     # run with the incremental loss for K1 and its backward, the 2fc run for
     # K3, the 1fc /search for K2, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it
-    paths = ("train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
+    paths = ("bench_train", "train_async", "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
              "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
              "serve", "probes")
     for kid in KERNEL_IDS:
@@ -3681,6 +3853,9 @@ def main() -> int:
 
     (out / "chip_smoke_report.json").write_text(
         json.dumps({"card": smi.stdout.strip(), "report": plain(report)}, default=str))
+    print(json.dumps({"train_async": report["train_async"],
+                      "bench_train": {name: {key: run[key] for key in ("seconds", "launches")}
+                                      for name, run in report["bench_train"]["runs"].items()}}))
     print(json.dumps({"heads": report["heads"], "train_heads": report["train_heads"]}))
     print(json.dumps({"losses": report["losses"], "train_zoo": report["train_zoo"]}))
     print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],

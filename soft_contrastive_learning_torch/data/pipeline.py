@@ -1,7 +1,8 @@
 """Host data pipeline: data sources, batch assembly, threaded prefetch.
 Own copy of ``soft_contrastive_learning_tpu/data/pipeline.py``
 (``FilesystemSource``, ``ToyCitySource``, ``load_images_standard`` with its
-decode pool, ``assemble_batch``, ``Prefetcher``) and of
+decode pool and the decoded cache's hook, ``assemble_batch``,
+``Prefetcher``) and of
 ``parallel/mesh.py::pad_to_multiple``.
 
 ``FilesystemSource`` reads the prep pipeline's tree: shuffled epoch CSVs,
@@ -127,9 +128,17 @@ def load_images_standard(source, keys: Sequence[ImageKey], cfg: TrainConfig,
                          pool: Optional[ThreadPoolExecutor] = None) -> np.ndarray:
     """Load and geometry-normalize images -> (B, H, W, 3) uint8 RGB, the
     (H, W) of ``cfg.model``, decoded on ``pool`` when one is given. NetVLAD
-    models keep aspect via a max-side resize; others scale and center-crop."""
+    models keep aspect via a max-side resize; others scale and center-crop.
+    A source with ``load_images_normalized`` (``data/decoded_cache.py``'s
+    ``CachedDecodedSource``) serves the batch from its memmap where it can;
+    where it returns None the images are decoded here."""
     h, w = cfg.model.image_height, cfg.model.image_width
     keep_aspect = cfg.model.vlad_cores > 0
+    fast = getattr(source, "load_images_normalized", None)
+    if fast is not None:
+        cached = fast(keys, h, w, keep_aspect)
+        if cached is not None:
+            return cached
 
     def one(key):
         return normalize_geometry(source.load_image(key), h, w, keep_aspect=keep_aspect)

@@ -142,6 +142,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches``. Under a lock: the training
+    thread and the async mining worker launch K1 at once, and ``+= 1`` on
+    an attribute is a read and a write."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a C entry point returned a non-zero cudaError_t."""
     if err != 0:

@@ -158,7 +158,7 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.
                                 b, h, wd, c, f, th, bn, bk, cons,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "Q1 int8_conv")
-    int8_conv.launches += 1
+    _build.count_launch(int8_conv)
     return out
 
 
@@ -192,7 +192,7 @@ def int8_pool(x: torch.Tensor) -> torch.Tensor:
         err = lib.scl_int8_pool(x.data_ptr(), out.data_ptr(), b, h, w, c,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "Q1_pool int8_pool")
-    int8_pool.launches += 1
+    _build.count_launch(int8_pool)
     return out
 
 
@@ -285,7 +285,7 @@ def int8_stem(images: torch.Tensor, average_rgb: torch.Tensor, inv_in: float, w:
                                 float(inv_next), int(relu), b, h, wd,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "Q1_stem int8_stem")
-    int8_stem.launches += 1
+    _build.count_launch(int8_stem)
     return out
 
 

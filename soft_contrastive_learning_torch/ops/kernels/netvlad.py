@@ -169,7 +169,7 @@ def _aggregate(features, assign_logits, neg_centers, with_scales: bool):
             x.data_ptr(), s.data_ptr(), int(s.dtype == torch.bfloat16), c.data_ptr(),
             out.data_ptr(), None if scales is None else scales.data_ptr(), b, n, d, k, _stream())
     _build.check(lib, err, "netvlad_aggregate_cuda")
-    netvlad_aggregate_cuda.launches += 1
+    _build.count_launch(netvlad_aggregate_cuda)
     return out, scales
 
 
@@ -229,7 +229,7 @@ def netvlad_backward_cuda(
             dx.data_ptr(), ds.data_ptr(), dc.data_ptr(), dv_mass.data_ptr(), b, n, d, k,
             _stream())
     _build.check(lib, err, "netvlad_backward_cuda")
-    netvlad_backward_cuda.launches += 1
+    _build.count_launch(netvlad_backward_cuda)
     return dx, ds, dc
 
 

@@ -180,7 +180,7 @@ def probe_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype: Optional[torch.dtype
             int(a.dtype == torch.int8), int(out_dtype == torch.bfloat16), config,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "probe_gemm")
-    probe_gemm.launches += 1
+    _build.count_launch(probe_gemm)
     return out
 
 

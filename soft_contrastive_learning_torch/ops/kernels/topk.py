@@ -166,7 +166,7 @@ def topk_l2_cuda(
             part_i.data_ptr(), dists.data_ptr(), idx.data_ptr(), nq, n_refs, d, k, p, n_lists,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "topk_l2_cuda")
-    topk_l2_cuda.launches += 1
+    _build.count_launch(topk_l2_cuda)
     return dists, idx
 
 

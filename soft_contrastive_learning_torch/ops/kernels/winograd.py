@@ -171,7 +171,7 @@ def winograd_conv_cuda(
             int(bool(relu)), int(out_dtype == torch.bfloat16), rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "winograd_conv_cuda")
-    winograd_conv_cuda.launches += 1
+    _build.count_launch(winograd_conv_cuda)
     return out
 
 
@@ -211,7 +211,7 @@ def winograd_stage(stage: int | str, x: torch.Tensor, weight: torch.Tensor,
         err = lib.scl_winograd_stage(stage, xb.data_ptr(), u.data_ptr(), out.data_ptr(), b, h, w,
                                      c, f, rows, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "winograd_stage")
-    winograd_stage.launches += 1
+    _build.count_launch(winograd_stage)
     return out if stage == 2 else out.to(torch.int64) & 0xFFFFFFFF
 
 

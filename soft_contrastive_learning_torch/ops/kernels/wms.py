@@ -147,7 +147,7 @@ def wms_loss_cuda(
             d, n_chunks, min(_resident_blocks(dev.index), work), d_alpha, d_beta, alpha, beta,
             lamb, eps, int(bool(ms_mining)), stream)
     _build.check(lib, err, "wms_loss_cuda")
-    wms_loss_cuda.launches += 1
+    _build.count_launch(wms_loss_cuda)
     return ws[layout["out"]]
 
 

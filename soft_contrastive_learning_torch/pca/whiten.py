@@ -18,6 +18,7 @@ sign-invariant quantities.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -29,16 +30,31 @@ from soft_contrastive_learning_torch.core.config import resolve_device
 _HOST_EIGH_THRESHOLD = 1024
 
 
+_tf32 = {"lock": threading.Lock(), "depth": 0, "saved": False}
+
+
 @contextlib.contextmanager
 def fp32_matmuls():
     """CUDA fp32 matrix products in full fp32 (TF32 off) inside the block;
-    the caller's setting is restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    the caller's setting is restored after. The flag is the process's, not
+    the thread's: where it is off already (PyTorch's default) nothing is
+    written; else the first block to enter, on any thread, clears it and the
+    last to leave sets it again, so that blocks that overlap on two threads
+    (a training step's spectral loss and a worker's) never restore a value
+    that another one set."""
+    with _tf32["lock"]:
+        if _tf32["depth"] == 0:
+            _tf32["saved"] = torch.backends.cuda.matmul.allow_tf32
+            if _tf32["saved"]:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _tf32["lock"]:
+            _tf32["depth"] -= 1
+            if _tf32["depth"] == 0 and _tf32["saved"]:
+                torch.backends.cuda.matmul.allow_tf32 = True
 
 
 def _eigh(mat: torch.Tensor, host: Optional[bool]):

@@ -162,7 +162,6 @@ def build_eval_loss_step(cfg: TrainConfig, model: EmbeddingNet, loss_fn: LossFn)
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model.eval()
         output, _ = _forward(cfg, model, batch, False)
         res = _loss_from_output(cfg, loss_fn, output, batch)
         if cfg.loss.pn_loss:
@@ -178,11 +177,13 @@ def build_embed_step(
     """Batch descriptor extraction: images -> (output, full_out), with no
     autograd state recorded and no PCA projection (the caller whitens, as
     JAX's). The model carries its config and parameters, which the JAX step
-    takes as arguments."""
+    takes as arguments. The forward runs in eval mode by its ``train=False``
+    argument and leaves the module's ``training`` flag alone (no forward
+    reads it): the live model of a training run is embedded between steps,
+    and by the async mining worker's twin while steps run."""
 
     @torch.inference_mode()
     def embed(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        model.eval()
-        return model(images)
+        return model(images, train=False)
 
     return embed

@@ -6,16 +6,25 @@ Per epoch: the source's shuffled metadata and anchors; the uint8 image set
 resident on the device (``data/device_pool.py``) when it is on and fits
 ``device_pool_max_bytes``; and segments between mining boundaries (the
 steps divisible by ``mining_step``). At each boundary the mining cache is
-refreshed synchronously. Each segment samples from a child generator seeded
-by a draw from the trainer's generator, so the sample stream matches the
-JAX trainer's. Steps stride by ``tuples_per_batch`` over the anchors.
+refreshed (``train/mining_manager.py``): synchronously, or with
+``async_mining`` on a worker thread while the segment trains on the previous
+window, under JAX's gate (``_mining_gate``): not the epoch's first refresh
+(its window indexes this epoch's shuffle), not a resume segment, no
+streaming PCA, one process. The worker is joined at the next boundary,
+cancelled at the epoch's end and on unwind. Each segment samples from a
+child generator seeded by a draw from the trainer's generator, so the
+sample stream matches the JAX trainer's. Steps stride by
+``tuples_per_batch`` over the anchors.
 
-Within a segment nothing waits for the card: the host samples batch i+1
-while the card runs step i, and the losses (with the PN losses' ``loss_pos``
+Within a segment nothing is fetched from the card: the host samples batch
+i+1 while the card runs step i (the batch's pageable copy to the card waits
+for the card's queue, so the host runs at most a step ahead), and the losses (with the PN losses' ``loss_pos``
 and ``loss_neg``) are fetched in one transfer at the segment's end, or
 before an eval so that the records stay in order, and written as JSONL
 (``metrics_local.jsonl``, the records of ``core/logging.py::MetricsWriter``)
-with ``global_step`` counted from 1.
+with ``global_step`` counted from 1; ``scalar_fetches`` and
+``scalar_fetch_s`` count those fetches and their seconds (JAX's
+``AsyncScalarLogger`` statistics; the port has no such thread).
 Without the device pool (the host-fed path) a ``Prefetcher`` thread samples
 the segment's batches in step order and decodes their images on the
 trainer's 8-thread pool (``_pool``), up to two batches ahead of the card, as
@@ -42,6 +51,17 @@ on the training loop before the next step. ``extract_features`` whitens
 with the PCA (``reduction='pca'``), so that the eval hooks see what JAX's
 see.
 
+``timer`` (``core/logging.py::StepTimer``) holds JAX's spans, host clock,
+no sync of their own: ``pool_build``, ``mining_refresh`` (a synchronous
+refresh), ``mining_refresh_async`` (the worker's), ``host_build`` (a
+batch's sampling, and its decode on the host-fed path), ``data_wait`` (the
+host-fed path's wait for it), ``dispatch_put`` (its copy to the card and the
+PCA feeds), ``train_step`` (the step's launch), ``pca_update``,
+``ckpt_save``, ``eval_loss``, ``eval_localization``, and ``segment_steady``:
+each segment's window between a device sync at its start and one at its
+end, the in-segment eval and save spans (``EVAL_SAVE_SPANS``) taken out,
+counted in steps. ``bench_train.py`` reads them.
+
 Checkpoints (``checkpoints/manager.py``) are written where the JAX loop
 writes them: the rolling one inside each eval, before the evals; a part one
 every ``save_step`` anchors; one at each epoch's end. Each holds the model,
@@ -58,6 +78,7 @@ the card when a save fires are fetched and written first, so a resumed run's
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Mapping, Optional
 
@@ -70,7 +91,7 @@ from soft_contrastive_learning_torch.checkpoints.manager import (
     numpy_rng_to_array,
 )
 from soft_contrastive_learning_torch.core.config import TrainConfig, resolve_device
-from soft_contrastive_learning_torch.core.logging import MetricsWriter, RunLogger
+from soft_contrastive_learning_torch.core.logging import MetricsWriter, RunLogger, StepTimer
 from soft_contrastive_learning_torch.data.device_pool import build_pool
 from soft_contrastive_learning_torch.data.pipeline import (
     Prefetcher,
@@ -84,7 +105,10 @@ from soft_contrastive_learning_torch.pca.async_updater import AsyncPCAUpdater
 from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
 from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
 from soft_contrastive_learning_torch.train.eval_hooks import EvalHooks
-from soft_contrastive_learning_torch.train.mining_manager import MiningManager
+from soft_contrastive_learning_torch.train.mining_manager import (  # noqa: F401
+    MiningCancelled as _MiningCancelled,  # JAX's trainer exports it under this name
+    MiningManager,
+)
 from soft_contrastive_learning_torch.train.step import (
     build_embed_step,
     build_eval_loss_step,
@@ -92,6 +116,17 @@ from soft_contrastive_learning_torch.train.step import (
     init_train_state,
 )
 from soft_contrastive_learning_torch.utils.meta import get_xy, get_yaw, image_keys
+
+# the spans that the steady windows and bench_train's with_mining leave out
+EVAL_SAVE_SPANS = ("eval_loss", "eval_localization", "ckpt_save")
+
+
+def _single_process() -> bool:
+    """No process group, or one of one: async mining's condition (JAX:
+    ``jax.process_count() == 1``); with more, a worker racing the main
+    loop would make the collectives' order the scheduler's."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1
 
 
 class Trainer:
@@ -112,6 +147,9 @@ class Trainer:
         os.makedirs(self.out_dir, exist_ok=True)
         cfg.save(os.path.join(self.out_dir, "config.json"))
         self.log = RunLogger(self.out_dir)
+        self.timer = StepTimer()
+        self.scalar_fetches = 0  # _write_train_metrics' device-to-host fetches
+        self.scalar_fetch_s = 0.0
         self.writers = {"local": MetricsWriter(self.out_dir, "local"),
                         "other": MetricsWriter(self.out_dir, "other")}
         self.ckpts = RunCheckpoints(self.out_dir, max_to_keep=cfg.max_to_keep)
@@ -189,18 +227,25 @@ class Trainer:
             batch["loss_pca_seen"] = float(np.float32(loss_sd["seen"]))
         return batch
 
-    def extract_features(self, meta, indices, full_feats: bool = False) -> torch.Tensor:
+    def extract_features(self, meta, indices, full_feats: bool = False, params=None,
+                         cancel=None) -> torch.Tensor:
         """Embed ``meta`` rows ``indices`` on the device in batches of
         ``images_per_batch`` (the last one padded): (len(indices), D)
         float32 on the device, the raw descriptors (``full_out``) with
         ``full_feats``, else the output; with ``reduction='pca'`` and the
         PCA initialized the output is whitened by it on the host, as the
-        JAX trainer does."""
+        JAX trainer does. ``params``: the ``EmbeddingNet`` to embed with
+        (the async refresh's copy of the boundary weights; default the
+        live model). ``cancel``: an event checked before each chunk, which
+        raises ``MiningCancelled``."""
+        embed = self.embed_step if params is None else build_embed_step(params)
         b = self.cfg.images_per_batch
         idx = pad_to_multiple(np.asarray(indices, dtype=int), b)
         pool = self._image_pool or None
         chunks = []
         for start in range(0, len(idx), b):
+            if cancel is not None and cancel.is_set():
+                raise _MiningCancelled()
             keys = image_keys(meta, idx[start : start + b])
             rows = pool.rows_for_keys(keys) if pool is not None else None
             if rows is not None:  # gather on the device
@@ -208,7 +253,7 @@ class Trainer:
             else:
                 images = torch.from_numpy(
                     load_images_standard(self.source, keys, self.cfg, self._pool)).to(self.device)
-            output, full = self.embed_step(images)
+            output, full = embed(images)
             chunks.append(full if full_feats else output)
         feats = torch.cat(chunks)[: len(indices)].float()
         if (not full_feats and self.cfg.model.reduction == "pca" and self.pca is not None
@@ -225,8 +270,10 @@ class Trainer:
         if not cfg.device_image_pool or self._image_pool is False:
             return
         if self._image_pool is None:
-            pool = build_pool(self.source, meta, cfg, self.device,
-                              max_bytes=cfg.device_pool_max_bytes, log=self.log, pool=self._pool)
+            with self.timer.span("pool_build"):
+                pool = build_pool(self.source, meta, cfg, self.device,
+                                  max_bytes=cfg.device_pool_max_bytes, log=self.log,
+                                  pool=self._pool)
             self._image_pool = pool if pool is not None else False
             if pool is None:
                 return
@@ -298,14 +345,23 @@ class Trainer:
             self.log(f"Resuming epoch {epoch} at segment step {int(steps[seg_start])}, "
                      f"skipping {skip} consumed batches")
         while seg_start < len(steps):
+            step0 = int(steps[seg_start])
+            spawn_args = None  # an async refresh, spawned just before the segment's loop
             if boundary[seg_start]:
-                # on a resume this rebuilds the cache with the restored weights, and
-                # leaves the restored PCA alone: it holds this boundary's update
-                self.log("Caching features for hard negative mining.")
-                self.mining.refresh(epoch, int(steps[seg_start]), mining_count, meta,
-                                    anchor_indices,
-                                    update_pca=not (resume_ctx is not None
-                                                    and int(steps[seg_start]) <= resume_step0))
+                # one refresh in flight at most: land the last one (and raise its error)
+                self._join_mining()
+                resume_segment = resume_ctx is not None and step0 <= resume_step0
+                if self._mining_gate(mining_count, resume_segment):
+                    self.log("Caching features for hard negative mining "
+                             "(async; training continues on the previous cache).")
+                    spawn_args = (epoch, step0, mining_count, meta, anchor_indices)
+                else:
+                    # on a resume this rebuilds the cache with the restored weights, and
+                    # leaves the restored PCA alone: it holds this boundary's update
+                    with self.timer.span("mining_refresh"):
+                        self.log("Caching features for hard negative mining.")
+                        self._mining_refresh(epoch, step0, mining_count, meta, anchor_indices,
+                                             update_pca=not resume_segment)
                 mining_count += 1
             later = np.flatnonzero(boundary[seg_start + 1 :])
             seg_end = seg_start + 1 + (int(later[0]) if len(later) else len(steps))
@@ -327,9 +383,50 @@ class Trainer:
                 self._sample(sampler, anchor_indices, s)
             skip = 0
             suppress_first = self._run_segment(epoch, seg_steps, anchor_indices, meta, sampler,
-                                               offset, suppress_first)
+                                               offset, suppress_first, spawn_args)
             seg_start = seg_end
+        # the next epoch's first refresh is synchronous on its own shuffle: a
+        # window still in flight would be thrown away, so it is cancelled
+        self._join_mining(cancel=True)
         self._seg_ctx = None
+
+    def _mining_gate(self, mining_count: int, resume_segment: bool) -> bool:
+        """Does this boundary's refresh run async? JAX's conditions
+        (``train/trainer.py``): the flag; not the epoch's first refresh,
+        whose window indexes this epoch's shuffle; not a resume segment;
+        no streaming PCA, whose update order is part of the training; one
+        process."""
+        return (self.cfg.async_mining and mining_count > 0 and not resume_segment
+                and self.pca is None and self.loss_pca is None and _single_process())
+
+    # The mining seams stay methods of the trainer, as in JAX, so that a test
+    # or a subclass can override one per instance; the spawn passes
+    # self._mining_refresh, so that the worker runs the override.
+    def _mining_refresh(self, *args, **kwargs) -> None:
+        return self.mining.refresh(*args, **kwargs)
+
+    def _spawn_mining_refresh(self, epoch: int, step0: int, mining_count: int, meta,
+                              anchor_indices) -> None:
+        self.mining.spawn(self._mining_refresh, epoch, step0, mining_count, meta, anchor_indices)
+
+    def _join_mining(self, raise_error: bool = True, cancel: bool = False) -> None:
+        self.mining.join(raise_error=raise_error, cancel=cancel)
+
+    @property
+    def _mining_thread(self):
+        return self.mining._thread
+
+    @property
+    def _mining_error(self):
+        return self.mining._error
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _span_total(self, *names) -> float:
+        summary = self.timer.summary()
+        return sum(summary.get(n, {}).get("total_s", 0.0) for n in names)
 
     def _sample(self, sampler: TupleSampler, anchor_indices, s: int):
         cfg = self.cfg
@@ -339,12 +436,16 @@ class Trainer:
         return sampler.sample(anchors, use_hard=True, cache=self.mining_cache)
 
     def _run_segment(self, epoch: int, seg_steps, anchor_indices, meta, sampler: TupleSampler,
-                     offset: int = 0, suppress_first: bool = False) -> bool:
+                     offset: int = 0, suppress_first: bool = False, spawn_args=None) -> bool:
         """The segment's steps from item ``offset`` on. ``suppress_first``
         holds back the first item's eval and part save: after a resume they
-        fired at the saved step already. Returns the flag for the next
-        segment (False once an item was reached)."""
+        fired at the saved step already. ``spawn_args``: the boundary's
+        async refresh, spawned once the segment is set up, inside the timed
+        window (the overlap is what it measures); from there every way out
+        joins the worker, the unwind's cancelling it. Returns the flag for
+        the next segment (False once an item was reached)."""
         cfg = self.cfg
+        timer = self.timer
         pool_rows = self._pool_rows
         updater = None
         if cfg.async_pca and (self.pca is not None or self.loss_pca is not None):
@@ -353,16 +454,24 @@ class Trainer:
         prefetch = None
         if pool_rows is None:  # host-fed: sample and decode ahead on the producer thread
             def build(j: int):
-                sample = self._sample(sampler, anchor_indices, int(seg_steps[offset + j]))
-                if sample is None:
-                    return None, None
-                return sample, assemble_batch(cfg, self.source, meta, sample.indices,
-                                              sample.payload, epoch, self._pool)
+                with timer.span("host_build"):
+                    sample = self._sample(sampler, anchor_indices, int(seg_steps[offset + j]))
+                    if sample is None:
+                        return None, None
+                    return sample, assemble_batch(cfg, self.source, meta, sample.indices,
+                                                  sample.payload, epoch, self._pool)
 
             prefetch = Prefetcher(build, len(seg_steps) - offset)
             batches = iter(prefetch)
         records = []  # (global_step, metrics: device losses and the lr)
+        done = offset
+        # the steady window: from a sync here to one after the loop, the
+        # in-segment eval and save spans taken out
+        self._sync()
+        t0, excluded0 = time.perf_counter(), self._span_total(*EVAL_SAVE_SPANS)
         try:
+            if spawn_args is not None:
+                self._spawn_mining_refresh(*spawn_args)
             for i in range(offset, len(seg_steps)):
                 s = int(seg_steps[i])
                 self._seg_ctx["consumed"] = i  # items behind us; a resume trains this one
@@ -374,31 +483,41 @@ class Trainer:
                     self._write_train_metrics(records)
                     self._save("part", self.global_step)
                 if prefetch is not None:
-                    sample, host_batch = next(batches)
+                    with timer.span("data_wait"):
+                        sample, host_batch = next(batches)
                 else:
-                    sample = self._sample(sampler, anchor_indices, s)
+                    with timer.span("host_build"):
+                        sample = self._sample(sampler, anchor_indices, s)
+                done = i + 1
                 if sample is None:
                     self.log("Faulty training batch... skipping.")
                     continue
-                snaps = updater.feed_states() if updater is not None else None
-                if prefetch is None:
-                    batch = self._to_device({"image_idx": pool_rows[sample.indices.reshape(-1)],
-                                             "epoch": np.float32(epoch), **sample.payload})
-                    self.state, metrics = self.train_step_pooled(
-                        self.state, self._augment_batch(batch, snaps), self._image_pool.array)
-                else:
-                    self.state, metrics = self.train_step(
-                        self.state, self._augment_batch(self._to_device(host_batch), snaps))
+                with timer.span("dispatch_put"):
+                    snaps = updater.feed_states() if updater is not None else None
+                    if prefetch is None:
+                        batch = self._augment_batch(self._to_device(
+                            {"image_idx": pool_rows[sample.indices.reshape(-1)],
+                             "epoch": np.float32(epoch), **sample.payload}), snaps)
+                    else:
+                        batch = self._augment_batch(self._to_device(host_batch), snaps)
+                with timer.span("train_step"):
+                    if prefetch is None:
+                        self.state, metrics = self.train_step_pooled(self.state, batch,
+                                                                     self._image_pool.array)
+                    else:
+                        self.state, metrics = self.train_step(self.state, batch)
                 self.used_images.update(sample.used_indices)
                 self.global_step += 1
-                self._update_pca(metrics.pop("pca_in", None), metrics.pop("loss_pca_in", None))
+                with timer.span("pca_update"):
+                    self._update_pca(metrics.pop("pca_in", None), metrics.pop("loss_pca_in", None))
                 records.append((self.global_step, metrics))
         except BaseException:
-            if updater is not None:  # the original error goes on; the worker's is logged
+            if updater is not None:  # the original error goes on; the workers' are logged
                 try:
                     updater.close()
                 except Exception as drain_err:
                     self.log(f"PCA worker error during unwind: {drain_err}")
+            self._join_mining(raise_error=False)
             raise
         else:
             if updater is not None:
@@ -409,6 +528,10 @@ class Trainer:
                 prefetch.close()
         self._seg_ctx["consumed"] = len(seg_steps)
         self._write_train_metrics(records)
+        self._sync()
+        timer.add("segment_steady",
+                  time.perf_counter() - t0 - (self._span_total(*EVAL_SAVE_SPANS) - excluded0),
+                  count=done - offset)
         return suppress_first
 
     def _update_pca(self, pca_in, loss_pca_in) -> None:
@@ -426,20 +549,25 @@ class Trainer:
 
     def _save(self, role: str, step: int) -> None:
         """A checkpoint with every update submitted so far applied."""
-        if self._updater is not None:
-            self._updater.drain()
-        self.ckpts.save(role, step, self.state, self._extras(), pca=self._pca_sd(),
-                        loss_pca=self._loss_pca_sd())
+        with self.timer.span("ckpt_save"):
+            if self._updater is not None:
+                self._updater.drain()
+            self.ckpts.save(role, step, self.state, self._extras(), pca=self._pca_sd(),
+                            loss_pca=self._loss_pca_sd())
 
     def _write_train_metrics(self, records: list) -> None:
         """Fetch the pending steps' losses (with the PN losses' ``loss_pos``
         and ``loss_neg``) in one device-to-host transfer, log and write
-        them, and empty ``records``."""
+        them, and empty ``records``; ``scalar_fetches`` and
+        ``scalar_fetch_s`` count the transfers and their seconds."""
         if not records:
             return
         keys = ("loss", "loss_pos", "loss_neg") if self.cfg.loss.pn_loss else ("loss",)
+        t0 = time.perf_counter()
         values = torch.stack([m[k] for _, m in records for k in keys]).reshape(
             len(records), len(keys)).tolist()
+        self.scalar_fetches += 1
+        self.scalar_fetch_s += time.perf_counter() - t0
         for (step, metrics), row in zip(records, values):
             losses = dict(zip(keys, row))
             self.log(f"Train batch loss: {losses['loss']}")
@@ -455,11 +583,13 @@ class Trainer:
         self.log("EVALUATING")
         gs = self.global_step
         self._save("rolling", gs)  # drains: the evals read the live PCA
-        self.evals.loss_other(epoch, gs, eval_ordinal)
-        self.evals.localization(epoch, gs, self.cfg.other_ref_set, self.cfg.other_query_set,
-                                "other", eval_ordinal)
-        self.evals.localization(epoch, gs, self.cfg.local_ref_set, self.cfg.local_query_set,
-                                "local", eval_ordinal)
+        with self.timer.span("eval_loss"):
+            self.evals.loss_other(epoch, gs, eval_ordinal)
+        with self.timer.span("eval_localization"):
+            self.evals.localization(epoch, gs, self.cfg.other_ref_set,
+                                    self.cfg.other_query_set, "other", eval_ordinal)
+            self.evals.localization(epoch, gs, self.cfg.local_ref_set,
+                                    self.cfg.local_query_set, "local", eval_ordinal)
 
     # ------------------------------------------------------------ resume
     def resume_latest(self, role: str = "rolling") -> bool:
@@ -487,6 +617,7 @@ class Trainer:
         return True
 
     def close(self) -> None:
+        self._join_mining(raise_error=False)
         self._pool.shutdown(wait=False)
         self.ckpts.wait()
         self.ckpts.close()

@@ -1029,3 +1029,54 @@ def test_q1_refuses_what_it_does_not_take(cuda):
                   stem_weight(w3), mult, bias, 1.0)
     with pytest.raises(ValueError, match="packed int8 weights"):
         int8_stem(torch.zeros((1, 4, 4, 3), device=cuda), avg, 1.0, w3, mult, bias, 1.0)
+
+
+def test_async_refresh_on_the_card_equals_a_sync_one(cuda, tmp_path):
+    """The async mining refresh on the card: the worker embeds (K1) with its
+    copy of the boundary's weights on the training stream, while the live
+    weights move; its window and neighbour order equal a sync refresh's
+    from the same weights bit for bit, and a whole async epoch lands every
+    refresh."""
+    import threading
+
+    from soft_contrastive_learning_torch.core.config import (
+        LossConfig, TrainConfig, TupleConfig)
+    from soft_contrastive_learning_torch.data.pipeline import ToyCitySource
+    from soft_contrastive_learning_torch.train.trainer import Trainer
+
+    cfg = TrainConfig(
+        model=ModelConfig(vlad_cores=8, image_height=64, image_width=80),
+        tuples=TupleConfig(positives_per_tuple=3, negatives_per_tuple=3,
+                           hard_positives_per_tuple=1, hard_negatives_per_tuple=1),
+        loss=LossConfig(name="wms", fused_wms=True), tuples_per_batch=1, max_epoch=1,
+        mining_step=6, mining_cache_size=10, eval_step=10**9, save_step=10**9,
+        num_eval_queries=4, eval_ref_r=4, async_mining=True, seed=0)
+    tr = Trainer(cfg, ToyCitySource(num_points=24, radius=30.0, img_h=64, img_w=80, seed=3),
+                 out_dir=str(tmp_path), device="cuda")
+    meta = tr.source.epoch_meta(cfg.local_ref_set, 0)
+    anchors = np.asarray(tr.source.anchor_indices(cfg.local_ref_set, cfg.train_ref_r, 0), int)
+    tr._ensure_image_pool(meta)
+    tr._mining_refresh(0, 6, 1, meta, anchors)
+    want = (tr.mining_cache._indices.copy(), tr.mining_cache._order.copy())
+    tr.mining_cache.refresh(np.zeros(1, dtype=int), np.zeros((1, 1), dtype=int))
+    before = netvlad_aggregate_cuda.launches
+    tr._spawn_mining_refresh(0, 6, 1, meta, anchors)
+    with torch.no_grad():  # launched behind the snapshot's copy on the same stream
+        for p in tr.state.model.parameters():
+            p.mul_(-1.0)
+    tr._join_mining()
+    assert netvlad_aggregate_cuda.launches - before == 3  # 16 images in chunks of 7
+    np.testing.assert_array_equal(tr.mining_cache._indices, want[0])
+    np.testing.assert_array_equal(tr.mining_cache._order, want[1])
+
+    spawned = []
+    spawn = tr._spawn_mining_refresh
+    tr._spawn_mining_refresh = lambda *a: (spawned.append(a[1]), spawn(*a))[1]
+    tr.mining.refresh_count = 0
+    tr.train_one_epoch(0)
+    assert spawned == [6, 12, 18] and tr.mining.refresh_count == 4
+    assert tr._mining_thread is None and tr._mining_error is None
+    assert not [t for t in threading.enumerate() if t.name == "mining-refresh"]
+    losses = [r["value"] for r in tr.writers["local"].read_all() if r["tag"] == "loss"]
+    assert len(losses) == 24 and np.isfinite(losses).all()
+    tr.close()

@@ -69,7 +69,11 @@ EVAL_SLICE = ("utils/io.py", "utils/experiments.py", "data/pipeline.py", "data/c
               "models/heads.py", "train/mining_manager.py",
               # the int8-PTQ serving path: its HTTP upload decodes without OpenCV
               "models/quant.py", "ops/kernels/int8_conv.py", "flagship.py", "benchmark.py",
-              "serving.py")
+              "serving.py",
+              # the training run's machinery: the train-loop benchmark, the decoded
+              # cache, the TensorBoard export and the job launcher
+              "bench_train.py", "data/decoded_cache.py", "core/tb_export.py",
+              "core/logging.py", "launch/jobs.py", "launch/__init__.py")
 
 
 @pytest.mark.parametrize("module", EVAL_SLICE)

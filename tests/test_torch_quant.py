@@ -393,21 +393,29 @@ def test_cli_quant_refuses_random_weights_and_writes_jaxs_scales(tmp_path, capsy
 
 
 def test_cli_bench_train_is_refused():
+    """``bench --train`` runs the train-loop benchmark
+    (``tests/test_torch_bench_train.py``). It is refused where it cannot
+    run: with --steps_per_dispatch other than 1 (not ported), and, without
+    a card, on its default CUDA device (no silent CPU fallback)."""
     from soft_contrastive_learning_torch.cli import main
 
-    with pytest.raises(SystemExit, match="async_mining"):
-        main(["bench", "--train", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="steps_per_dispatch 4: .*not ported"):
+        main(["bench", "--train", "--steps_per_dispatch", "4", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["bench", "--train"])
 
 
 @pytest.mark.parametrize("flags", [["--tuples_per_batch", "4"], ["--num_points", "50"],
                                    ["--no_cache"], ["--steps_per_dispatch", "2"],
                                    ["--async_mining"]])
 def test_cli_bench_refuses_the_train_loop_flags(flags):
-    """The flags of JAX's train-loop benchmark are kept for the parser's
-    parity and refused when set: nothing would read them."""
+    """The train-loop benchmark's flags are refused without --train (the
+    embed benchmark reads none of them), and --steps_per_dispatch other than
+    1 is refused with its reason whatever else is set."""
     from soft_contrastive_learning_torch.cli import main
 
-    with pytest.raises(SystemExit, match=f"bench {flags[0]}: .*async_mining"):
+    with pytest.raises(SystemExit, match=f"bench {flags[0]}.*: .*(pass --train|not ported)"):
         main(["bench", *flags, "--device", "cpu"])
 
 
