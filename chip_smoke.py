@@ -239,7 +239,31 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-27. write the whole report with the card's name and power limit to
+27. multidevice (data parallelism over torch.distributed; two ranks share
+   the one card on gloo, as NCCL refuses two ranks on one device):
+   dryrun_multichip(2) (the pooled step, a sharded top-k, the trainer's 12
+   steps with 6 refreshes, 4 evals and a resume at step 8 to 12, the ranks'
+   parameters bit-equal, K1, its backward and K2 launched on each rank);
+   the flagship at full width (B = 50, 25 a rank, fused wms: K3) from the
+   trained weights through Trainer(mesh=...) for the train phase's
+   configuration cut to 12 steps (mining every 4 anchors, evals every 6, a
+   part checkpoint at step 8 and a fresh trainer resumed from it to 12),
+   with fp32 convs (in bf16 weights one ulp apart draw other hard examples
+   after the third refresh: md_train_config), against the same run in one
+   process and a one-process run one ulp apart: every step's loss within 1e-5 relative, every rank's parameters
+   bit-equal to rank 0's, the final parameters within 10x the nudged runs'
+   gap (at least 1e-6), refreshes at the same anchors, K1, its backward and
+   K3 launched on each rank as the one-process run launches them, the
+   run's files written once by rank 0; the sharded search: the 66,048 x
+   32,768 index of eighths split over the ranks (4.33 GB each, each half
+   made on its rank), K2 on each half, 64 queries at k = 5 and 128: ids
+   equal to the one-process K2's and to an fp64 search's, ties across the
+   halves to the smaller id, distances within 1e-6 relative; the flagship's
+   pooled step on a one-rank NCCL group against the step without a group.
+   Printed beside the card's name and power limit: a step on two ranks
+   and in one process (fp32 and the flagship's bf16), the 59 MB gradient all-reduce (gloo, and NCCL on one
+   rank), a sharded search and K2 on a half beside the one-process K2;
+28. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -3777,6 +3801,419 @@ def phase_topn_250k(torch, np, report, shared):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ multidevice
+# Two ranks share the one card (gloo: NCCL refuses two ranks on one device).
+MD_RANKS = 2
+# the sharded search: the serve phase's index, 66,048 x 32,768 fp32 (8.66 GB),
+# half on each rank; drawn in seeded chunks of MD_CHUNK rows (a rank's 33,024
+# rows are 129 of them), so that each rank makes its own half alone
+MD_INDEX_ROWS, MD_INDEX_DIM, MD_QUERIES, MD_CHUNK, MD_SEED = 66_048, 32_768, 64, 256, 14
+MD_DUPLICATES = {40_000: 5, 60_000: 33_000}  # rows copied across the halves: ties
+MD_TIMEOUT_S = 600  # each spawned rank's deadline, and the group's
+# the kernels' launches on one rank of the flagship's 12-step run: 12 steps; 6
+# refreshes of 104 images in 3 chunks of 50; 4 evals of 2 held-out loss batches
+# and 4 embeds; the resumed run from step 8: 4 steps, 2 refreshes, 1 eval
+MD_LAUNCHES = {"K1": 12 + 6 * 3 + 4 * 6, "K1_bwd": 12, "K3": 12 + 4 * 2}
+MD_RESUMED_LAUNCHES = {"K1": 4 + 2 * 3 + 6, "K1_bwd": 4, "K3": 4 + 2}
+
+
+def md_train_config():
+    """The train phase's configuration cut to the dryrun's geometry: 24
+    anchors (one every 40 m of the 120-pose city: 12 steps), mining every 4
+    anchors over the train phase's cache of 100 (6 refreshes), the eval
+    hooks every 6 anchors (4), a part checkpoint every 8 (resumed at step 8);
+    the convs in fp32. In bf16 a step's rounding decides which neighbours a
+    later refresh ranks first: weights one ulp apart already drew other
+    hard examples after the third refresh, their losses 1.1e-3 apart
+    (measured on an NVIDIA H100 80GB HBM3 at 700 W), so a bf16 run cannot
+    be held to 1e-5 past it. The bf16 step is timed on the ranks beside fp32's."""
+    import dataclasses
+
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+
+    return dataclasses.replace(train_config(), model=ModelConfig(compute_dtype="float32"),
+                               mining_step=4, eval_step=6, save_step=8, train_ref_r=40)
+
+
+def md_index_rows(torch, start, stop):
+    """Rows ``start`` .. ``stop - 1`` of the sharded search's index on the
+    card: multiples of 1/8 in [-1, 1], each chunk of MD_CHUNK rows drawn
+    from a seed of its own; the MD_DUPLICATES rows copy a row of the other
+    half."""
+    out = torch.empty((stop - start, MD_INDEX_DIM), dtype=torch.float32, device="cuda")
+    for c in range(start // MD_CHUNK, -(-stop // MD_CHUNK)):
+        gen = torch.Generator(device="cuda").manual_seed(MD_SEED * 1_000_003 + c)
+        m = torch.randint(-8, 9, (MD_CHUNK, MD_INDEX_DIM), generator=gen, device="cuda")
+        lo, hi = max(c * MD_CHUNK, start), min((c + 1) * MD_CHUNK, stop)
+        out[lo - start : hi - start] = m[lo - c * MD_CHUNK : hi - c * MD_CHUNK].float() / 8.0
+    for dst, src in MD_DUPLICATES.items():
+        if start <= dst < stop:
+            out[dst - start] = md_index_rows(torch, src, src + 1)[0]
+    return out
+
+
+def md_queries(torch):
+    """64 queries in eighths; query 0 is index row 5 (distance 0 to rows 5
+    and 40,000: the tie goes to 5), query 1 row 50,000."""
+    gen = torch.Generator(device="cuda").manual_seed(MD_SEED)
+    q = torch.randint(-8, 9, (MD_QUERIES, MD_INDEX_DIM), generator=gen, device="cuda").float() / 8
+    q[0] = md_index_rows(torch, 5, 6)[0]
+    q[1] = md_index_rows(torch, 50_000, 50_001)[0]
+    return q
+
+
+def md_synced_ms(torch, fn, reps):
+    """Median host ms of ``fn`` between two synchronizations, ``reps``
+    calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def md_search_rank(mesh, ks, reps):
+    """One rank of the sharded search (``run_ranks``'s target): its half of
+    the index made on the card, ``topk_l2_sharded`` of the 64 queries at
+    each k (K2 on the half), the merged result, K2's launches in the first
+    call, and the median ms of a sharded search and of K2 on the half
+    alone, both ranks timing at once."""
+    import torch
+
+    from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_cuda
+    from soft_contrastive_learning_torch.ops.topk import topk_l2_sharded, topk_l2_streamed
+    from soft_contrastive_learning_torch.parallel.mesh import barrier
+
+    rows = mesh.rows(MD_INDEX_ROWS)
+    shard, q = md_index_rows(torch, rows.start, rows.stop), md_queries(torch)
+    out = {}
+    for k in ks:
+        before = topk_l2_cuda.launches
+        d, i = topk_l2_sharded(q, shard, k, mesh)
+        launches = topk_l2_cuda.launches - before
+        barrier(mesh)
+        ms = md_synced_ms(torch, lambda: topk_l2_sharded(q, shard, k, mesh), reps)
+        barrier(mesh)
+        k2_ms = md_synced_ms(torch, lambda: topk_l2_streamed(q, shard, k), reps)
+        out[k] = dict(dists=d.cpu().numpy(), ids=i.cpu().numpy(), launches=launches, ms=ms,
+                      k2_half_ms=k2_ms)
+    return {"rank": mesh.rank, "backend": mesh.backend, "rows": (rows.start, rows.stop),
+            "search": out}
+
+
+def md_flagship_rank(mesh, cfg, out_dir, reps):
+    """One rank of the flagship's data-parallel run (``run_ranks``'s
+    target): the trained weights, the toy city's pool on the card, 12 steps
+    through Trainer(mesh=...), then a fresh trainer resumed from the part
+    checkpoint at step 8 to 12; each run's K1/K1_bwd/K3 launches, the
+    parameters' digests (and rank 0's final parameters), the primary's
+    metrics; then a step on the first batch timed (host clock between
+    synchronizations) and the 59 MB all-reduce of the gradients timed."""
+    import numpy as np
+    import torch
+
+    from soft_contrastive_learning_torch.dryrun import (
+        metric_series, kernel_launches, params_digest, record_refreshes)
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+    from soft_contrastive_learning_torch.parallel.mesh import all_reduce_sum, barrier
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+    from soft_contrastive_learning_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the one-process runs
+    torch.backends.cudnn.allow_tf32 = False
+    params = load_trained_params(cfg=cfg.model)
+    source = toy_city()
+    tr = Trainer(cfg, source, out_dir=out_dir, params=params, mesh=mesh)
+    refreshes = record_refreshes(tr)
+    first = {}
+    step = tr.train_step_pooled
+
+    def keep_first(state, batch, pool):
+        if not first:
+            first.update({k: v.clone() if torch.is_tensor(v) else v for k, v in batch.items()})
+        return step(state, batch, pool)
+
+    tr.train_step_pooled = keep_first
+    tr._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))  # set-up, not counted
+    before = kernel_launches()
+    tr.train()
+    tr.close()
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    barrier(mesh)
+    series = metric_series(out_dir) if tr.primary else None
+    final = {k: v.detach().clone() for k, v in tr.state.model.state_dict().items()}
+    digest = params_digest(tr.state.model)
+
+    tr2 = Trainer(cfg, source, out_dir=out_dir, params=params, mesh=mesh)
+    if not tr2.resume_latest("part") or tr2.global_step != 8:
+        raise RuntimeError(f"resume from part@8 failed: at step {tr2.global_step}")
+    resumed_refreshes = record_refreshes(tr2)
+    tr2._ensure_image_pool(source.epoch_meta(cfg.local_ref_set, 0))
+    before = kernel_launches()
+    tr2.train()
+    tr2.close()
+    resumed_launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    state = tr2.state.model.state_dict()
+    result = {
+        "rank": mesh.rank, "backend": mesh.backend, "steps": tr.global_step,
+        "refreshes": refreshes, "resumed_refreshes": resumed_refreshes,
+        "resumed_steps": tr2.global_step, "launches": launches,
+        "resumed_launches": resumed_launches, "digest": digest,
+        "resumed_digest": params_digest(tr2.state.model),
+        "resumed_vs_uninterrupted": max((state[k] - final[k]).abs().max().item() for k in final),
+        "writes": {"primary": tr.primary, "metrics": tr.writers["local"].enabled,
+                   "checkpoints": tr.ckpts.enabled},
+        "series": series,
+        "final": {k: v.cpu().numpy() for k, v in final.items()} if mesh.rank == 0 else None,
+    }
+    barrier(mesh)
+    result["step_ms"] = md_synced_ms(
+        torch, lambda: step(tr.state, dict(first), tr._image_pool.array), reps)
+    bf16 = train_config()  # the flagship's bf16 step on the same rows
+    model = EmbeddingNet(bf16.model)
+    model.load_state_dict(params)
+    bf16_state = init_train_state(bf16, model.to(mesh.device))
+    bf16_step = build_train_step(bf16, build_loss(bf16.loss, bf16.tuples, bf16.tuples_per_batch),
+                                 image_pool=True, mesh=mesh)
+    barrier(mesh)
+    result["bf16_step_ms"] = md_synced_ms(
+        torch, lambda: bf16_step(bf16_state, dict(first), tr._image_pool.array), reps)
+    n = sum(p.numel() for p in tr.state.model.parameters())
+    flat = torch.zeros(n, device=mesh.device)
+    barrier(mesh)
+    result["allreduce_ms"] = md_synced_ms(torch, lambda: all_reduce_sum(flat, mesh), reps)
+    result["allreduce_bytes"] = 4 * n
+    if not np.isfinite([v.float().sum().item() for v in state.values()]).all():
+        raise RuntimeError("non-finite parameters after the resumed run")
+    return result
+
+
+def md_record(report, path, launches):
+    """A rank's K1/K1_bwd/K2/K3 counts into each kernel's launches_by_path."""
+    for kid in KERNEL_IDS:
+        report.setdefault(kid, {}).setdefault("launches_by_path", {})[path] = \
+            launches.get(kid, 0)
+
+
+def phase_multidevice(torch, np, report, shared):
+    """Data parallelism on the card: (1) ``dryrun_multichip(2)``, two ranks
+    sharing the card on gloo; (2) the flagship at full width on two ranks
+    (25 images each; fp32 convs, ``md_train_config``) against one process
+    from the same trained weights:
+    every step's loss within 1e-5 relative, every rank's parameters
+    bit-equal to rank 0's, the final parameters within 10x the gap between
+    two one-process runs one ulp apart (at least 1e-6), the launches of K1,
+    its backward and K3 per rank those of the one-process run, one writer;
+    (3) the sharded search of the 66,048 x 32,768 index, half a rank, K2 on
+    each half, at k = 5 and 128: ids equal to the one-process K2's and to an
+    fp64 search's, distances within 1e-6 relative of the fp64 search's;
+    (4) the flagship's pooled step on a one-rank NCCL group against the
+    step without a group. Times are a record, not a scaling claim: the two
+    ranks share one card."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from soft_contrastive_learning_torch.dryrun import dryrun_multichip, record_refreshes
+    from soft_contrastive_learning_torch.launch.multihost import free_port, run_ranks
+    from soft_contrastive_learning_torch.losses.registry import build_loss
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.ops.topk import topk_l2_streamed
+    from soft_contrastive_learning_torch.parallel.mesh import all_reduce_sum, make_mesh
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.train.step import build_train_step, init_train_state
+
+    t_phase = time.perf_counter()
+    card = common.card_line()
+    torch.cuda.empty_cache()
+    out = {"card": card}
+
+    # (1) the dryrun
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MD_RANKS, device="cuda", timeout_s=MD_TIMEOUT_S)
+    for r in dry:
+        md_record(report, f"multidevice_dryrun_r{r['rank']}", r["launches"])
+        if min(r["launches"][k] for k in ("K1", "K1_bwd", "K2")) < 1 or r["backend"] != "gloo":
+            fail(f"multidevice dryrun rank {r['rank']}: {r['backend']}, launches {r['launches']}")
+    out["dryrun"] = dict(seconds=time.perf_counter() - t0, backend=dry[0]["backend"],
+                         loss=dry[0]["loss"], launches=[r["launches"] for r in dry],
+                         refreshes=dry[0]["trainer"]["refresh_count"],
+                         resumed_vs_uninterrupted=dry[0]["trainer"]["resumed_vs_uninterrupted"])
+
+    # (2) the flagship on two ranks against one process
+    cfg = md_train_config()
+    params, source = shared["train_params"], shared["source"]
+    one = {}
+    for label, weights in (("one", params), ("one_nudged", {
+            k: torch.nextafter(v, torch.full_like(v, float("inf"))) if v.is_floating_point()
+            else v for k, v in params.items()})):
+        tr, losses, _, _, _, _, _, first = train_epoch(
+            torch, np, report, f"multidevice_{label}", cfg, weights, source,
+            {**MD_LAUNCHES, "K2": 0},
+            hook=lambda t: setattr(t, "md_refreshes", record_refreshes(t)))
+        one[label] = dict(losses=np.asarray(losses), tr=tr, first=first,
+                          final={k: v.detach().clone() for k, v in
+                                 tr.state.model.state_dict().items()})
+    run_root = tempfile.mkdtemp(prefix="scl_md_")
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke.md_flagship_rank", MD_RANKS, (cfg, run_root, 10),
+                      device="cuda", timeout_s=MD_TIMEOUT_S)
+    flagship_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    a, b = one["one"], one["one_nudged"]
+    floor = max((a["final"][k] - b["final"][k]).abs().max().item() for k in a["final"])
+    floor_loss = float(np.abs(a["losses"] - b["losses"]).max() / np.abs(a["losses"]).max())
+    got_losses = np.asarray([r0["series"][("local", "loss", s)][0] for s in range(1, 13)])
+    loss_rel = float((np.abs(got_losses - a["losses"]) / np.abs(a["losses"])).max())
+    param_gap = max(float(np.abs(r0["final"][k] - a["final"][k].cpu().numpy()).max())
+                    for k in r0["final"])
+    gate = max(10 * floor, 1e-6)
+    checks = {
+        "backend gloo": all(r["backend"] == "gloo" for r in ranks),
+        "12 steps, resumed at 8 to 12": all(r["steps"] == 12 and r["resumed_steps"] == 12
+                                           for r in ranks),
+        "ranks bit-equal": len({(r["digest"], r["resumed_digest"]) for r in ranks}) == 1,
+        "refreshes as one process": all(r["refreshes"] == a["tr"].md_refreshes for r in ranks),
+        "launches per rank": all(
+            {k: r["launches"][k] for k in MD_LAUNCHES} == MD_LAUNCHES and r["launches"]["K2"] == 0
+            and {k: r["resumed_launches"][k] for k in MD_RESUMED_LAUNCHES} == MD_RESUMED_LAUNCHES
+            for r in ranks),
+        "one writer": [r["writes"] for r in ranks] == [
+            {"primary": True, "metrics": True, "checkpoints": True},
+            {"primary": False, "metrics": False, "checkpoints": False}],
+        "records once": all(len(v) == 1 for v in r0["series"].values()),
+        "part checkpoints 0, 4, 8": sorted(
+            int(p.name) for p in (Path(run_root) / "checkpoints" / "part").iterdir()) == [0, 4, 8],
+        "losses within 1e-5": loss_rel <= 1e-5,
+        "final parameters within 10x the nudged floor": param_gap <= gate,
+        "resumed within 10x the floor": all(r["resumed_vs_uninterrupted"] <= gate for r in ranks),
+    }
+    shutil.rmtree(run_root, ignore_errors=True)
+    for r in ranks:
+        md_record(report, f"multidevice_flagship_r{r['rank']}", r["launches"])
+        md_record(report, f"multidevice_resumed_r{r['rank']}", r["resumed_launches"])
+    one_ms = {}
+    for label, c in (("fp32", cfg), ("bf16", train_config())):
+        model = EmbeddingNet(c.model)
+        model.load_state_dict(params)
+        state = init_train_state(c, model.cuda())
+        one_step = build_train_step(c, build_loss(c.loss, c.tuples, c.tuples_per_batch),
+                                    image_pool=True)
+        one_ms[label] = md_synced_ms(torch, lambda: one_step(
+            state, dict(a["first"]), a["tr"]._image_pool.array), 10)
+    out["flagship"] = dict(
+        seconds=flagship_s, ranks=MD_RANKS, images_per_rank=cfg.images_per_batch // MD_RANKS,
+        loss_rel_max=loss_rel, floor_loss_rel=floor_loss, param_gap=param_gap,
+        nudged_floor=floor, gate=gate,
+        resumed_vs_uninterrupted=[r["resumed_vs_uninterrupted"] for r in ranks],
+        launches_per_rank=[r["launches"] for r in ranks],
+        step_ms_two_ranks=[r["step_ms"] for r in ranks], step_ms_one_process=one_ms["fp32"],
+        bf16_step_ms_two_ranks=[r["bf16_step_ms"] for r in ranks],
+        bf16_step_ms_one_process=one_ms["bf16"],
+        allreduce_bytes=r0["allreduce_bytes"],
+        allreduce_ms_gloo=[r["allreduce_ms"] for r in ranks],
+        checks=checks)
+    flag = out["flagship"]
+    print(f"{card}: multidevice flagship (fp32 convs) on {MD_RANKS} ranks (gloo, one card) in "
+          f"{flagship_s:.1f} s: losses within {loss_rel:.3g} relative of one process (the "
+          f"nudged run's {floor_loss:.3g}), final parameters {param_gap:.3g} apart (nudged "
+          f"floor {floor:.3g}, gate {gate:.3g}); a step (fp32 | bf16) "
+          f"{statistics.mean(flag['step_ms_two_ranks']):.2f} | "
+          f"{statistics.mean(flag['bf16_step_ms_two_ranks']):.2f} ms on 2 ranks, "
+          f"{one_ms['fp32']:.2f} | {one_ms['bf16']:.2f} ms in one process; the "
+          f"{r0['allreduce_bytes'] / 1e6:.1f} MB gradient all-reduce "
+          f"{statistics.mean(flag['allreduce_ms_gloo']):.2f} ms (gloo); checks {checks}")
+    if not all(checks.values()):
+        fail(f"multidevice flagship: {checks}")
+
+    # (3) the sharded search
+    t0 = time.perf_counter()
+    ks = (5, 128)
+    search = run_ranks("chip_smoke.md_search_rank", MD_RANKS, (ks, 10), device="cuda",
+                       timeout_s=MD_TIMEOUT_S)
+    search_s = time.perf_counter() - t0
+    for r in search:
+        md_record(report, f"multidevice_search_r{r['rank']}",
+                  {"K2": sum(v["launches"] for v in r["search"].values())})
+    refs = md_index_rows(torch, 0, MD_INDEX_ROWS)
+    q = md_queries(torch)
+    want_sq, want_i, _ = exact_search(torch, q, refs, max(ks))
+    rows = {}
+    for k in ks:
+        d1, i1 = topk_l2_streamed(q, refs, k)
+        one_ms = md_synced_ms(torch, lambda: topk_l2_streamed(q, refs, k), 10)
+        exact_d = want_sq[:, :k].sqrt().cpu().numpy()
+        for r in search:
+            got = r["search"][k]
+            ok = (np.array_equal(got["ids"], i1.cpu().numpy())
+                  and np.array_equal(got["ids"], want_i[:, :k].cpu().numpy())
+                  and got["launches"] >= 1
+                  and float((np.abs(got["dists"] - exact_d) / np.maximum(exact_d, 1e-30))
+                            [exact_d > 0].max()) <= 1e-6
+                  and np.all(got["dists"][exact_d == 0] == 0))
+            if not ok or got["ids"][0, 0] != 5:
+                fail(f"multidevice search k={k}, rank {r['rank']}: ids or distances differ "
+                     f"from the one-process K2 / fp64 search")
+        rows[k] = dict(sharded_ms=[r["search"][k]["ms"] for r in search],
+                       k2_half_ms=[r["search"][k]["k2_half_ms"] for r in search],
+                       one_process_k2_ms=one_ms)
+        print(f"{card}: multidevice search k={k}: sharded over {MD_RANKS} ranks (gloo, one "
+              f"card) {statistics.mean(rows[k]['sharded_ms']):.3f} ms, K2 on a half "
+              f"{statistics.mean(rows[k]['k2_half_ms']):.3f} ms with both ranks at once, "
+              f"one-process K2 {one_ms:.3f} ms; ids equal to the one-process K2's and fp64's")
+    del refs
+    torch.cuda.empty_cache()
+    out["search"] = dict(seconds=search_s, rows=MD_INDEX_ROWS, dim=MD_INDEX_DIM,
+                         queries=MD_QUERIES, by_k=rows, backend=search[0]["backend"])
+
+    # (4) the pooled step on a one-rank NCCL group
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(devices=["cuda:0"])
+        c = train_config()
+        batch, pool = shared["first_batch"], shared["pool"]
+        got = {}
+        for label, m in (("nccl", mesh), ("none", None), ("none_again", None)):
+            model = EmbeddingNet(c.model)
+            model.load_state_dict(params)
+            state = init_train_state(c, model.cuda())
+            step = build_train_step(c, build_loss(c.loss, c.tuples, c.tuples_per_batch),
+                                    image_pool=True, mesh=m)
+            counts = LaunchCounts(report, f"multidevice_{label}")
+            loss = step(state, dict(batch), pool)[1]["loss"].item()
+            counts.read({"K1": 1, "K1_bwd": 1, "K3": 1})
+            after = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+            got[label] = (loss, after,
+                          md_synced_ms(torch, lambda: step(state, dict(batch), pool), 10))
+        nccl_floor = max((got["none"][1][k] - got["none_again"][1][k]).abs().max().item()
+                         for k in params)
+        nccl_gap = max((got["nccl"][1][k] - got["none"][1][k]).abs().max().item() for k in params)
+        flat = torch.zeros(r0["allreduce_bytes"] // 4, device="cuda")
+        nccl_allreduce_ms = md_synced_ms(torch, lambda: all_reduce_sum(flat, mesh), 10)
+        backend = mesh.backend
+    finally:
+        dist.destroy_process_group()
+    loss_gap = abs(got["nccl"][0] - got["none"][0]) / abs(got["none"][0])
+    out["nccl"] = dict(backend=backend, loss_rel=loss_gap, param_gap=nccl_gap, floor=nccl_floor,
+                       step_ms=got["nccl"][2], step_ms_no_group=got["none"][2],
+                       allreduce_ms=nccl_allreduce_ms)
+    print(f"{card}: multidevice pooled step on a one-rank {backend} group: loss {loss_gap:.3g} "
+          f"relative and parameters {nccl_gap:.3g} from the step without a group (two steps "
+          f"without: {nccl_floor:.3g}); {got['nccl'][2]:.2f} ms against {got['none'][2]:.2f} ms, "
+          f"the {r0['allreduce_bytes'] / 1e6:.1f} MB all-reduce {nccl_allreduce_ms:.3f} ms")
+    if backend != "nccl" or loss_gap > 1e-6 or nccl_gap > 10 * nccl_floor:
+        fail(f"multidevice one-rank NCCL step: {out['nccl']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    report["multidevice"] = out
+
+
 def main() -> int:
     import torch
 
@@ -3827,12 +4264,15 @@ def main() -> int:
     phase_infer(torch, np, report, shared)
     phase_topn(torch, np, report, shared)
     phase_topn_250k(torch, np, report, shared)
+    phase_multidevice(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (the PCA
-    # run with the incremental loss for K1 and its backward, the 2fc run for
-    # K3, the 1fc /search for K2, the Winograd training epoch for K4);
-    # launches_by_path: each path's own count, set to 0 just before it
-    paths = ("bench_train", "train_async", "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
+    # launches: the count on the newest path that runs the kernel (rank 0 of
+    # the flagship's two-rank run for K1, its backward and K3, rank 0 of the
+    # sharded search for K2, the Winograd training epoch for K4);
+    # launches_by_path: each path's own count, set to 0 just before it (per
+    # rank for the multidevice phase's ranks)
+    paths = ("multidevice_flagship_r0", "multidevice_search_r0", "bench_train", "train_async",
+             "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
              "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
              "serve", "probes")
     for kid in KERNEL_IDS:
@@ -3853,6 +4293,7 @@ def main() -> int:
 
     (out / "chip_smoke_report.json").write_text(
         json.dumps({"card": smi.stdout.strip(), "report": plain(report)}, default=str))
+    print(json.dumps({"multidevice": report["multidevice"]}, default=str))
     print(json.dumps({"train_async": report["train_async"],
                       "bench_train": {name: {key: run[key] for key in ("seconds", "launches")}
                                       for name, run in report["bench_train"]["runs"].items()}}))

@@ -63,7 +63,13 @@ and ``--steps_per_dispatch`` other than 1, are refused with the reason.
 thread; ``train --decoded_cache_root`` reads the images from the cache that
 ``cache`` writes (``data/decoded_cache.py``); ``train --task_id -1`` renders
 and submits an array job of a frozen copy of this file
-(``launch/jobs.py``, ``--queue``). ``metrics`` prints a run's JSONL scalars
+(``launch/jobs.py``, ``--queue``). ``train --num_data_shards N`` trains on
+N data-parallel ranks (``parallel/mesh.py``): under a launcher that set
+``WORLD_SIZE`` (``torchrun --nproc_per_node N -m
+soft_contrastive_learning_torch.cli train ...``) N must match it (0: the
+launcher's); without one, N > 1 starts N local ranks itself, one per
+visible card on NCCL (more ranks than cards is refused), or N gloo ranks
+with ``--device cpu``. ``metrics`` prints a run's JSONL scalars
 (``--plot``: a PDF per tag, matplotlib; ``--tb-export``: TensorBoard event
 files, ``core/tb_export.py``). ``roc`` draws its figure with matplotlib,
 which a host may lack; the curves themselves are
@@ -411,7 +417,7 @@ def config_from_args(args):
         other_query_set=args.other_query_set, seed=args.seed,
         device_image_pool=args.device_image_pool,
         device_pool_max_bytes=args.device_pool_max_bytes, max_to_keep=args.max_to_keep,
-        async_mining=args.async_mining)
+        async_mining=args.async_mining, num_data_shards=args.num_data_shards)
 
 
 def _submit_train_job(args, out_dir: str, out_folder: str) -> None:
@@ -448,10 +454,21 @@ def _submit_train_job(args, out_dir: str, out_folder: str) -> None:
                 array=True, num_jobs=1)
 
 
-def cmd_train(args) -> int:
+def _train_out_dir(args, cfg) -> tuple:
+    """(out_dir, out_folder) of a ``train`` run: a fresh run without
+    ``--out_folder`` gets a unique suffix; ``--resume`` reuses the dir."""
+    from soft_contrastive_learning_torch.core.config import unique_out_dir
+
+    out_folder = args.out_folder or cfg.encode_name()
+    if not args.out_folder and not args.resume and args.task_id != -1:
+        return unique_out_dir(args.out_root, out_folder), out_folder
+    return os.path.join(args.out_root, out_folder), out_folder
+
+
+def _run_training(args, out_dir: str, mesh=None) -> int:
+    """Build the source and the trainer (on ``mesh`` when given) and train."""
     import dataclasses
 
-    from soft_contrastive_learning_torch.core.config import unique_out_dir
     from soft_contrastive_learning_torch.data.pipeline import FilesystemSource, ToyCitySource
     from soft_contrastive_learning_torch.train.trainer import Trainer
 
@@ -459,14 +476,6 @@ def cmd_train(args) -> int:
     model_cfg, params = _load_model_params(cfg.model, args.checkpoint, default_artifact=False,
                                            seed=cfg.seed)
     cfg = dataclasses.replace(cfg, model=model_cfg)
-    out_folder = args.out_folder or cfg.encode_name()
-    out_dir = os.path.join(args.out_root, out_folder)
-    if args.task_id == -1:
-        _submit_train_job(args, out_dir, out_folder)
-        return 0
-    if not args.out_folder and not args.resume:
-        # fresh runs get a unique suffix; --resume must reuse the existing dir
-        out_dir = unique_out_dir(args.out_root, out_folder)
     if args.toy_city:
         source = ToyCitySource(num_points=120, radius=150.0,
                                img_h=cfg.model.image_height, img_w=cfg.model.image_width)
@@ -478,13 +487,61 @@ def cmd_train(args) -> int:
 
         source = CachedDecodedSource(source, args.decoded_cache_root)
     trainer = Trainer(cfg, source, out_dir=out_dir, device=args.device, params=params,
-                      save_plots=args.save_plots)
+                      save_plots=args.save_plots, mesh=mesh)
     try:
         if args.resume and not trainer.resume_latest():
             trainer.log("--resume requested but no checkpoint found; starting fresh")
         trainer.train()
     finally:
         trainer.close()
+    return 0
+
+
+def train_rank(mesh, args, out_dir: str) -> int:
+    """One local rank of ``train --num_data_shards N`` (``run_ranks``'s
+    target)."""
+    return _run_training(args, out_dir, mesh)
+
+
+def cmd_train(args) -> int:
+    import torch
+
+    from soft_contrastive_learning_torch.core.config import resolve_device
+
+    cfg = config_from_args(args)  # refuses a batch that does not divide over the ranks
+    n = args.num_data_shards
+    launched = int(os.environ.get("WORLD_SIZE") or 1)
+    if launched > 1:  # one rank of torchrun's N: join them
+        import torch.distributed as dist
+
+        from soft_contrastive_learning_torch.launch.multihost import initialize_multihost
+        from soft_contrastive_learning_torch.parallel.mesh import make_mesh
+
+        if n not in (0, launched):
+            raise SystemExit(f"--num_data_shards {n} but the launcher started {launched} ranks")
+        initialize_multihost(device=args.device)
+        mesh = make_mesh(num_data=launched)
+        # rank 0 names a fresh run's directory, so that every rank writes to the same one
+        box = [_train_out_dir(args, cfg)[0] if mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        try:
+            return _run_training(args, box[0], mesh)
+        finally:
+            dist.destroy_process_group()
+    out_dir, out_folder = _train_out_dir(args, cfg)
+    if args.task_id == -1:
+        _submit_train_job(args, out_dir, out_folder)
+        return 0
+    if n <= 1:
+        return _run_training(args, out_dir)
+    device = resolve_device(args.device)
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--num_data_shards {n} needs a card per rank, and "
+                         f"{torch.cuda.device_count()} are visible (start the ranks with a "
+                         "launcher on a node that has them, or train on fewer)")
+    from soft_contrastive_learning_torch.launch.multihost import run_ranks
+
+    run_ranks(train_rank, n, (args, out_dir), device=device.type, timeout_s=None)
     return 0
 
 
@@ -568,6 +625,8 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--decoded_cache_root", default="",
                    help="dir of a decoded-uint8 image cache written by the cache command "
                         "(batch assembly becomes copies)")
+    p.add_argument("--num_data_shards", type=int, default=0,
+                   help="data-parallel ranks (0: the launcher's WORLD_SIZE, else one process)")
     p.add_argument("--async_mining", type=_bool_flag, default=False,
                    help="refresh the mining cache on a worker thread, training on the previous "
                         "window until the new one lands")

@@ -182,7 +182,10 @@ class LossConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training-run configuration: the JAX fields (names and defaults) that
-    the port reads; the mesh fields are not ported. ``forgetting_factor``
+    the port reads. The mesh fields are JAX's: ``num_data_shards`` ranks on
+    the data axis (0: every rank of the process group; ``cli train`` reads
+    it), whose count must divide ``images_per_batch``, and a model axis of
+    ``num_model_shards`` = 1, over which JAX shards nothing. ``forgetting_factor``
     is the streaming PCAs' ``f``; ``async_pca`` folds their updates in on a
     worker thread with lag-2 feeds (``pca/async_updater.py``), where False
     applies each step's update before the next step: two different
@@ -232,6 +235,10 @@ class TrainConfig:
     device_pool_max_bytes: int = 4_000_000_000
     steps_per_dispatch: int = 1
     seed: int = 42
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data_shards: int = 0  # 0: every rank of the process group
+    num_model_shards: int = 1
 
     def __post_init__(self):
         if self.steps_per_dispatch > 1:
@@ -241,6 +248,12 @@ class TrainConfig:
                 "the port does not have it")
         if self.optimizer not in ("adam", "momentum"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.num_model_shards != 1:
+            raise NotImplementedError(
+                "num_model_shards must be 1: the JAX package shards nothing over its model "
+                "axis, and the port has none")
+        if self.num_data_shards > 1:
+            check_batch_divides(self.images_per_batch, self.num_data_shards)
 
     @property
     def tuple_shape(self) -> Tuple[int, ...]:
@@ -294,6 +307,16 @@ class TrainConfig:
     def load(cls, path: str) -> "TrainConfig":
         with open(path) as f:
             return cls.from_dict(json.load(f))
+
+
+def check_batch_divides(images_per_batch: int, ranks: int) -> None:
+    """Each rank embeds an equal share of a step's images: refuse a batch
+    that does not divide over the ranks."""
+    if images_per_batch % ranks:
+        raise ValueError(
+            f"images_per_batch {images_per_batch} does not divide over {ranks} data ranks: each "
+            "rank embeds an equal share of the batch (set tuples_per_batch so that "
+            "tuples_per_batch * images per tuple is a multiple of the rank count)")
 
 
 def unique_out_dir(out_root: str, base_name: str) -> str:

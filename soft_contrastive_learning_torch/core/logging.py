@@ -49,15 +49,21 @@ class RunLogger:
 
 
 class MetricsWriter:
-    """Scalar metrics as JSONL."""
+    """Scalar metrics as JSONL. ``enabled=False`` (a rank other than the
+    primary of a multi-process run) writes nothing and creates nothing;
+    ``read_all`` still reads the primary's file."""
 
-    def __init__(self, out_dir: str, role: str = "local"):
-        os.makedirs(out_dir, exist_ok=True)
+    def __init__(self, out_dir: str, role: str = "local", enabled: bool = True):
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(out_dir, exist_ok=True)
         self.role = role
         self.path = os.path.join(out_dir, f"metrics_{role}.jsonl")
         self._lock = threading.Lock()
 
     def scalars(self, values: Dict[str, float], step: int) -> None:
+        if not self.enabled:
+            return
         now = time.time()
         lines = "".join(json.dumps({"step": int(step), "tag": tag, "value": float(v), "t": now})
                         + "\n" for tag, v in values.items())

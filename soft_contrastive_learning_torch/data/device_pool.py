@@ -3,7 +3,10 @@
 decoded uint8 images live on the card, and the train step gathers its batch
 by row index (``index_select``), so per-step host-to-device traffic is the
 (B,) indices and the (B, B) geo payload. Keyed by image key, so each
-epoch's shuffled meta maps onto the pool with one lookup pass.
+epoch's shuffled meta maps onto the pool with one lookup pass. On a mesh
+the pool is replicated, as JAX's (``replicated_sharding``): each rank's
+trainer builds one full copy on its own card, and gathers its rows of a
+batch from it.
 """
 
 from __future__ import annotations

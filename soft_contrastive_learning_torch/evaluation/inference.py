@@ -11,6 +11,10 @@ downstream), the reduced output (FC, SPP) otherwise, as in JAX. Images are read 
 the port's PNG decoder (``utils/io.py::load_img``), 4 batches at a time on
 an 8-thread pool while the card embeds the batches before them; ``oxs``
 sets, which the JAX package reads as JPEG, are refused by that decoder.
+With a mesh (``parallel/mesh.py``) each padded batch is split over the
+ranks: each rank embeds its rows on its device and the descriptors are
+gathered in rank order, so every rank returns the whole output, as JAX's
+replicated result.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_device
 from soft_contrastive_learning_torch.data.pipeline import pad_to_multiple
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
+from soft_contrastive_learning_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from soft_contrastive_learning_torch.train.step import build_embed_step
 from soft_contrastive_learning_torch.utils.cv import normalize_geometry
 from soft_contrastive_learning_torch.utils.io import load_csv, load_img, save_pickle
@@ -39,7 +44,9 @@ class DescriptorExtractor:
     descriptor before the reduction head (``full_out``), else its output.
     With ``quant_scales`` (``models/quant.py``'s activation scales) it
     embeds through ``QuantizedEmbedder``, the int8-PTQ conv stack (Q1 on a
-    CUDA device), with the weights quantized once here."""
+    CUDA device), with the weights quantized once here. ``mesh``: the
+    batches are split over its ranks (module docstring), each rank on the
+    mesh's device; ``batch_size`` must divide over them."""
 
     def __init__(
         self,
@@ -50,10 +57,14 @@ class DescriptorExtractor:
         portrait: bool = False,
         raw_descriptor: bool = True,
         quant_scales: Optional[Mapping[str, float]] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg
         self.batch_size = batch_size
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.rows(batch_size)  # raises unless the batch divides over the ranks
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.portrait = portrait
         self.raw = raw_descriptor
         if quant_scales is not None:
@@ -81,9 +92,9 @@ class DescriptorExtractor:
         arr = pad_to_multiple(arr, self.batch_size)
         feats = []
         for start in range(0, len(arr), self.batch_size):
-            x = torch.from_numpy(arr[start : start + self.batch_size]).to(self.device)
-            output, full = self._embed(x)
-            feats.append((full if self.raw else output).cpu().numpy())
+            x = shard_batch(arr[start : start + self.batch_size], self.mesh)
+            output, full = self._embed(torch.from_numpy(x).to(self.device))
+            feats.append(all_gather_rows(full if self.raw else output, self.mesh).cpu().numpy())
         return np.concatenate(feats)[:n]
 
     def extract_files(self, paths: Sequence[str], img_root: str = "") -> np.ndarray:
@@ -118,11 +129,14 @@ def run_inference(
     batch_size: int = 32,
     device: str | torch.device = "cuda",
     dump_dtype: str = "float32",
+    mesh: Optional[Mesh] = None,
 ) -> str:
     """CSV image list -> feature pickle ``{set}_{out_name}.pickle``, the
     descriptors in ``dump_dtype`` (float16 halves the dump; descriptors are
     unit-norm, so it cannot overflow). As in the JAX package, ``oxs`` sets
-    read ``.jpg`` in place of ``.png`` and ``achen`` sets are portrait."""
+    read ``.jpg`` in place of ``.png`` and ``achen`` sets are portrait.
+    ``mesh``: the embedding is split over its ranks, and only the primary
+    (rank 0) writes the dump; every rank returns its path."""
     if dump_dtype not in DUMP_DTYPES:
         raise ValueError(f"dump_dtype must be float32|float16, got {dump_dtype!r}")
     meta = load_csv(os.path.join(csv_root, f"{set_name}.csv"))
@@ -131,11 +145,12 @@ def run_inference(
         paths = [p.replace(".png", ".jpg") for p in paths]
     extractor = DescriptorExtractor(
         cfg, params, batch_size=batch_size, device=device,
-        portrait="achen" in set_name, raw_descriptor=cfg.reduction in ("none", "pca"))
+        portrait="achen" in set_name, raw_descriptor=cfg.reduction in ("none", "pca"), mesh=mesh)
     features = extractor.extract_files(paths, img_root)
     extractor._pool.shutdown(wait=False)
     features = features.astype(np.dtype(dump_dtype), copy=False)
-    os.makedirs(out_root, exist_ok=True)
     out_path = os.path.join(out_root, f"{set_name}_{out_name}.pickle")
-    save_pickle(features, out_path)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(out_root, exist_ok=True)
+        save_pickle(features, out_path)
     return out_path

@@ -15,7 +15,11 @@ column slice of it), and retrieval. Up to ``_TILED_THRESHOLD`` refs that is
 the dense ``ops/topk.py::topk_l2``; above it ``topk_l2_streamed``, which is
 K2 on a CUDA device (the slices reach it contiguous through its wrapper).
 The geographic distances stay on the host in float64, as in the JAX
-package. A mesh (sharded top-k) comes with the multi-device slice.
+package. With a mesh of more than one rank (``parallel/mesh.py``) the
+subsample's refs are padded with rows of 1e9 to a multiple of the rank
+count, as JAX pads them, each rank searches its own rows
+(``ops/topk.py::topk_l2_sharded``: K2 on a card), and every rank gets the
+whole result; each rank runs on the mesh's device.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from soft_contrastive_learning_torch.core.config import resolve_device
-from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_streamed
+from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_sharded, topk_l2_streamed
+from soft_contrastive_learning_torch.parallel.mesh import barrier
 from soft_contrastive_learning_torch.pca.whiten import fit_pca, fp32_matmuls
 from soft_contrastive_learning_torch.utils.io import save_pickle
 
@@ -70,14 +75,14 @@ def top_n_single(
 ) -> Optional[list]:
     """One retrieval pass -> the 6-element pickle list, or None when the
     subsample holds fewer than ``n`` refs. Runs on ``device``: default the
-    features' own, and the card for arrays."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded top-k) comes with the multi-device slice of "
-                                  "the port")
+    mesh's, else the features' own, and the card for arrays. ``mesh``: the
+    search is sharded over its ranks (module docstring)."""
     if ref_idx is None:
         ref_idx = spatial_subsample(ref_xy, spacing)
     if len(ref_idx) < n:
         return None
+    if device is None and mesh is not None:
+        device = mesh.device
     if device is None:
         device = ref_features.device if torch.is_tensor(ref_features) else "cuda"
     device = resolve_device(device)
@@ -87,7 +92,12 @@ def top_n_single(
     if len(ref_idx_arr) != len(refs) or (ref_idx_arr != np.arange(len(refs))).any():
         refs = refs[torch.from_numpy(ref_idx_arr).to(device)]
     with fp32_matmuls():
-        if len(refs) > _TILED_THRESHOLD:
+        if mesh is not None and mesh.size > 1:
+            pad = (-len(refs)) % mesh.size
+            if pad:
+                refs = torch.cat([refs, refs.new_full((pad, refs.shape[1]), 1e9)])
+            top_f, top_i = topk_l2_sharded(queries, refs[mesh.rows(len(refs))], n, mesh)
+        elif len(refs) > _TILED_THRESHOLD:
             top_f, top_i = topk_l2_streamed(queries, refs, n)
         else:
             top_f, top_i = topk_l2(queries, refs, n)
@@ -131,15 +141,16 @@ def get_top_n(
     device: str | torch.device = "cuda",
 ) -> Dict[str, str]:
     """The D x L sweep -> {'l{l}_dim{d}': pickle_path}. One PCA fit at the
-    largest usable D and one transform of each dump, column-sliced per D."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded top-k) comes with the multi-device slice of "
-                                  "the port")
+    largest usable D and one transform of each dump, column-sliced per D.
+    ``mesh``: every rank fits and transforms on its device, each search is
+    sharded over the ranks (``top_n_single``), and the primary (rank 0)
+    writes the pickles; the settings to skip are read by every rank before
+    any is written, so that all ranks run the same searches."""
     out_paths: Dict[str, str] = {}
     usable_dims = [d for d in dims if d <= min(pca_features.shape)]
     if not usable_dims:
         return out_paths
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     whitener = fit_pca(pca_features, max(usable_dims), device=device)
     ref_full = whitener.transform(ref_features)
     query_full = whitener.transform(query_features)
@@ -150,19 +161,28 @@ def get_top_n(
     for spacing, idx in subsample_cache.items():
         xy_d = np.linalg.norm(query_xy[:, None, :] - ref_xy[idx][None, :, :], axis=-1)
         geo_cache[spacing] = (xy_d, np.argmin(xy_d, axis=1))
+
+    def pickle_path(d, spacing):
+        return os.path.join(out_root, f"l{spacing}_dim{d}", f"{name}.pickle")
+
+    existing = {(d, s) for d in usable_dims for s in spacings
+                if skip_existing and os.path.exists(pickle_path(d, s))}
+    barrier(mesh)
+    primary = mesh is None or mesh.rank == 0
     for d in usable_dims:
         for spacing in spacings:
             setting = f"l{spacing}_dim{d}"
-            folder = os.path.join(out_root, setting)
-            os.makedirs(folder, exist_ok=True)
-            out_pickle = os.path.join(folder, f"{name}.pickle")
-            if skip_existing and os.path.exists(out_pickle):
+            out_pickle = pickle_path(d, spacing)
+            if (d, spacing) in existing:
                 out_paths[setting] = out_pickle
                 continue
             result = top_n_single(ref_full[:, :d], query_full[:, :d], ref_xy, query_xy, spacing,
-                                  n=n, ref_idx=subsample_cache[spacing], geo=geo_cache[spacing])
+                                  n=n, mesh=mesh, ref_idx=subsample_cache[spacing],
+                                  geo=geo_cache[spacing])
             if result is None:
                 continue
-            save_pickle(result, out_pickle)
+            if primary:
+                os.makedirs(os.path.dirname(out_pickle), exist_ok=True)
+                save_pickle(result, out_pickle)
             out_paths[setting] = out_pickle
     return out_paths

@@ -1,5 +1,5 @@
-"""Job launching: ``jobs.py`` (SGE and Slurm scripts, local arrays). JAX's
-``launch/multihost.py`` (the multi-host bootstrap) is not ported yet."""
+"""Job launching: ``jobs.py`` (SGE and Slurm scripts, local arrays) and
+``multihost.py`` (the ranks of a data-parallel run)."""
 
 from soft_contrastive_learning_torch.launch.jobs import (  # noqa: F401
     JobSpec,

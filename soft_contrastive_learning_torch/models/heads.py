@@ -10,11 +10,14 @@ on the model's device, kept in checkpoints), never from the global one, so
 that a resumed run draws the masks the uninterrupted run drew. The JAX
 masks come from its ``jax.random`` key, which the port does not reproduce:
 the two packages agree in eval mode, and with ``1fc``, which has no dropout.
+On a mesh each rank draws the global batch's masks from its copy of the
+generator (the same on every rank) and keeps its own rows (``shard``), so
+that the ranks together drop what one process would.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,13 +55,20 @@ def apply_pca_projection(features: torch.Tensor, components: torch.Tensor, mean:
     return x / torch.sqrt(variance)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout as flax's: keep with probability 1 - rate, scale the
-    kept values by 1 / (1 - rate), the mask drawn from ``generator``."""
+    kept values by 1 / (1 - rate), the mask drawn from ``generator``.
+    ``shard=(rank, ranks)``: ``x`` holds rank ``rank``'s rows of a batch
+    split in ``ranks`` equal shares; the mask is drawn for the whole batch
+    and this rank's rows kept."""
     if generator is None:
         raise ValueError("dropout in training needs the step's generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    rank, ranks = shard if shard is not None else (0, 1)
+    n = x.shape[0]
+    draw = torch.rand((n * ranks, *x.shape[1:]), generator=generator, device=x.device)
+    keep = draw[rank * n : (rank + 1) * n] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -83,11 +93,12 @@ class FCHead(nn.Module):
         return F.linear(x, layer.weight.float(), layer.bias.float())
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         x = x.float()
         with fp32_matmuls():
             for i in range(1, self.num_layers):
                 x = torch.relu(self._dense(i, x))
                 if train:
-                    x = dropout(x, self.dropout_rate, generator)
+                    x = dropout(x, self.dropout_rate, generator, shard)
             return self._dense(self.num_layers, x)

@@ -12,9 +12,11 @@ then the ``1fc``/``2fc``/``3fc`` head (``models/heads.py::FCHead``). With
 applied outside the module, by the train step, from the streaming PCA's
 state.
 
-``forward(images, train=False, generator=None)`` returns ``(output,
-full_out)`` like the JAX module's ``apply``; ``train`` turns the dense
-head's dropout on, its masks drawn from ``generator`` (the train step's).
+``forward(images, train=False, generator=None, shard=None)`` returns
+``(output, full_out)`` like the JAX module's ``apply``; ``train`` turns the
+dense head's dropout on, its masks drawn from ``generator`` (the train
+step's). ``shard=(rank, ranks)``: ``images`` are that rank's equal share of
+a global batch, whose masks the dropout draws (``models/heads.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ class EmbeddingNet(nn.Module):
                                   out_dim=config.out_dim, param_dtype=param_dtype)
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         feature_map, _ = self.vgg16(images)  # NHWC, fp32
         if cfg.reduction == "spp":
@@ -64,7 +66,7 @@ class EmbeddingNet(nn.Module):
         else:
             full_out = feature_map.reshape(feature_map.shape[0], -1)
         if self.fc_head is not None:
-            return self.fc_head(full_out, train=train, generator=generator), full_out
+            return self.fc_head(full_out, train=train, generator=generator, shard=shard), full_out
         return full_out, full_out  # 'none', 'spp'; 'pca' is projected by the step
 
 

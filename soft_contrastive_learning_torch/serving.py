@@ -21,6 +21,9 @@ reason. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
 (Q1 on a CUDA device). The index is copied to the device once. A search over more than
 ``STREAM_MIN_ROWS`` rows with k <= 128 streams the index through K2
 (``ops/topk.py::topk_l2_streamed``); smaller ones take the dense path.
+With a mesh the extractor splits each batch over the ranks and every rank
+gets every descriptor (``evaluation/inference.py``); the index stays whole
+on each rank's device and each rank searches it, as in JAX.
 """
 
 from __future__ import annotations
@@ -55,13 +58,15 @@ class DescriptorService:
         index=None,  # (R, D) descriptor index: numpy array or tensor
         device: str | torch.device = "cuda",
         quant_scales: Optional[Mapping[str, float]] = None,
+        mesh=None,
     ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.extractor = DescriptorExtractor(cfg, params, batch_size=batch_size,
                                              device=self.device,
                                              raw_descriptor=cfg.reduction in ("none", "pca"),
-                                             quant_scales=quant_scales)
+                                             quant_scales=quant_scales, mesh=mesh)
         self.index: Optional[torch.Tensor] = None
         if index is not None:
             self.index = torch.as_tensor(index, dtype=torch.float32, device=self.device)

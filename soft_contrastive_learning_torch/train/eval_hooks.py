@@ -11,7 +11,10 @@ states, drained before the evals), ``_pool`` (the decode threads),
 
 Retrieval is the dense ``ops/topk.py::topk_l2`` on the device (the eval
 sets are far below the row count at which the streamed kernel takes over);
-only the (Q, k) neighbour ids cross to the host.
+only the (Q, k) neighbour ids cross to the host. On a mesh every rank runs
+both hooks: ``extract_features`` and ``eval_loss_step`` embed each rank's
+share and gather it, the held-out loss is the global batch's, and only the
+primary's writers write.
 """
 
 from __future__ import annotations

@@ -31,6 +31,10 @@ device work goes to the same stream (what moves off the training thread is
 the blocking fetch of the order, as in JAX), under ``torch.inference_mode``
 (thread-local), and it touches neither the live module nor a process-wide
 flag.
+
+On a mesh every rank refreshes: ``extract_features`` gathers the window's
+descriptors onto every rank, and each rank takes the same neighbour order
+from them.
 """
 
 from __future__ import annotations

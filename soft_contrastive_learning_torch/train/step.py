@@ -36,6 +36,18 @@ forward at the updated weights, the neg part's gradient and a second
 update. Both share the optimizer's state, so Adam's per-parameter ``step``
 advances twice, as optax's count does; ``TrainState.step`` advances once.
 Both forwards draw the same dropout masks, as JAX's share one key.
+
+``mesh=`` (``parallel/mesh.py``) runs a step on the ranks of a data axis,
+as JAX's jitted step runs one global program over a sharded batch: each
+rank holds its rows of the per-image leaves (``images`` or ``image_idx``,
+cut by ``shard_batch``) and the whole of everything else; it runs the
+forward on its rows, ``gather_rows`` hands every rank the global (B, D)
+output (and ``full_out`` with ``reduction='pca'``, whose projection then
+runs on the whole batch), every rank computes the one global loss, and
+after the backward ``all_reduce_grads`` sums the ranks' gradients, so that
+every rank's optimizer takes the same update from the same bits. The PN
+step gathers once per forward. The embed step takes a rank's rows and
+returns the whole batch's descriptors on every rank.
 """
 
 from __future__ import annotations
@@ -45,11 +57,17 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from soft_contrastive_learning_torch.core.config import TrainConfig
+from soft_contrastive_learning_torch.core.config import TrainConfig, check_batch_divides
 from soft_contrastive_learning_torch.losses.incremental import PCAState
 from soft_contrastive_learning_torch.losses.registry import LossFn, LossResult, split_batch
 from soft_contrastive_learning_torch.models.heads import apply_pca_projection
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
+from soft_contrastive_learning_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_grads,
+    gather_rows,
+)
 from soft_contrastive_learning_torch.train.schedule import learning_rate
 
 _PAYLOAD_KEYS = ("sq_pos_geo_dists", "sq_neg_geo_dists", "pairwise_sq_geo_dists",
@@ -81,9 +99,19 @@ def init_train_state(cfg: TrainConfig, model: EmbeddingNet) -> TrainState:
 
 
 def _forward(cfg: TrainConfig, model: EmbeddingNet, batch: Dict[str, torch.Tensor], train: bool,
-             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(output, full_out), with the PCA projection of ``reduction='pca'``."""
-    output, full_out = model(batch["images"], train=train, generator=generator)
+             generator: Optional[torch.Generator] = None,
+             mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(output, full_out) of the whole batch, with the PCA projection of
+    ``reduction='pca'``. On a mesh the forward runs on this rank's rows of
+    ``images`` and the rows are gathered (with a gradient), ``full_out``
+    where the projection or the streaming PCA needs it."""
+    shard = (mesh.rank, mesh.size) if mesh is not None and mesh.group is not None else None
+    output, full_out = model(batch["images"], train=train, generator=generator, shard=shard)
+    if shard is not None:
+        if cfg.model.reduction == "pca":
+            full_out = gather_rows(full_out, mesh)
+        else:
+            output = gather_rows(output, mesh)
     if cfg.model.reduction == "pca":
         output = apply_pca_projection(full_out, batch["pca_components"], batch["pca_mean"],
                                       batch["pca_variance"])
@@ -105,7 +133,7 @@ def _loss_from_output(cfg: TrainConfig, loss_fn: LossFn, output: torch.Tensor,
 
 
 def build_train_step(
-    cfg: TrainConfig, loss_fn: LossFn, image_pool: bool = False
+    cfg: TrainConfig, loss_fn: LossFn, image_pool: bool = False, mesh: Optional[Mesh] = None
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch[, pool]) -> (state, metrics)``: forward, loss,
     backward and one optimizer update (two for the PN losses), in place.
@@ -115,15 +143,20 @@ def build_train_step(
 
     ``image_pool=True`` is the device-resident-pool variant: the batch
     carries ``image_idx`` instead of ``images``, and the step gathers its
-    images from the uint8 pool on the device (``data/device_pool.py``)."""
+    images from the uint8 pool on the device (``data/device_pool.py``).
+    ``mesh``: the step of one rank of the data axis (module docstring); the
+    batch holds this rank's rows of ``images`` or ``image_idx``."""
+    if mesh is not None:
+        check_batch_divides(cfg.images_per_batch, mesh.size)
 
     def update(state: TrainState, batch: Dict[str, torch.Tensor], which: str):
-        output, full_out = _forward(cfg, state.model, batch, True, state.rng)
+        output, full_out = _forward(cfg, state.model, batch, True, state.rng, mesh)
         part = {} if which == "total" else {"part": which}  # a PN update computes its part only
         res = _loss_from_output(cfg, loss_fn, output, batch, **part)
         value = getattr(res, which)
         state.optimizer.zero_grad(set_to_none=True)
         value.backward()
+        all_reduce_grads(state.model.parameters(), mesh)
         state.optimizer.step()
         return value.detach(), res, full_out
 
@@ -155,14 +188,16 @@ def build_train_step(
     return step
 
 
-def build_eval_loss_step(cfg: TrainConfig, model: EmbeddingNet, loss_fn: LossFn):
+def build_eval_loss_step(cfg: TrainConfig, model: EmbeddingNet, loss_fn: LossFn,
+                         mesh: Optional[Mesh] = None):
     """Held-out loss: forward in eval mode, no update. ``loss`` is the total
     (pos + neg for the PN losses, which also give ``loss_pos`` and
-    ``loss_neg``)."""
+    ``loss_neg``). ``mesh``: each rank embeds its rows of ``images``, and
+    the loss is the global batch's on every rank."""
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        output, _ = _forward(cfg, model, batch, False)
+        output, _ = _forward(cfg, model, batch, False, mesh=mesh)
         res = _loss_from_output(cfg, loss_fn, output, batch)
         if cfg.loss.pn_loss:
             return {"loss": res.total, "loss_pos": res.pos, "loss_neg": res.neg}
@@ -172,7 +207,7 @@ def build_eval_loss_step(cfg: TrainConfig, model: EmbeddingNet, loss_fn: LossFn)
 
 
 def build_embed_step(
-    model: EmbeddingNet,
+    model: EmbeddingNet, mesh: Optional[Mesh] = None
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """Batch descriptor extraction: images -> (output, full_out), with no
     autograd state recorded and no PCA projection (the caller whitens, as
@@ -180,10 +215,16 @@ def build_embed_step(
     takes as arguments. The forward runs in eval mode by its ``train=False``
     argument and leaves the module's ``training`` flag alone (no forward
     reads it): the live model of a training run is embedded between steps,
-    and by the async mining worker's twin while steps run."""
+    and by the async mining worker's twin while steps run. ``mesh``:
+    ``images`` are this rank's rows (``shard_batch``), and both outputs come
+    back gathered, the whole batch's on every rank."""
 
     @torch.inference_mode()
     def embed(images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return model(images, train=False)
+        output, full_out = model(images, train=False)
+        if mesh is None or mesh.group is None:
+            return output, full_out
+        gathered = all_gather_rows(output, mesh)
+        return gathered, gathered if full_out is output else all_gather_rows(full_out, mesh)
 
     return embed

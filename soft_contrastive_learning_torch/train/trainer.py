@@ -73,6 +73,20 @@ was running, whose child generator is seeded again from the saved pre-draw
 state and run forward over the batches already trained. The losses still on
 the card when a save fires are fetched and written first, so a resumed run's
 ``metrics_local.jsonl`` goes on without a gap or a repeat.
+
+``mesh`` (``parallel/mesh.py``): this trainer is one rank of a data-parallel
+run, and every rank runs the same loop. Every rank draws the same host
+batches from the same seeded generators; ``_to_device`` keeps this rank's
+rows of the per-image leaves (``shard_batch``), the steps gather the
+output and compute the global loss (``train/step.py``), and
+``extract_features`` embeds this rank's share of each chunk and gathers the
+rest, so mining and the eval hooks see the whole matrix on every rank. The
+device image pool is a full copy on each rank's card. Only the primary
+(rank 0, ``launch/multihost.py::is_primary``) writes ``config.json``, the
+log, both metrics files, plots and checkpoints, as JAX's writer election;
+every rank waits after each save until it is written, and
+``resume_latest`` reads the checkpoint on every rank. Async mining stays
+off with more than one rank, as in JAX.
 """
 
 from __future__ import annotations
@@ -99,8 +113,10 @@ from soft_contrastive_learning_torch.data.pipeline import (
     load_images_standard,
     pad_to_multiple,
 )
+from soft_contrastive_learning_torch.launch.multihost import is_primary
 from soft_contrastive_learning_torch.losses.registry import build_loss
 from soft_contrastive_learning_torch.models.model import EmbeddingNet, init_params
+from soft_contrastive_learning_torch.parallel.mesh import Mesh, barrier, shard_batch
 from soft_contrastive_learning_torch.pca.async_updater import AsyncPCAUpdater
 from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
 from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
@@ -133,35 +149,42 @@ class Trainer:
     """``params``: an initial ``EmbeddingNet`` state_dict (for example
     ``models/weights.py::load_trained_params``); default: a fresh
     ``init_params`` draw from ``cfg.seed``. ``save_plots``: the evals also
-    write tolerance-curve PDFs (matplotlib) and triptych PNGs (OpenCV)."""
+    write tolerance-curve PDFs (matplotlib) and triptych PNGs (OpenCV).
+    ``mesh``: this rank's mesh of a data-parallel run (module docstring);
+    the trainer runs on its device, whatever ``device`` says."""
 
     def __init__(self, cfg: TrainConfig, source, out_dir: Optional[str] = None,
                  device: str | torch.device = "cuda",
                  params: Optional[Mapping[str, torch.Tensor]] = None,
-                 save_plots: bool = False):
+                 save_plots: bool = False, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.source = source
-        self.save_plots = save_plots
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # writer election: the state is replicated, so the primary's copy is whole
+        self.primary = is_primary()
+        self.save_plots = save_plots and self.primary
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.out_dir = out_dir or cfg.out_dir or "."
         os.makedirs(self.out_dir, exist_ok=True)
-        cfg.save(os.path.join(self.out_dir, "config.json"))
-        self.log = RunLogger(self.out_dir)
+        if self.primary:
+            cfg.save(os.path.join(self.out_dir, "config.json"))
+        self.log = RunLogger(self.out_dir if self.primary else None)
         self.timer = StepTimer()
         self.scalar_fetches = 0  # _write_train_metrics' device-to-host fetches
         self.scalar_fetch_s = 0.0
-        self.writers = {"local": MetricsWriter(self.out_dir, "local"),
-                        "other": MetricsWriter(self.out_dir, "other")}
-        self.ckpts = RunCheckpoints(self.out_dir, max_to_keep=cfg.max_to_keep)
+        self.writers = {role: MetricsWriter(self.out_dir, role, enabled=self.primary)
+                        for role in ("local", "other")}
+        self.ckpts = RunCheckpoints(self.out_dir, max_to_keep=cfg.max_to_keep,
+                                    enabled=self.primary)
 
         model = EmbeddingNet(cfg.model)
         model.load_state_dict(params if params is not None else init_params(cfg.model, cfg.seed))
         self.state = init_train_state(cfg, model.to(self.device))
         loss_fn = build_loss(cfg.loss, cfg.tuples, cfg.tuples_per_batch)
-        self.train_step = build_train_step(cfg, loss_fn)
-        self.train_step_pooled = build_train_step(cfg, loss_fn, image_pool=True)
-        self.eval_loss_step = build_eval_loss_step(cfg, model, loss_fn)
-        self.embed_step = build_embed_step(model)
+        self.train_step = build_train_step(cfg, loss_fn, mesh=mesh)
+        self.train_step_pooled = build_train_step(cfg, loss_fn, image_pool=True, mesh=mesh)
+        self.eval_loss_step = build_eval_loss_step(cfg, model, loss_fn, mesh=mesh)
+        self.embed_step = build_embed_step(model, mesh=mesh)
         # None until built; False = unavailable (over the byte budget)
         self._image_pool = None
         self._pool_rows = None  # meta row -> pool row, for the current epoch
@@ -193,8 +216,10 @@ class Trainer:
                             get_xy(meta), get_yaw(meta), rng=rng if rng is not None else self.rng)
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, object]:
+        """The host batch on the device: this rank's rows of its images or
+        pool indices on a mesh, the rest whole."""
         return {k: float(v) if np.ndim(v) == 0 else torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+                for k, v in shard_batch(batch, self.mesh).items()}
 
     def _pca_sd(self) -> Optional[dict]:
         return self.pca.state_dict() if self.pca is not None and self.pca.initialized else None
@@ -237,8 +262,10 @@ class Trainer:
         JAX trainer does. ``params``: the ``EmbeddingNet`` to embed with
         (the async refresh's copy of the boundary weights; default the
         live model). ``cancel``: an event checked before each chunk, which
-        raises ``MiningCancelled``."""
-        embed = self.embed_step if params is None else build_embed_step(params)
+        raises ``MiningCancelled``. On a mesh each rank embeds its share of
+        each chunk and the chunk's descriptors are gathered: every rank
+        returns the whole matrix."""
+        embed = self.embed_step if params is None else build_embed_step(params, self.mesh)
         b = self.cfg.images_per_batch
         idx = pad_to_multiple(np.asarray(indices, dtype=int), b)
         pool = self._image_pool or None
@@ -249,10 +276,12 @@ class Trainer:
             keys = image_keys(meta, idx[start : start + b])
             rows = pool.rows_for_keys(keys) if pool is not None else None
             if rows is not None:  # gather on the device
-                images = pool.array.index_select(0, torch.from_numpy(rows).to(self.device))
+                rows = torch.from_numpy(shard_batch(rows, self.mesh)).to(self.device)
+                images = pool.array.index_select(0, rows)
             else:
-                images = torch.from_numpy(
-                    load_images_standard(self.source, keys, self.cfg, self._pool)).to(self.device)
+                images = torch.from_numpy(load_images_standard(
+                    self.source, shard_batch(keys, self.mesh), self.cfg, self._pool)
+                ).to(self.device)
             output, full = embed(images)
             chunks.append(full if full_feats else output)
         feats = torch.cat(chunks)[: len(indices)].float()
@@ -548,12 +577,14 @@ class Trainer:
             self.loss_pca.update(loss_pca_in.cpu().numpy())
 
     def _save(self, role: str, step: int) -> None:
-        """A checkpoint with every update submitted so far applied."""
+        """A checkpoint with every update submitted so far applied (written
+        by the primary; on a mesh every rank leaves once it is in place)."""
         with self.timer.span("ckpt_save"):
             if self._updater is not None:
                 self._updater.drain()
             self.ckpts.save(role, step, self.state, self._extras(), pca=self._pca_sd(),
                             loss_pca=self._loss_pca_sd())
+            barrier(self.mesh)
 
     def _write_train_metrics(self, records: list) -> None:
         """Fetch the pending steps' losses (with the PN losses' ``loss_pos``

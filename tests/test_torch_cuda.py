@@ -1080,3 +1080,28 @@ def test_async_refresh_on_the_card_equals_a_sync_one(cuda, tmp_path):
     losses = [r["value"] for r in tr.writers["local"].read_all() if r["tag"] == "loss"]
     assert len(losses) == 24 and np.isfinite(losses).all()
     tr.close()
+
+
+def test_k2_on_each_shard_of_a_sharded_search(cuda):
+    """``topk_l2_sharded`` over two ranks that share the card (gloo): K2
+    runs on each rank's half of the index, and every rank's merged result
+    equals an fp64 search of the whole index (inputs in eighths: every
+    squared distance exact; duplicated rows, whose ties go to the smaller
+    id): ids identical, distances within 1e-6 relative."""
+    from soft_contrastive_learning_torch import dryrun
+    from soft_contrastive_learning_torch.launch.multihost import run_ranks
+
+    rng = np.random.default_rng(21)
+    refs = (rng.integers(-8, 9, (10_000, 256)) / 8.0).astype(np.float32)
+    refs[7_000] = refs[12]  # a tie across the two shards
+    queries = (rng.integers(-8, 9, (64, 256)) / 8.0).astype(np.float32)
+    queries[0] = refs[12]
+    sq = ((queries[:, None, :].astype(np.float64) - refs[None].astype(np.float64)) ** 2).sum(-1)
+    want_i = np.argsort(sq, axis=1, kind="stable")[:, :5]
+    want_d = np.sqrt(np.take_along_axis(sq, want_i, axis=1))
+    ranks = run_ranks(dryrun.sharded_topk, 2, (queries, refs, 5), device="cuda", timeout_s=300)
+    for got_d, got_i, launches in ranks:
+        assert launches >= 1
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_allclose(got_d, want_d, rtol=1e-6, atol=0)
+    assert ranks[0][1][0, 0] == 12

@@ -73,7 +73,9 @@ EVAL_SLICE = ("utils/io.py", "utils/experiments.py", "data/pipeline.py", "data/c
               # the training run's machinery: the train-loop benchmark, the decoded
               # cache, the TensorBoard export and the job launcher
               "bench_train.py", "data/decoded_cache.py", "core/tb_export.py",
-              "core/logging.py", "launch/jobs.py", "launch/__init__.py")
+              "core/logging.py", "launch/jobs.py", "launch/__init__.py",
+              # multi-device data parallelism: the mesh, the ranks' launcher, the dryrun
+              "parallel/mesh.py", "launch/multihost.py", "dryrun.py")
 
 
 @pytest.mark.parametrize("module", EVAL_SLICE)

@@ -29,6 +29,7 @@ import soft_contrastive_learning_torch.evaluation.topn as ttopn
 import soft_contrastive_learning_tpu.evaluation.topn as jtopn
 from soft_contrastive_learning_torch.ops.kernels.topk import topk_l2_stream_plain
 from soft_contrastive_learning_torch.ops.topk import topk_l2_streamed
+from soft_contrastive_learning_torch.parallel.mesh import make_mesh
 from soft_contrastive_learning_torch.pca import whiten as twhiten
 from soft_contrastive_learning_torch.utils.io import load_pickle
 from soft_contrastive_learning_tpu.pca.whiten import fit_pca as jax_fit_pca
@@ -156,9 +157,14 @@ def test_top_n_single_few_refs_and_mesh():
     ref_xy, query_xy = _geo(rng, 10, 3)
     assert ttopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=25, device="cpu") is None
     assert jtopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=25) is None
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=5, mesh=object(),
-                           device="cpu")
+    # a mesh of one process searches as no mesh does (its ranks:
+    # tests/test_torch_topk_sharded.py)
+    one = make_mesh(devices=["cpu"])
+    assert ttopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=25, mesh=one) is None
+    got = ttopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=5, mesh=one)
+    want = ttopn.top_n_single(refs, refs[:3], ref_xy, query_xy, 0.0, n=5, device="cpu")
+    assert got[0] == want[0] and got[3] == want[3]
+    np.testing.assert_array_equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("route", ["dense", "streamed"])
