@@ -263,7 +263,31 @@ failure:
    Printed beside the card's name and power limit: a step on two ranks
    and in one process (fp32 and the flagship's bf16), the 59 MB gradient all-reduce (gloo, and NCCL on one
    rank), a sharded search and K2 on a half beside the one-process K2;
-28. write the whole report with the card's name and power limit to
+28. prep: a raw RobotCar tree at its frame size (two dates, 600 + 595 gray
+   Bayer PNG frames of 1280x960 in tars along a 1,200 m route, INS at 3x
+   the frame rate, four fold masks, a 960x1280 undistortion LUT whose corners leave the frame)
+   through `cli prep` (the downsize's demosaic -> undistort -> resize on
+   the card, then stages 002-014): every frame's row and 180x240 PNG; the
+   card's image ops on 16 frames bit-equal, op by op, to the same functions
+   with device="cpu"; the ops' frames/s on the card and on the CPU in turns
+   and the downsize stage's frames/s end to end; then `cli train` from the
+   fresh tree (prep_train: the flagship from the trained weights, 180x240,
+   B 50, fused wms, host feed, its anchors' epoch; exact K1 (a launch per
+   NetVLAD forward), K1_bwd and K3 counts, finite losses) and `cli infer`
+   of its train_ref images (prep_infer: K1 once per batch of 32, a finite
+   unit-norm dump);
+29. parity: the committed flagship exported to TF1 names, `cli parity` of 64
+   PNGs (4 of them resized by the harness) against a golden of the port's
+   standard fp32 extractor: rc 0 at tolerance 1e-3; a golden with one row
+   moved by 0.01: rc 1; the run's wall;
+30. packed_stem: from the trained flagship at 180x240, B 64: the fp32 packed
+   block1 (+ pool, ReLU) within 1e-5 of the largest output of the standard
+   one, the whole model's fp32 descriptors packed against standard at
+   cosine >= 0.99999, block1 packed and standard timed under cuDNN in turns
+   (bf16, fp32); the int8 packed stack (im2col + torch._int_mm for conv1_1
+   .. conv2_1) bit-equal to the direct stack (Q1_stem, Q1, Q1_pool) at B 8
+   and 64, its conv2_2 input equal to Q1's, and the two timed in turns;
+31. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -2382,6 +2406,7 @@ def cli_train(torch, report, path, args, expect, pooled=True, checkpoints=True):
     (``instrument``, on the pooled or the host-fed step) and kept; fails
     unless the kernels launched ``expect`` times on it. ``checkpoints=False``
     writes none (the trainer still drains its PCA updater where it would).
+    ``expect`` may be a function of the trainer (counts that the run decides).
     Returns (trainer, return code, seconds, launches)."""
     from soft_contrastive_learning_torch import cli
     from soft_contrastive_learning_torch.train import trainer as trainer_mod
@@ -2404,8 +2429,8 @@ def cli_train(torch, report, path, args, expect, pooled=True, checkpoints=True):
         seconds = time.perf_counter() - t0
     finally:
         trainer_mod.Trainer = real
-    launches = counts.read(expect)
     (tr,) = made
+    launches = counts.read(expect(tr) if callable(expect) else expect)
     return tr, rc, seconds, launches
 
 
@@ -4214,6 +4239,427 @@ def phase_multidevice(torch, np, report, shared):
     report["multidevice"] = out
 
 
+# ---------------------------------------------------------------- prep, parity, packed stem
+# the prep phase's raw tree: JAX's RobotCar dates (cli prep keeps PrepContext's
+# defaults: the train and test folds' reference date, a held-out query date),
+# the JAX prep test's geometry (a straight route, the query date 0.3 m beside
+# the reference, INS at 3x the frame rate, folds as bands of the route)
+# stretched to 1,200 m with a frame every 2 m: the flagship's 12 negatives a
+# tuple, each excluding the 15 m around it, need a train fold of some 400 m
+# (the test's 150 m gives no tuple); RobotCar's stereo frame size
+PREP_REF_DATE, PREP_QUERY_DATE = "2014-12-02-15-30-08", "2015-08-14-14-54-57"
+PREP_FRAME = (960, 1280)
+PREP_ROUTE_M, PREP_SPACING_M = 1200, 2.0
+PREP_FOLDS = (("full", (0, 1200)), ("train", (0, 500)), ("test", (530, 1030)),
+              ("val", (1060, 1200)))
+PREP_OPS_FRAMES = 16  # frames per turn of the image ops' card/CPU timing
+
+
+def prep_raw_tree(np, root):
+    """RobotCar's raw layout under ``root``: per date ``stereo.timestamps``,
+    ``gps/ins.csv`` at 3x the frame rate and ``<date>_stereo_centre_01.tar``
+    of 1280x960 gray Bayer PNGs (blocky, with noise) along the route
+    (``PREP_ROUTE_M``, a frame every ``PREP_SPACING_M``); the fold masks
+    (the blue channel painted: JAX reads cv2's BGR channel 0); a synthetic
+    960x1280 undistortion LUT (2 x 1,228,800 float64) whose corners leave
+    the frame. Returns (dirs, frames per date)."""
+    import math
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch.data.robotcar.downsize import LUT_NAME
+    from soft_contrastive_learning_torch.data.robotcar.prep import GRID_ORIGIN_E, GRID_ORIGIN_N
+    from soft_contrastive_learning_torch.utils.io import save_img
+
+    h, w = PREP_FRAME
+    dirs = {k: root / k for k in ("raw", "tars", "masks", "models", "frames")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    frames = {}
+    for date, xs, y, t0, seed in (
+            (PREP_REF_DATE, np.arange(0.0, PREP_ROUTE_M, PREP_SPACING_M), 10.0, 10**15, 7),
+            (PREP_QUERY_DATE, np.arange(5.0, PREP_ROUTE_M - 5.0, PREP_SPACING_M), 10.3,
+             2 * 10**15, 8)):
+        n = len(xs)
+        ts = [t0 + 100000 * i for i in range(n)]
+        (dirs["raw"] / date / "gps").mkdir(parents=True)
+        (dirs["raw"] / date / "stereo.timestamps").write_text("\n".join(f"{t} 1" for t in ts))
+        rows = ["timestamp,northing,easting,yaw,ins_status"]
+        for i in range(3 * n):
+            x = np.interp(i / 3.0, np.arange(n), xs)
+            rows.append(f"{t0 + int(100000 * i / 3.0)},{GRID_ORIGIN_N - y},{GRID_ORIGIN_E + x},"
+                        f"{math.pi / 2},INS_SOLUTION_GOOD")
+        (dirs["raw"] / date / "gps" / "ins.csv").write_text("\n".join(rows))
+        rng = np.random.default_rng(seed)
+        paths = [dirs["frames"] / f"{t}.png" for t in ts]
+
+        def frame(path, block=rng.integers(40, 200, (n, h // 16, w // 16)),
+                  noise=rng.integers(-3, 4, (4, h, w)), ts=ts):
+            i = ts.index(int(path.stem))
+            raw = block[i].repeat(16, 0).repeat(16, 1) + noise[i % 4]
+            save_img(np.clip(raw, 0, 255).astype(np.uint8), str(path))
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(frame, paths))
+        with tarfile.open(dirs["tars"] / f"{date}_stereo_centre_01.tar", "w") as tar:
+            for t, p in zip(ts, paths):
+                tar.add(p, arcname=f"{date}/stereo/centre/{t}.png")
+                p.unlink()
+        frames[date] = n
+    for name, (x0, x1) in PREP_FOLDS:
+        mask = np.zeros((40, PREP_ROUTE_M + 20, 3), np.uint8)
+        mask[:, x0:x1, 2] = 255
+        save_img(mask, str(dirs["masks"] / f"{name}.png"))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    k = 1 + 0.1 * (((xx - (w - 1) / 2) / (w / 2)) ** 2 + ((yy - (h - 1) / 2) / (h / 2)) ** 2)
+    np.stack([((w - 1) / 2 + (xx - (w - 1) / 2) * k).ravel(),
+              ((h - 1) / 2 + (yy - (h - 1) / 2) * k).ravel()]).tofile(dirs["models"] / LUT_NAME)
+    return dirs, frames
+
+
+def phase_prep(torch, np, report, shared):
+    """RobotCar's prep on the card: a raw tree at RobotCar's frame size
+    (``prep_raw_tree``: two dates, 600 + 595 frames of 1280x960) through
+    ``cli prep`` (downsize on the card, stages 002-014); the card's
+    demosaic -> undistort -> resize on 16 of its frames bit-equal, op by
+    op, to the same functions with device="cpu"; the image ops' frames/s
+    on the card and on the CPU in turns (card, CPU, CPU, card; uint8 frames
+    in host memory in and out). Then ``cli train`` from the fresh tree
+    (prep_train: the flagship from the trained weights, 180x240, B 50, fused
+    wms, the host feed, the epoch of its anchors) and ``cli infer`` of its
+    train_ref images (prep_infer). Gates: rc 0; every frame's row and PNG
+    (180x240); the ops equal; steps, refreshes and exact K1/K1_bwd/K3 counts
+    of the run, finite losses; K1 once per infer batch, a finite unit-norm
+    dump of the images' count."""
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.data.robotcar import downsize
+    from soft_contrastive_learning_torch.models import netvlad as netvlad_mod
+    from soft_contrastive_learning_torch.utils.io import decode_gray, load_csv, load_img
+    from soft_contrastive_learning_torch.utils.io import load_pickle, save_csv
+
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    t0 = time.perf_counter()
+    dirs, frames = prep_raw_tree(np, root)
+    raw_s = time.perf_counter() - t0
+    data, down = root / "prep" / "data", root / "prep" / "downsized"
+    args = ["prep", "--root", str(data), "--raw_img_root", str(dirs["raw"]),
+            "--ins_root", str(dirs["raw"]), "--tar_root", str(dirs["tars"]),
+            "--img_root", str(down), "--camera_models", str(dirs["models"]),
+            "--mask_root", str(dirs["masks"]), "--max_epochs", "1"]
+    stage_s = {}
+    real_downsize = downsize.downsize_images
+
+    def timed_downsize(ctx, date, **kw):
+        t = time.perf_counter()
+        real_downsize(ctx, date, **kw)
+        torch.cuda.synchronize()
+        stage_s[date] = time.perf_counter() - t
+
+    downsize.downsize_images = timed_downsize
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        prep_s = time.perf_counter() - t0
+    finally:
+        downsize.downsize_images = real_downsize
+    if rc != 0:
+        fail(f"prep: cli prep returned {rc}")
+    for date, n in frames.items():
+        info = load_csv(str(data / "img_info_240" / f"{date}.csv"))
+        pngs = sorted((down / f"{date}_stereo_centre_01").glob("*.png"))
+        shape = load_img(str(pngs[0])).shape if pngs else None
+        if len(info["t"]) != n or len(pngs) != n or shape != (180, 240, 3):
+            fail(f"prep: {date}: {len(info['t'])} rows, {len(pngs)} PNGs of {shape}; expected {n}"
+                 " and (180, 240, 3)")
+    anchors = load_csv(str(data / "anchors" / "train_ref_1_000.csv"))
+    if len(anchors["idx"]) < 10:
+        fail(f"prep: {len(anchors['idx'])} train anchors")
+
+    # the image ops: the card's bits against the CPU's, op by op, on frames
+    # of the tree
+    import tarfile
+
+    with tarfile.open(dirs["tars"] / f"{PREP_REF_DATE}_stereo_centre_01.tar") as tar:
+        members = [m for m in tar.getmembers() if m.name.endswith(".png")][:PREP_OPS_FRAMES]
+        raw = torch.from_numpy(np.stack([decode_gray(tar.extractfile(m).read())
+                                         for m in members]))
+    lut_path = str(dirs["models"] / downsize.LUT_NAME)
+    luts = {dev: downsize.UndistortLUT(lut_path, PREP_FRAME, dev) for dev in ("cuda", "cpu")}
+    rgb = downsize.demosaic_gbrg(raw)
+    flat = luts["cpu"](rgb)
+    equal = dict(
+        demosaic=torch.equal(downsize.demosaic_gbrg(raw.cuda()).cpu(), rgb),
+        undistort=torch.equal(luts["cuda"](rgb.cuda()).cpu(), flat),
+        resize=torch.equal(downsize.resize_linear(flat.cuda(), 0.1875, 0.1875).cpu(),
+                           downsize.resize_linear(flat, 0.1875, 0.1875)),
+        pipeline=torch.equal(downsize.downsize_batch(raw.cuda(), 240, luts["cuda"]).cpu(),
+                             downsize.downsize_batch(raw, 240, luts["cpu"])))
+    if not all(equal.values()):
+        fail(f"prep: the card's image ops differ from the CPU's: {equal}")
+
+    def ops_fps(dev):
+        t = time.perf_counter()
+        out = downsize.downsize_batch(raw.to(dev), 240, luts[dev]).cpu()
+        torch.cuda.synchronize()
+        if out.shape != (PREP_OPS_FRAMES, 180, 240, 3):
+            fail(f"prep: the ops gave {tuple(out.shape)} on {dev}")
+        return PREP_OPS_FRAMES / (time.perf_counter() - t)
+
+    ops_fps("cuda")  # warm-up
+    turns = [("card", ops_fps("cuda")), ("cpu", ops_fps("cpu")), ("cpu", ops_fps("cpu")),
+             ("card", ops_fps("cuda"))]
+    fps = {dev: [v for d, v in turns if d == dev] for dev in ("card", "cpu")}
+    n_frames = sum(frames.values())
+    print(f"prep: raw tree of {n_frames} frames of {PREP_FRAME[1]}x{PREP_FRAME[0]} written in "
+          f"{raw_s:.1f} s; cli prep {prep_s:.2f} s, of which the downsize "
+          f"{sum(stage_s.values()):.2f} s ({n_frames / sum(stage_s.values()):.1f} frames/s end to "
+          f"end: decode on 8 threads, the ops on the card, encode on 8 threads); the ops "
+          f"bit-equal on the card and the CPU ({equal}); the ops alone on {PREP_OPS_FRAMES} "
+          f"frames in turns: card {fps['card']} frames/s, CPU {fps['cpu']} frames/s")
+
+    # cli train from the fresh tree: the host feed, the epoch of its anchors
+    roots = dict(img_root=str(down), shuffled_root=str(data / "shuffled"),
+                 anchor_root=str(data / "anchors"), loc_ref_root=str(data / "clusters"))
+    targs = files_train_args(roots, str(root / "runs"), "prep")
+    targs[targs.index("--eval_ref_r") + 1] = "5"  # the tree's clusters: r = 5
+    forwards = []
+    real_forward = netvlad_mod.NetVLAD.forward
+
+    def counted(self, *a, **kw):
+        forwards.append(1)
+        return real_forward(self, *a, **kw)
+
+    def expect(tr):  # K1 once a NetVLAD forward, its backward and K3 once a step
+        return {"K1": len(forwards), "K1_bwd": tr.global_step,
+                "K3": tr.global_step + PREP_EVAL_LOSS_BATCHES}
+
+    netvlad_mod.NetVLAD.forward = counted
+    try:
+        tr, rc, train_s, launches = cli_train(torch, report, "prep_train", targs, expect,
+                                              pooled=False, checkpoints=False)
+    finally:
+        netvlad_mod.NetVLAD.forward = real_forward
+    losses = run_losses(tr)
+    steps = -(-len(anchors["idx"]) // 2)  # the last batch may hold one tuple
+    if rc != 0 or tr.global_step != steps or len(losses) != steps or \
+            not np.isfinite(losses).all() or tr.mining.refresh_count < 1:
+        fail(f"prep_train: rc {rc}, {tr.global_step} steps ({steps} expected), "
+             f"{tr.mining.refresh_count} refreshes, losses {losses}")
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in tr.step_events[1:])
+    print(f"prep_train: cli train from the prep tree, {tr.global_step} steps, "
+          f"{tr.mining.refresh_count} refreshes in {train_s:.2f} s; launches {launches}; "
+          f"median step {step_ms:.3f} ms on the device; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+    # cli infer of the tree's train_ref images
+    ref = load_csv(str(data / "clean_merged_parametrized" / "train_ref.csv"))
+    lists = root / "lists"
+    lists.mkdir()
+    save_csv({"path": [f"{d}_stereo_centre_{int(f):02d}/{t}.png"
+                       for d, f, t in zip(ref["date"], ref["folder"], ref["t"])],
+              "easting": ref["easting"], "northing": ref["northing"], "yaw": ref["yaw"]},
+             str(lists / "prep_train_ref.csv"))
+    n_ref = len(ref["t"])
+    counts = LaunchCounts(report, "prep_infer")
+    t0 = time.perf_counter()
+    rc = cli.main(["infer", "--set", "prep_train_ref", "--csv_root", str(lists),
+                   "--img_root", str(down), "--out_root", str(root / "lv"),
+                   "--out_name", "model"])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    counts.read({"K1": -(-n_ref // 32)})
+    dump = load_pickle(str(root / "lv" / "prep_train_ref_model.pickle"))
+    norms = np.linalg.norm(dump, axis=1)
+    if rc != 0 or dump.shape != (n_ref, 32768) or not np.isfinite(dump).all() or \
+            np.abs(norms - 1).max() > 1e-3:
+        fail(f"prep_infer: rc {rc}, dump {dump.shape}, norms {norms.min()}..{norms.max()}")
+    print(f"prep_infer: cli infer of {n_ref} train_ref images of the tree in {infer_s:.2f} s "
+          f"({n_ref / infer_s:.1f} img/s)")
+    report["prep"] = dict(
+        frames=n_frames, frame=list(PREP_FRAME), raw_tree_s=raw_s, cli_prep_s=prep_s,
+        downsize_s=stage_s, downsize_frames_s=n_frames / sum(stage_s.values()),
+        ops_bit_equal=equal, ops_frames_s=fps, ops_turns=turns,
+        train=dict(steps=tr.global_step, refreshes=tr.mining.refresh_count, seconds=train_s,
+                   median_step_ms=step_ms, first_loss=losses[0], last_loss=losses[-1],
+                   launches=launches),
+        infer=dict(images=n_ref, seconds=infer_s, img_s=n_ref / infer_s))
+    work.cleanup()
+
+
+# the eval hooks' held-out loss batches at step 0 (num_eval_queries 4 over
+# tuples of 2): K3 launches beside the steps'
+PREP_EVAL_LOSS_BATCHES = 2
+PARITY_SCOPE = "vgg16_netvlad_pca"
+
+
+def tf1_export(np, npz_path, out_path):
+    """The flagship npz under TF1 names (the inverse of
+    ``models/convert_tf1.py``'s mapping): ``<scope>/convX_Y/kernel:0``,
+    ``<scope>/average_rgb:0``, ``<scope>/assignment/kernel:0`` and
+    ``<scope>/cluster_centers:0`` as (1, 1, 1, D, K), plus a global step."""
+    out = {"Variable:0": np.asarray(1234)}
+    with np.load(npz_path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            if parts[0] == "vgg16":
+                name = parts[-1] if len(parts) == 2 else "/".join(parts[2:])
+            else:
+                name = "/".join(parts[1:])
+            value = z[key]
+            if name == "cluster_centers":
+                value = value.reshape((1, 1, 1) + value.shape)
+            out[f"{PARITY_SCOPE}/{name}:0"] = value
+    np.savez(out_path, **out)
+    return len(out) - 1
+
+
+def phase_parity(torch, np, report, shared):
+    """``cli parity`` on the card: the committed flagship exported to TF1
+    names (``tf1_export``), 64 PNGs (60 at 180x240, 4 at 360x480, which the
+    harness resizes), and a golden of the port's standard fp32 extractor
+    (``DescriptorExtractor``, K1) on the same images: rc 0 at tolerance
+    1e-3, its max-abs difference and min cosine printed; the golden with
+    one row moved by 0.01: rc 1."""
+    import contextlib
+    import io
+
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
+    from soft_contrastive_learning_torch.models.weights import (
+        TRAINED_PARAMS_PATH, load_trained_params)
+    from soft_contrastive_learning_torch.utils.io import save_img
+
+    work = tempfile.TemporaryDirectory()
+    root = Path(work.name)
+    n_vars = tf1_export(np, TRAINED_PARAMS_PATH, root / "tf1.npz")
+    imgs = root / "images"
+    imgs.mkdir()
+    rng = np.random.default_rng(SEED)
+    paths = []
+    for i, img in enumerate(list(blocky_images(rng, 60)) + [
+            rng.integers(0, 256, (24, 32, 3), dtype="uint8").repeat(15, 0).repeat(15, 1)
+            for _ in range(4)]):
+        paths.append(str(imgs / f"{i:03d}.png"))
+        save_img(img, paths[-1])
+    cfg = ModelConfig(compute_dtype="float32")
+    extractor = DescriptorExtractor(cfg, load_trained_params(cfg=cfg), batch_size=32)
+    golden = extractor.extract_files(sorted(paths))
+    np.savez(root / "golden.npz", descriptors=golden)
+    bad = golden.copy()
+    bad[5] += 0.01
+    np.savez(root / "bad.npz", descriptors=bad)
+    base = ["parity", "--checkpoint", str(root / "tf1.npz"), "--images", str(imgs)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(base + ["--golden", str(root / "golden.npz")])
+    wall_s = time.perf_counter() - t0
+    got = json.loads(out.getvalue())
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_bad = cli.main(base + ["--golden", str(root / "bad.npz")])
+    print(f"parity: cli parity of {len(paths)} images with the flagship as a TF1 export "
+          f"({n_vars} variables) against the fp32 extractor's golden: rc {rc}, max abs "
+          f"{got['max_abs_diff']:.3g}, min cosine {got['min_cosine']:.9f}, warm-started "
+          f"{got['warm_started_scopes']}, {wall_s:.2f} s; perturbed golden rc {rc_bad}")
+    if rc != 0 or not got["passed"] or got["converted_vars"] != n_vars or rc_bad != 1:
+        fail(f"parity: rc {rc} ({got}), perturbed rc {rc_bad}")
+    report["parity"] = dict(images=len(paths), converted_vars=n_vars, wall_s=wall_s,
+                            max_abs_diff=got["max_abs_diff"], min_cosine=got["min_cosine"],
+                            rc=rc, rc_perturbed=rc_bad)
+    work.cleanup()
+
+
+def phase_packed_stem(torch, np, report, shared):
+    """The width-packed stem on the card, from the trained flagship at
+    180x240: fp32 packed block1 (+ pool, ReLU) against the standard one at
+    B 64 within 1e-5 of the largest output; the whole model's descriptors
+    (fp32, TF32 off) packed against standard at cosine >= 0.99999; block1
+    packed and standard timed under cuDNN in turns (bf16 and fp32); the int8
+    packed stack (im2col + torch._int_mm for conv1_1 .. conv2_1) equal bit for
+    bit to the direct stack (Q1_stem, Q1, Q1_pool) at B 8 and 64, and the
+    packed stem's time beside Q1_stem + Q1 on the same layers."""
+    import torch.nn.functional as F
+
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.flagship import calibration_images
+    from soft_contrastive_learning_torch.models.model import EmbeddingNet
+    from soft_contrastive_learning_torch.models.quant import QuantizedConvStack, calibrate_scales
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+    from soft_contrastive_learning_torch.ops.kernels.int8_conv import int8_conv, int8_pool, int8_stem
+    from soft_contrastive_learning_torch.ops.packed_stem import packed_stem_block
+    from soft_contrastive_learning_torch.perf.common import time_ms
+
+    cfg = ModelConfig(compute_dtype="float32")
+    params = load_trained_params(cfg=cfg)
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(blocky_images(rng, 64)).cuda()
+    w1, b1 = params["vgg16.block1.conv1_1.weight"].cuda(), params["vgg16.block1.conv1_1.bias"].cuda()
+    w2, b2 = params["vgg16.block1.conv1_2.weight"].cuda(), params["vgg16.block1.conv1_2.bias"].cuda()
+    avg = params["vgg16.average_rgb"].cuda()
+
+    def block1(dt, packed):
+        x = images.to(dt) - avg.to(dt)
+        if packed:
+            return packed_stem_block(x, w1.to(dt).permute(2, 3, 1, 0), b1.to(dt),
+                                     w2.to(dt).permute(2, 3, 1, 0), b2.to(dt))
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        y = F.relu(F.conv2d(x, w1.to(dt), b1.to(dt), padding=1))
+        y = F.conv2d(y, w2.to(dt), b2.to(dt), padding=1)
+        return F.relu(F.max_pool2d(y, 2)).permute(0, 2, 3, 1)
+
+    with torch.no_grad():
+        got, want = block1(torch.float32, True), block1(torch.float32, False)
+        block_err = (got - want).abs().max().item() / want.abs().max().item()
+        models = {}
+        for packed in (False, True):
+            m = EmbeddingNet(ModelConfig(compute_dtype="float32", packed_stem=packed))
+            m.load_state_dict(params)
+            models[packed] = m.cuda().eval()
+        d_std, d_packed = models[False](images)[0], models[True](images)[0]
+        cos = torch.nn.functional.cosine_similarity(d_std.double(), d_packed.double()).min().item()
+        times = {}
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            turns = [time_ms(lambda p=p: block1(dt, p), 20) for p in (False, True, True, False)]
+            times[name] = dict(standard=[turns[0], turns[3]], packed=[turns[1], turns[2]])
+    if block_err > 1e-5 or cos < 0.99999:
+        fail(f"packed_stem: block1 {block_err:.3g} of the largest output (gate 1e-5), "
+             f"descriptor cosine {cos:.9f} (gate 0.99999)")
+
+    scales = calibrate_scales(params, calibration_images(cfg, 8), "cuda")
+    packed_stack = QuantizedConvStack(params, scales, "cuda", packed_stem=True)
+    direct = QuantizedConvStack(params, scales, "cuda")
+    int8_equal = {}
+    with torch.no_grad():
+        for b in (8, 64):
+            int8_equal[b] = torch.equal(packed_stack(images[:b]), direct(images[:b]))
+        s, l12, l21 = direct.layers[0], direct.layers[1], direct.layers[2]
+
+        def q1_stem_q1():
+            a8 = int8_stem(images, direct.average_rgb, direct.inv_in, s["weight"], s["mult"],
+                           s["bias"], s["inv_next"], s["relu"])
+            a8 = int8_pool(int8_conv(a8, l12["weight"], l12["mult"], l12["bias"],
+                                     l12["inv_next"], l12["relu"], l12["out_f32"]))
+            return int8_conv(a8, l21["weight"], l21["mult"], l21["bias"], l21["inv_next"],
+                             l21["relu"], l21["out_f32"])
+
+        if not torch.equal(packed_stack.packed_stem(images), q1_stem_q1()):
+            fail("packed_stem: the int8 packed stem's conv2_2 input differs from Q1's")
+        turns = [time_ms(fn, 20) for fn in (q1_stem_q1, lambda: packed_stack.packed_stem(images),
+                                            lambda: packed_stack.packed_stem(images), q1_stem_q1)]
+    if not all(int8_equal.values()):
+        fail(f"packed_stem: the int8 packed stack differs from Q1's: {int8_equal}")
+    int8_ms = dict(q1_stem_q1=[turns[0], turns[3]], packed_int_mm=[turns[1], turns[2]])
+    print(f"packed_stem: fp32 block1 packed vs standard {block_err:.3g} of the largest output, "
+          f"descriptors at cosine >= {cos:.9f}; block1 + pool at B 64 under cuDNN, ms in turns "
+          f"(standard, packed, packed, standard): {times}; int8 packed stack equal to Q1's "
+          f"{int8_equal}; conv1_1 .. conv2_1 at B 64: Q1_stem + Q1 + Q1_pool "
+          f"{int8_ms['q1_stem_q1']} ms, packed im2col + torch._int_mm {int8_ms['packed_int_mm']}")
+    report["packed_stem"] = dict(block1_rel_err=block_err, descriptor_min_cosine=cos,
+                                 block1_ms=times, int8_equal=int8_equal, int8_stem_ms=int8_ms)
+
+
 def main() -> int:
     import torch
 
@@ -4265,13 +4711,16 @@ def main() -> int:
     phase_topn(torch, np, report, shared)
     phase_topn_250k(torch, np, report, shared)
     phase_multidevice(torch, np, report, shared)
+    phase_prep(torch, np, report, shared)
+    phase_parity(torch, np, report, shared)
+    phase_packed_stem(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (rank 0 of
-    # the flagship's two-rank run for K1, its backward and K3, rank 0 of the
+    # launches: the count on the newest path that runs the kernel (training
+    # from the fresh prep tree for K1, its backward and K3, rank 0 of the
     # sharded search for K2, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it (per
     # rank for the multidevice phase's ranks)
-    paths = ("multidevice_flagship_r0", "multidevice_search_r0", "bench_train", "train_async",
+    paths = ("prep_train", "prep_infer", "multidevice_flagship_r0", "multidevice_search_r0", "bench_train", "train_async",
              "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
              "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
              "serve", "probes")
@@ -4293,6 +4742,8 @@ def main() -> int:
 
     (out / "chip_smoke_report.json").write_text(
         json.dumps({"card": smi.stdout.strip(), "report": plain(report)}, default=str))
+    print(json.dumps({"prep": report["prep"], "parity": report["parity"],
+                      "packed_stem": report["packed_stem"]}, default=str))
     print(json.dumps({"multidevice": report["multidevice"]}, default=str))
     print(json.dumps({"train_async": report["train_async"],
                       "bench_train": {name: {key: run[key] for key in ("seconds", "launches")}

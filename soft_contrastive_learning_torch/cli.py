@@ -1,5 +1,6 @@
 """Command line of the port: ``serve``, ``train``, ``infer``, ``topn``,
-``roc``, ``quant``, ``bench``, ``cache`` and ``metrics``.
+``roc``, ``quant``, ``bench``, ``cache``, ``metrics``, ``prep`` and
+``parity``.
 
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
@@ -20,6 +21,11 @@
     python -m soft_contrastive_learning_torch.cli bench --train [--async_mining] [--no_cache]
     python -m soft_contrastive_learning_torch.cli cache --cache_dir dc --toy_city
     python -m soft_contrastive_learning_torch.cli metrics --run_dir runs/<run> --tb-export
+    python -m soft_contrastive_learning_torch.cli prep --root <prep>/data \
+        --raw_img_root <raw> --ins_root <raw> --tar_root <tars> \
+        --img_root <prep>/downsized --mask_root <masks>
+    python -m soft_contrastive_learning_torch.cli parity --checkpoint tf1_export.npz \
+        --images imgs --golden golden.npz
 
 Flags follow ``scl-tpu`` (``soft_contrastive_learning_tpu/cli.py``) with the
 same names and defaults, limited to what the port runs so far, plus
@@ -73,7 +79,15 @@ with ``--device cpu``. ``metrics`` prints a run's JSONL scalars
 (``--plot``: a PDF per tag, matplotlib; ``--tb-export``: TensorBoard event
 files, ``core/tb_export.py``). ``roc`` draws its figure with matplotlib,
 which a host may lack; the curves themselves are
-``evaluation/roc.py::correctly_localized_curve``.
+``evaluation/roc.py::correctly_localized_curve``. ``prep`` runs the
+RobotCar ETL pipeline (``data/robotcar/``): per date the downsize on
+``--device`` (demosaic, undistort, resize, OpenCV's pixels), the INS
+interpolation and, with ``--mask_root``, the splits; then stages 004-014
+(``--task_id N > 0``: the N-th date only, an array job's task; a final run
+without it merges), and stage 009's statistics with ``--statistics``.
+``parity`` embeds images with a converted TF1 export in fp32 and compares
+them with a golden ``.npz`` (exit code 1 past ``--tolerance``) or writes
+them (``--out``).
 """
 
 from __future__ import annotations
@@ -379,6 +393,51 @@ def cmd_roc(args) -> int:
                       **kwargs)
     print(out or "no top-n pickles found")
     return 0 if out else 1
+
+
+def cmd_prep(args) -> int:
+    from soft_contrastive_learning_torch.data.robotcar import prep
+    from soft_contrastive_learning_torch.data.robotcar.analysis import plot_statistics
+    from soft_contrastive_learning_torch.data.robotcar.downsize import downsize_images
+    from soft_contrastive_learning_torch.data.robotcar.stages import PrepContext, run_all
+
+    ctx = PrepContext(
+        root=args.root, raw_img_root=args.raw_img_root, ins_root=args.ins_root,
+        tar_root=args.tar_root, img_root=args.img_root,
+        camera_models=args.camera_models, max_epochs=args.max_epochs,
+        grid_masks={
+            name: os.path.join(args.mask_root, f"{name}.png")
+            for name in ("full", "train", "test", "val")
+        } if args.mask_root else {},
+    )
+    dates = sorted(os.listdir(ctx.ins_root)) if ctx.ins_root else []
+    if args.task_id > 0:
+        # array-job sharding: one date per task (the reference's per-date
+        # array contract, prepare_data/001:22-25)
+        dates = dates[args.task_id - 1 : args.task_id]
+    for date in dates:
+        downsize_images(ctx, date, device=args.device)
+        prep.interpolate_image_xy(ctx, date)
+        if ctx.grid_masks:
+            prep.assign_splits(ctx, date)
+    if args.task_id > 0:
+        return 0  # array tasks only do per-date work; a final run merges
+    run_all(prep.metadata_stages(ctx), ctx)
+    if args.statistics:
+        plot_statistics(ctx, tag_root=args.tag_root)
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """Descriptor parity against a converted reference TF1 checkpoint."""
+    import json
+
+    from soft_contrastive_learning_torch.evaluation.parity import run_parity
+
+    report = run_parity(checkpoint=args.checkpoint, images=args.images, golden=args.golden,
+                        out=args.out, tolerance=args.tolerance, device=args.device)
+    print(json.dumps(report.to_dict(), indent=1))
+    return 1 if report.passed is False else 0
 
 
 def config_from_args(args):
@@ -752,6 +811,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vlad_cores", type=int, default=64)
     p.add_argument("--num_workers", type=int, default=8)
     p.set_defaults(func=cmd_cache)
+
+    p = sub.add_parser("prep", help="run the RobotCar ETL pipeline")
+    p.add_argument("--root", required=True)
+    p.add_argument("--raw_img_root", default="")
+    p.add_argument("--ins_root", default="")
+    p.add_argument("--tar_root", default="")
+    p.add_argument("--img_root", default="")
+    p.add_argument("--camera_models", default="")
+    p.add_argument("--mask_root", default="")
+    p.add_argument("--max_epochs", type=int, default=5)
+    p.add_argument("--task_id", type=int, default=0,
+                   help=">0: process only the task_id-th date (array jobs)")
+    p.add_argument("--statistics", action="store_true",
+                   help="also run stage 009 dataset statistics")
+    p.add_argument("--tag_root", default="")
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_prep)
+
+    p = sub.add_parser("parity", help="descriptor parity vs a converted reference TF1 checkpoint")
+    p.add_argument("--checkpoint", required=True,
+                   help="TF1 checkpoint export (.npz of {tf_name: array})")
+    p.add_argument("--images", required=True,
+                   help="image directory or newline-separated list file")
+    p.add_argument("--golden", default=None,
+                   help=".npz with reference 'descriptors' for the same images")
+    p.add_argument("--out", default=None,
+                   help="write our descriptors (.npz) for offline comparison")
+    p.add_argument("--tolerance", type=float, default=1e-3,
+                   help="max-abs descriptor tolerance for pass/fail")
+    p.add_argument("--device", default="cuda", help="torch device; 'cpu' only when asked")
+    p.set_defaults(func=cmd_parity)
     return parser
 
 

@@ -43,7 +43,8 @@ class EmbeddingNet(nn.Module):
         compute_dtype = torch_dtype(config.compute_dtype)
         param_dtype = torch_dtype(config.param_dtype)
         self.vgg16 = VGG16(compute_dtype=compute_dtype, param_dtype=param_dtype,
-                           winograd=config.winograd, remat=config.remat)
+                           winograd=config.winograd, remat=config.remat,
+                           packed_stem=config.packed_stem)
         self.netvlad = None
         if config.reduction != "spp" and config.vlad_cores > 0:
             self.netvlad = NetVLAD(

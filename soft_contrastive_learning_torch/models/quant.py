@@ -25,8 +25,16 @@ call), and laid out K-major as (F, 3, 3, C) int8 (``wgmma`` takes s8 only
 K-major); the stem (C = 3) runs as a 1x1 conv of packed 3x3 columns
 (``int8_conv.int8_stem``: the columns built in the kernel on the card, by
 ``stem_columns`` on the CPU), the same integer sums.
-``ModelConfig(packed_stem=True)`` (a TPU lane-packing rewrite) is refused:
-ROADMAP.md, Queue 1 item 8.
+
+``packed_stem=True`` (``ModelConfig.packed_stem``) runs conv1_1, conv1_2,
+pool1 and conv2_1 width-packed, as JAX's ``_packed_int8_stem``, where the
+images' height is even and their width a multiple of 4 (elsewhere the
+standard stem runs, as in JAX): each packed VALID (3, 2) conv is an im2col
+gather and ``torch._int_mm`` (the library's int8 GEMM standing for XLA's
+int8 conv) with Q1's epilogue in torch ops (``epilogue_plain``). The
+packing only reindexes the same int8 values and the int32 sums are exact,
+so conv2_2's input, and the conv5_3 map, equal the direct path's bit for
+bit. Opt-in, as in JAX.
 
 Parameters are an ``EmbeddingNet`` state_dict (``models/weights.py``).
 """
@@ -45,10 +53,19 @@ from soft_contrastive_learning_torch.models.heads import spatial_pyramid_pool
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
 from soft_contrastive_learning_torch.models.vgg16 import VGG_BLOCKS, l2_normalize
 from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
+    epilogue_plain,
     int8_conv,
     int8_pool,
     int8_stem,
+    requant_plain,
     stem_weight,
+)
+from soft_contrastive_learning_torch.ops.packed_stem import (
+    pack_input,
+    pack_kernel,
+    packed_maxpool,
+    repack_shifted,
+    unpack_width,
 )
 
 CONV_NAMES: List[str] = [
@@ -134,12 +151,41 @@ def _quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return k8.permute(0, 2, 3, 1).contiguous(), s
 
 
+def _packed_int8_conv(xp: torch.Tensor, layer: dict) -> torch.Tensor:
+    """VALID (3, 2) conv of the packed int8 map xp (B, H+2, W/2+1, 2C) by a
+    packed layer (``_packed_layer``) -> its int8 packed output (B, H, W/2,
+    2F): the (3, 2, 2C) windows gathered as rows (K padded to the weight's),
+    ``torch._int_mm`` to int32, Q1's epilogue."""
+    b, hp, wp, c2 = xp.shape
+    h, w2 = hp - 2, wp - 1
+    cols = xp.unfold(1, 3, 1).unfold(2, 2, 1)  # (B, H, W/2, 2C, 3, 2), a view
+    cols = cols.permute(0, 1, 2, 4, 5, 3).reshape(b * h * w2, 6 * c2)
+    cols = F.pad(cols, (0, layer["weight"].shape[0] - cols.shape[1]))
+    acc = torch._int_mm(cols, layer["weight"]).reshape(b, h, w2, -1)
+    return epilogue_plain(acc, layer["mult"], layer["bias"], layer["inv_next"], True, False)
+
+
+def _packed_layer(k8: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,
+                  inv_next: float) -> dict:
+    """A stem conv's int8 (F, 3, 3, C) weight packed (``pack_kernel``) as
+    the (K, 2F) matrix of ``_packed_int8_conv``, K = 6 * 2C padded to a
+    multiple of 8 (``torch._int_mm`` on the card), its per-channel
+    multipliers and biases twice (the two width phases)."""
+    kp = pack_kernel(k8.permute(1, 2, 3, 0))  # HWIO (3, 2, 2C, 2F)
+    w = kp.reshape(-1, kp.shape[-1])
+    w = F.pad(w, (0, 0, 0, -w.shape[0] % 8)).contiguous()
+    return dict(weight=w, mult=torch.cat([mult, mult]), bias=torch.cat([bias, bias]),
+                inv_next=inv_next)
+
+
 class QuantizedConvStack:
     """The int8 VGG16 conv stack with its weights quantized once onto
     ``device``. Calling it maps NHWC images to the fp32 conv5_3 map
-    (pre-normalization)."""
+    (pre-normalization). ``packed_stem``: conv1_1 .. conv2_1 width-packed
+    where the images allow it (module docstring)."""
 
-    def __init__(self, params, scales: Dict[str, float], device="cuda"):
+    def __init__(self, params, scales: Dict[str, float], device="cuda",
+                 packed_stem: bool = False):
         missing = sorted(set(CONV_NAMES) - set(scales))
         if missing:
             raise ValueError(f"quantization scales lack {missing}")
@@ -147,6 +193,7 @@ class QuantizedConvStack:
         self.average_rgb = params["vgg16.average_rgb"].float().to(self.device)
         self.inv_in = _inv(scales[CONV_NAMES[0]])  # the input's requant
         self.layers = []
+        self.packed = []  # conv1_1, conv1_2, conv2_1 packed, with packed_stem
         idx = 0
         for bi, specs in enumerate(VGG_BLOCKS):
             for si, (_name, _, relu) in enumerate(specs):
@@ -163,26 +210,45 @@ class QuantizedConvStack:
                     # a block boundary takes ReLU before the requant and the pool
                     relu=not last and (relu or block_end), out_f32=last,
                     pool=block_end and not last))
+                if packed_stem and idx < 3:
+                    self.packed.append(_packed_layer(k8, self.layers[-1]["mult"],
+                                                     self.layers[-1]["bias"],
+                                                     self.layers[-1]["inv_next"]))
                 idx += 1
 
+    def packed_stem(self, images: torch.Tensor) -> torch.Tensor:
+        """JAX's ``_packed_int8_stem``: NHWC images (H even, W % 4 == 0) ->
+        conv2_2's int8 input (B, H/2, W/2, 128), width-packed through
+        conv1_1, conv1_2, pool1 (a phase and row max on the requantized
+        int8) and conv2_1."""
+        c11, c12, c21 = self.packed
+        a8 = requant_plain(_images(images, self.device) - self.average_rgb, self.inv_in)
+        y1 = _packed_int8_conv(pack_input(a8), c11)
+        a8 = packed_maxpool(_packed_int8_conv(repack_shifted(y1), c12))
+        return unpack_width(_packed_int8_conv(pack_input(a8), c21))
+
     def __call__(self, images) -> torch.Tensor:
-        stem = self.layers[0]  # conv1_1: no pool
-        a8 = int8_stem(_images(images, self.device, keep_uint8=True), self.average_rgb,
-                       self.inv_in, stem["weight"], stem["mult"], stem["bias"], stem["inv_next"],
-                       stem["relu"])
+        x = _images(images, self.device, keep_uint8=True)
+        if self.packed and x.shape[1] % 2 == 0 and x.shape[2] % 4 == 0:
+            a8, rest = self.packed_stem(x), self.layers[3:]  # conv2_2 onward
+        else:
+            stem, rest = self.layers[0], self.layers[1:]  # conv1_1: no pool
+            a8 = int8_stem(x, self.average_rgb, self.inv_in, stem["weight"], stem["mult"],
+                           stem["bias"], stem["inv_next"], stem["relu"])
         y = None
-        for layer in self.layers[1:]:
+        for layer in rest:
             y = int8_conv(a8, layer["weight"], layer["mult"], layer["bias"], layer["inv_next"],
                           layer["relu"], layer["out_f32"])
             a8 = int8_pool(y) if layer["pool"] else y
         return y  # conv5_3: no pool, no ReLU
 
 
-def quantized_conv_stack(params, scales: Dict[str, float], images) -> torch.Tensor:
+def quantized_conv_stack(params, scales: Dict[str, float], images,
+                         packed_stem: bool = False) -> torch.Tensor:
     """int8 VGG16 conv stack -> fp32 conv5_3 map (pre-normalization), on the
     images' device, the weights quantized for this call."""
     x = _images(images)
-    return QuantizedConvStack(params, scales, x.device)(x)
+    return QuantizedConvStack(params, scales, x.device, packed_stem)(x)
 
 
 class QuantizedEmbedder:
@@ -203,7 +269,7 @@ class QuantizedEmbedder:
                 raise ValueError("QuantizedEmbedder needs calibration images or scales")
             scales = calibrate_scales(params, calib_images, self.device)
         self.scales = dict(scales)
-        self.stack = QuantizedConvStack(params, self.scales, self.device)
+        self.stack = QuantizedConvStack(params, self.scales, self.device, cfg.packed_stem)
         # the heads (NetVLAD, dense) as the float model holds them
         model = EmbeddingNet(cfg)
         model.load_state_dict(params)

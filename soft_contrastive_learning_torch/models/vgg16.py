@@ -16,7 +16,11 @@ ReLU fused; the parameters are the same ``Conv2d`` ones either way. With
 ``remat=True`` each conv block (its convs, on either path) runs under
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: its
 activations are recomputed in the backward instead of kept, as the JAX
-block's ``nn.remat``.
+block's ``nn.remat``. With ``packed_stem=True`` and an even height and
+width, block1 with its pool and ReLU runs as JAX's ``_PackedStem``
+(``ops/packed_stem.py``: width-packed convs through cuDNN, the same
+parameters, outside remat as in JAX); otherwise the standard block runs,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from soft_contrastive_learning_torch.ops.kernels.winograd import WinogradConvFn
+from soft_contrastive_learning_torch.ops.packed_stem import packed_stem_block
 
 # (name, out_channels, relu_after) per conv; pool after each block's last conv.
 VGG_BLOCKS = (
@@ -52,11 +57,12 @@ class VGG16(nn.Module):
 
     def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype = torch.float32, winograd: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, packed_stem: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.winograd = winograd
         self.remat = remat
+        self.packed_stem = packed_stem
         self.average_rgb = nn.Parameter(torch.zeros(3, dtype=param_dtype))
         cin = 3
         for bi, specs in enumerate(VGG_BLOCKS):
@@ -82,6 +88,17 @@ class VGG16(nn.Module):
                 x = F.relu(x)
         return x
 
+    def _packed_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's ``_PackedStem``: block1 + pool + ReLU width-packed, on
+        block1's own parameters (OIHW -> HWIO), channels-last NCHW in and
+        out."""
+        dt = self.compute_dtype
+        c1, c2 = self.block1["conv1_1"], self.block1["conv1_2"]
+        y = packed_stem_block(x.permute(0, 2, 3, 1), c1.weight.to(dt).permute(2, 3, 1, 0),
+                              c1.bias.to(dt), c2.weight.to(dt).permute(2, 3, 1, 0),
+                              c2.bias.to(dt))
+        return y.permute(0, 3, 1, 2)
+
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if images.ndim != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(images.shape)}")
@@ -94,7 +111,11 @@ class VGG16(nn.Module):
         x = x - self.average_rgb.to(dt)
         # NHWC memory is NCHW in channels_last: a view, no copy
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        packed = self.packed_stem and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0
         for bi in range(len(VGG_BLOCKS)):
+            if bi == 0 and packed:
+                x = self._packed_stem(x)  # block1, its pool and ReLU
+                continue
             if self.remat:
                 x = checkpoint(self._block, bi, x, use_reentrant=False)
             else:

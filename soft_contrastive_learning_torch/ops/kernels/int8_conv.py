@@ -116,13 +116,21 @@ def int8_conv_plain(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: 
     t = _check(x, w, mult, bias)
     acc = F.conv2d(x.permute(0, 3, 1, 2).double(), w.permute(0, 3, 1, 2).double(),
                    padding=t // 2)
-    y = acc.permute(0, 2, 3, 1).to(torch.int32).float() * mult + bias
+    return epilogue_plain(acc.permute(0, 2, 3, 1).to(torch.int32), mult, bias, inv_next, relu,
+                          out_f32)
+
+
+def epilogue_plain(acc: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor, inv_next: float,
+                   relu: bool, out_f32: bool) -> torch.Tensor:
+    """Q1's epilogue on int32 sums (..., F): ``y = acc.float() * mult +
+    bias``; ``out_f32``: y; else ReLU where ``relu`` and
+    ``clip(round(y * inv_next), -127, 127)`` as int8 (round half to even)."""
+    y = acc.float() * mult + bias
     if out_f32:
         return y.contiguous()
     if relu:
         y = torch.relu(y)
-    inv = torch.tensor(inv_next, dtype=torch.float32, device=y.device)
-    return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8).contiguous()
+    return requant_plain(y, inv_next).contiguous()
 
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, mult: torch.Tensor, bias: torch.Tensor,

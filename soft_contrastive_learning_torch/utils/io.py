@@ -13,9 +13,10 @@ the standard library's ``zlib`` (no OpenCV or PIL, on any host):
   brings them) take 8-bit gray, gray + alpha, RGB and RGBA, not interlaced,
   with any of the five row filters, and returns RGB uint8 as
   ``cv2.imread(IMREAD_COLOR)`` followed by BGR -> RGB does: alpha dropped,
-  gray repeated over the three channels. It checks every chunk's CRC and
-  refuses, naming the reason, 16-bit samples, palettes, Adam7 interlacing
-  and JPEG files.
+  gray repeated over the three channels; ``decode_gray`` reads a gray PNG
+  as (H, W), as ``cv2.imdecode(IMREAD_GRAYSCALE)`` does. It checks every
+  chunk's CRC and refuses, naming the reason, 16-bit samples, palettes,
+  Adam7 interlacing and JPEG files.
 - ``save_img`` writes 8-bit RGB, one filter for all rows (Sub by default)
   or one per row.
 
@@ -235,6 +236,25 @@ def decode_img(data: bytes, path: str = "image") -> np.ndarray:
     """Decode PNG bytes as an (H, W, 3) RGB uint8 array; ``path`` names the
     source in the reason a refused file is given (JPEG, palette, 16-bit and
     Adam7 PNGs, anything else)."""
+    px = _decode_png(data, path)
+    if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, :3])
+
+
+def decode_gray(data: bytes, path: str = "image") -> np.ndarray:
+    """Decode an 8-bit gray PNG (a raw Bayer frame) as an (H, W) uint8
+    array, as ``cv2.imdecode(IMREAD_GRAYSCALE)`` reads one; a PNG with
+    colour is refused (OpenCV would mix its channels to gray)."""
+    px = _decode_png(data, path)
+    if px.shape[2] != 1:
+        raise ValueError(f"{path}: a PNG with {px.shape[2]} channels; a gray read takes 8-bit "
+                         "gray PNGs only")
+    return px[:, :, 0]
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    """PNG bytes -> (H, W, channels) uint8 samples as stored."""
     if data[:3] == b"\xff\xd8\xff":
         raise ValueError(f"{path}: a JPEG file; the port decodes PNG only (it has no JPEG "
                          "decoder)")
@@ -263,7 +283,10 @@ def decode_img(data: bytes, path: str = "image") -> np.ndarray:
         raise ValueError(f"{path}: unknown PNG compression or filter method "
                          f"({method}, {filter_method})")
     ch = _CHANNELS[ctype]
-    raw = zlib.decompress(b"".join(idat))
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: PNG image data does not inflate ({e})") from e
     if len(raw) != h * (1 + w * ch):
         raise ValueError(f"{path}: PNG image data holds {len(raw)} bytes, expected "
                          f"{h * (1 + w * ch)} for {w}x{h}x{ch}")
@@ -271,10 +294,7 @@ def decode_img(data: bytes, path: str = "image") -> np.ndarray:
     types = rows[:, 0]
     if (types > FILTER_PAETH).any():
         raise ValueError(f"{path}: PNG row filter type {int(types.max())} does not exist")
-    px = _unfilter(rows[:, 1:].reshape(h, w, ch), types)
-    if ch < 3:  # gray (+ alpha): the gray channel three times
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(px[:, :, :3])
+    return _unfilter(rows[:, 1:].reshape(h, w, ch), types)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

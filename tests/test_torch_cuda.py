@@ -1105,3 +1105,43 @@ def test_k2_on_each_shard_of_a_sharded_search(cuda):
         np.testing.assert_array_equal(got_i, want_i)
         np.testing.assert_allclose(got_d, want_d, rtol=1e-6, atol=0)
     assert ranks[0][1][0, 0] == 12
+
+
+def test_prep_image_ops_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """The downsize's demosaic -> undistort -> resize on RobotCar-sized
+    Bayer frames (960x1280, a LUT whose corners leave the frame): the card's
+    bits are the CPU's, op by op."""
+    from soft_contrastive_learning_torch.data.robotcar.downsize import (
+        UndistortLUT, demosaic_gbrg, downsize_batch)
+
+    rng = np.random.default_rng(31)
+    raw = torch.from_numpy(rng.integers(0, 256, (3, 960, 1280), dtype=np.uint8))
+    yy, xx = np.mgrid[0:960, 0:1280].astype(np.float64)
+    k = 1 + 0.1 * (((xx - 639.5) / 640) ** 2 + ((yy - 479.5) / 480) ** 2)
+    path = str(tmp_path / "lut.bin")
+    np.stack([(639.5 + (xx - 639.5) * k).ravel(), (479.5 + (yy - 479.5) * k).ravel()]).tofile(path)
+    lut_cpu, lut_card = UndistortLUT(path, (960, 1280), "cpu"), UndistortLUT(path, (960, 1280),
+                                                                             cuda)
+    rgb = demosaic_gbrg(raw)
+    assert torch.equal(demosaic_gbrg(raw.to(cuda)).cpu(), rgb)
+    assert torch.equal(lut_card(rgb.to(cuda)).cpu(), lut_cpu(rgb))
+    small = downsize_batch(raw, 240, lut_cpu)
+    assert small.shape == (3, 180, 240, 3)
+    assert torch.equal(downsize_batch(raw.to(cuda), 240, lut_card).cpu(), small)
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_int8_packed_stem_equals_q1(cuda, b):
+    """The int8 stack with ``packed_stem`` (im2col + torch._int_mm for
+    conv1_1 .. conv2_1) against the direct stack (Q1_stem, Q1, Q1_pool) on
+    the trained flagship at 180x240: conv5_3's fp32 map equal bit for bit."""
+    from soft_contrastive_learning_torch.models.quant import QuantizedConvStack, calibrate_scales
+
+    cfg = ModelConfig(compute_dtype="float32")
+    params = load_trained_params(cfg=cfg)
+    images = np.random.default_rng(b).integers(0, 256, (b, 180, 240, 3), dtype=np.uint8)
+    scales = calibrate_scales(params, images[:8], cuda)
+    packed = QuantizedConvStack(params, scales, cuda, packed_stem=True)
+    direct = QuantizedConvStack(params, scales, cuda)
+    x = torch.from_numpy(images).to(cuda)
+    assert torch.equal(packed(x), direct(x))

@@ -75,7 +75,11 @@ EVAL_SLICE = ("utils/io.py", "utils/experiments.py", "data/pipeline.py", "data/c
               "bench_train.py", "data/decoded_cache.py", "core/tb_export.py",
               "core/logging.py", "launch/jobs.py", "launch/__init__.py",
               # multi-device data parallelism: the mesh, the ranks' launcher, the dryrun
-              "parallel/mesh.py", "launch/multihost.py", "dryrun.py")
+              "parallel/mesh.py", "launch/multihost.py", "dryrun.py",
+              # the prep pipeline, the parity harness, the packed stem
+              "utils/cv.py", "utils/plot.py", "utils/sampling.py", "data/robotcar/stages.py",
+              "data/robotcar/downsize.py", "data/robotcar/prep.py",
+              "data/robotcar/analysis.py", "evaluation/parity.py", "ops/packed_stem.py")
 
 
 @pytest.mark.parametrize("module", EVAL_SLICE)
@@ -87,6 +91,35 @@ def test_the_file_pipeline_imports_no_image_or_plot_library(module):
     code = (f"import importlib, sys\nimportlib.import_module({name!r})\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + NOT_DEPENDENCIES!r})\nassert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_prep_and_resize_run_where_opencv_sklearn_and_matplotlib_are_missing():
+    """With sklearn, cv2 and matplotlib made unimportable, the prep
+    pipeline, the parity harness and the packed stem import, and the image
+    ops, the 1-D searches and the 2-means run."""
+    code = (
+        "import sys\n"
+        "for m in ('sklearn', 'cv2', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from soft_contrastive_learning_torch import cli\n"
+        "from soft_contrastive_learning_torch.data.robotcar import analysis, downsize, prep\n"
+        "from soft_contrastive_learning_torch.evaluation import parity\n"
+        "from soft_contrastive_learning_torch.ops import packed_stem\n"
+        "from soft_contrastive_learning_torch.utils.cv import normalize_geometry\n"
+        "raw = torch.randint(0, 256, (2, 12, 16), dtype=torch.uint8)\n"
+        "small = downsize.downsize_batch(raw, 8)\n"
+        "assert small.shape == (2, 6, 8, 3), small.shape\n"
+        "img = np.zeros((90, 120, 3), np.uint8)\n"
+        "assert normalize_geometry(img, 180, 240, keep_aspect=True).shape == (180, 240, 3)\n"
+        "assert prep._two_means_1d(np.array([0., 1., 50., 51.]))[0].tolist() == [0, 0, 1, 1]\n"
+        "assert prep._nearest_1d(np.arange(5.), np.array([2.2]), 2)[1].tolist() == [[2, 3]]\n"
+        "assert prep._radius_neighbors(np.zeros((3, 2)), np.zeros((1, 2)), 1.0)[0].tolist() "
+        "== [0, 1, 2]\n"
+    )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr

@@ -38,6 +38,7 @@ from soft_contrastive_learning_tpu.models.model import init_params as jax_init_p
 from soft_contrastive_learning_tpu.models.vgg16 import _VGG_BLOCKS
 from soft_contrastive_learning_torch.core.config import ModelConfig
 from soft_contrastive_learning_torch.models import quant as tq
+from soft_contrastive_learning_torch.models.model import init_params
 from soft_contrastive_learning_torch.models.weights import params_from_flax
 from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
     int8_conv_plain,
@@ -318,8 +319,14 @@ def test_stem_columns_make_the_3x3_conv_a_1x1_conv(shape):
 
 
 def test_packed_stem_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ModelConfig(packed_stem=True)
+    """No longer refused: the packed stem is ported (tests/test_torch_packed_stem.py),
+    and the config and the int8 stack take it."""
+    cfg = ModelConfig(packed_stem=True)
+    assert cfg.packed_stem
+    params = init_params(ModelConfig(vlad_cores=4), 0)
+    stack = tq.QuantizedConvStack(params, {name: 1.0 for name in tq.CONV_NAMES}, "cpu",
+                                  packed_stem=cfg.packed_stem)
+    assert len(stack.packed) == 3
 
 
 def _jax_subparser_defaults(monkeypatch, command):
