@@ -21,7 +21,7 @@ failure:
    output by TMA stores, UTMASTG), netvlad the TMA loads; Q1's tile shapes
    per layer (ring stages, shared memory, resident weights) and Q1_stem's;
    wms must hold one kernel function (K3 is one launch), and no topk kernel
-   may spill;
+   may spill; jpeg must hold two kernel functions (J1's two launches);
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
    plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
@@ -82,7 +82,17 @@ failure:
 11. the five probe scripts (soft_contrastive_learning_torch/perf) through
    their main(), at their own problems: each must launch its kernel once
    per row and call, warm-up included, and no other;
-12. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
+12. jpeg: the committed JPEG fixtures (soft_contrastive_learning_torch/
+   assets/jpeg, written by scripts/make_jpeg_fixtures.py: 4:2:0, 4:4:4,
+   4:2:2, 4:4:0, 4:1:1, gray, progressive, restart intervals, 181x243, EXIF
+   orientations 2-8, Adobe RGB, a 1280x960 frame): the compiled entropy
+   decoder's coefficients equal to the plain Python decoder's, J1 bit-equal
+   to the plain pixel stage on the card and hashing to OpenCV's committed
+   digest; the refused fixtures (truncated, arithmetic, lossless, 12-bit,
+   CMYK) refused with their reasons; decode img/s of the 180x240 fixtures on
+   1 and 8 threads, J1 timed beside the plain stage and its bound at 180x240
+   and on the frame, whose host entropy decode is timed apart;
+13. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
    DescriptorService (batch 64): embed 512 index images, pad the index with
    seeded random unit vectors to 66,048 x 32,768 fp32 so that search takes
    the streamed K2 path, search 64 queries of which 16 are index images
@@ -91,8 +101,13 @@ failure:
    plain-PyTorch model and the served search against the exact (fp64)
    search, squared distances within 1e-5 (the plain version's own fp32 error
    is printed beside), and time /search (embed of the queries and one K2
-   launch);
-13. serve_int8: the shipped int8-PTQ path (models/quant.py, flagship.py)
+   launch); then serve_jpeg: the service over HTTP on 127.0.0.1 (port 0),
+   /embed of a 180x240 JPEG and of the 1280x960 frame (resized by
+   resize_linear), /embed_batch and /search of both: J1 6, K1 4 and K2 1
+   launches exactly,
+   the card's decode equal to the plain CPU decode, descriptors and search
+   equal to the service's on those pixels, /search of the two JPEGs timed;
+14. serve_int8: the shipped int8-PTQ path (models/quant.py, flagship.py)
    at the flagship's width from the trained npz: Q1_stem (conv1_1 with the
    input's requant and 3x3 gather) against its plain version on the raw
    images, uint8 and fp32, and Q1 (the persistent int8 implicit-GEMM conv)
@@ -109,18 +124,19 @@ failure:
    over a 2x2 view (F.max_pool2d takes no int8 on CUDA); the int8 forward's
    steps timed one by one at 64 and 1,536 (Q1_stem, Q1 + Q1_pool, the L2
    norm and cast, K1); then `cli quant` from
-   32 PNGs written here (its scales equal to calibrate_scales'), `cli serve
+   28 PNGs and 4 JPEG fixtures written here (its scales equal to
+   calibrate_scales' on the plain decode's pixels), `cli serve
    --quant_scales` on 127.0.0.1, port 0, in a thread, over a 66,048-row
    index (an fp16 pickle: 512 int8 descriptors and seeded unit rows, so
    that /search streams through K2): /healthz, /embed (PNG bytes),
    /embed_batch and /search equal to the in-process calls, exact Q1,
    Q1_stem, Q1_pool, K1 and K2 counts; then `cli bench --iters 3` (its JSON
    line);
-14. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
+15. serve the same 512 images with ModelConfig(winograd=True): 10 K4 and one
    K1 launch per batch, descriptors at cosine >= 0.999 to the standard
    configuration's and >= 0.99 to the fp32 plain model's, and the model's
    time per batch beside the standard configuration's, in turns;
-15. train: one toy-city epoch (120 poses, 180x240) of the flagship through
+16. train: one toy-city epoch (120 poses, 180x240) of the flagship through
    Trainer.train() from the trained weights: 2 tuples of 1+12+12 (B=50),
    Adam at 5e-6, hard mining 6+6, fused wms (K3), mining every 20 steps
    over a cache of 100, the eval hooks once (before the first step: the
@@ -137,11 +153,11 @@ failure:
    epoch is run whole a second time for the run-to-run floor: the resumed
    run must draw the same batches and end within 10x the floor (at least
    1e-6) of the uninterrupted run's last loss and parameters;
-16. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
+17. train the same epoch with ModelConfig(winograd=True): 840 K4 launches
    (10 per forward: steps, mining embeds, evals), the same checks, the
    standard epoch's first batch within 1e-2 relative of the standard
    configuration's loss, and the step timed against it in turns;
-17. train_async: the train phase's epoch with async_mining, in turns with
+18. train_async: the train phase's epoch with async_mining, in turns with
    the synchronous one (sync, async, async, sync): the async runs spawn a
    worker at every boundary but the epoch's first (anchors 20-100), land 6
    refreshes as the sync runs do, launch K1, its backward and K3 exactly as
@@ -149,14 +165,14 @@ failure:
    refresh from the same weights gives the sync refresh's window and
    neighbour order bit for bit; each run's refresh wall (sync and async),
    steady-window step and with_mining img/s are printed;
-18. bench_train: `cli bench --train` at JAX's defaults (600 poses, 2 tuples,
+19. bench_train: `cli bench --train` at JAX's defaults (600 poses, 2 tuples,
    50 device steps) three ways, synchronous, --async_mining and --no_cache,
    in a fresh temporary directory (the first builds the decoded-uint8
    cache): each JSON line printed, every number finite, with_mining_step_ms
    at least 0.9x sustained_step_ms, 300 timed steps, K1 and its backward
    launched as the runs' steps, refreshes and evals call them, no K3; the
    two phases' wall time;
-19. train_files: the same toy city written as the prep pipeline's tree
+20. train_files: the same toy city written as the prep pipeline's tree
    (shuffled/, anchors/, clusters/, PNGs) with the port's writer, and `cli
    train` from it on the host feed (no device image pool: decoded on 8
    threads, built ahead by the Prefetcher) for 20 steps (the anchor list cut
@@ -168,7 +184,7 @@ failure:
    run-to-run floor (at least 1e-6) of the uninterrupted run, on its
    batches; decode img/s (as written, and every row Paeth) and the host-fed
    step beside the pooled one;
-20. losses: the 29 losses that need no streaming-PCA state (all of
+21. losses: the 29 losses that need no streaming-PCA state (all of
    LOSS_NAMES but incremental_*) at B = 50 on the trained flagship's
    descriptors of a batch from a dense toy city (1,200 poses 0.79 m apart,
    so that the 12 positives are mostly distinct), once for (1,12,12) and
@@ -186,7 +202,7 @@ failure:
    the logs of their top 512 values; cuSOLVER's
    eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
    float64 (the port's solve: must converge on all);
-21. train_zoo: `cli train --toy_city` from the trained weights on the
+22. train_zoo: `cli train --toy_city` from the trained weights on the
    pooled path with no --loss (so wrd) for 20 steps, then 10 steps each of
    pairwise_distance_neg_eigenvalue (PN: two forwards, two backwards, two
    Adam updates a step) and quadruplet: steps, refreshes, exact K1 and
@@ -195,7 +211,7 @@ failure:
    beside the median interval between step calls; then each loss's step
    and the flagship's wms step (K3) on one batch in turns, on the device
    and on the host behind queued work;
-22. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
+23. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
    and vlad_cores=0's flattened map) from the trained backbone and a seeded
    head, B = 50: widths, finite, cosine >= 0.99 to the fp32 plain path on
    the card (pca projected by a StreamingPCA fitted on 600 images; its
@@ -204,7 +220,7 @@ failure:
    index images to 512-D, pads them to 66,048 rows and searches 64 queries
    (K2 at D = 512): 16 index images at rank 0, squared distances within
    1e-5 of |q|^2 of an fp64 search;
-23. train_heads: `cli train` at the flagship's width from the trained
+24. train_heads: `cli train` at the flagship's width from the trained
    weights: --reduction pca --loss incremental_residual_mm (6 steps) and
    --reduction none with it (the 32,768-wide loss PCA, 4 steps), both from
    a prep tree of a 1,200-pose city with mining windows of 600 images (more
@@ -218,18 +234,21 @@ failure:
    step time beside the interval between step calls and each refresh's
    PCA fits, the host's PCA update at each width and the (2, 525, 525)
    float64 eigensolve;
-24. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+25. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
-   img/s;
-25. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+   img/s; then an oxs set through `cli infer` (infer_oxs: its CSV names .png
+   files, the files are the JPEG fixtures as .jpg): J1 once per image, K1
+   once per batch, the dump within 1e-6 of an extractor's descriptors of the
+   plain CPU decode's pixels;
+26. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-26. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+27. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -239,7 +258,7 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-27. multidevice (data parallelism over torch.distributed; two ranks share
+28. multidevice (data parallelism over torch.distributed; two ranks share
    the one card on gloo, as NCCL refuses two ranks on one device):
    dryrun_multichip(2) (the pooled step, a sharded top-k, the trainer's 12
    steps with 6 refreshes, 4 evals and a resume at step 8 to 12, the ranks'
@@ -247,7 +266,8 @@ failure:
    the flagship at full width (B = 50, 25 a rank, fused wms: K3) from the
    trained weights through Trainer(mesh=...) for the train phase's
    configuration cut to 12 steps (mining every 4 anchors, evals every 6, a
-   part checkpoint at step 8 and a fresh trainer resumed from it to 12),
+   part checkpoint at step 8 and a fresh trainer resumed from it to 12,
+   bit-exact: a trainer on 2 ranks takes cuDNN's deterministic algorithms),
    with fp32 convs (in bf16 weights one ulp apart draw other hard examples
    after the third refresh: md_train_config), against the same run in one
    process and a one-process run one ulp apart: every step's loss within 1e-5 relative, every rank's parameters
@@ -263,7 +283,7 @@ failure:
    Printed beside the card's name and power limit: a step on two ranks
    and in one process (fp32 and the flagship's bf16), the 59 MB gradient all-reduce (gloo, and NCCL on one
    rank), a sharded search and K2 on a half beside the one-process K2;
-28. prep: a raw RobotCar tree at its frame size (two dates, 600 + 595 gray
+29. prep: a raw RobotCar tree at its frame size (two dates, 600 + 595 gray
    Bayer PNG frames of 1280x960 in tars along a 1,200 m route, INS at 3x
    the frame rate, four fold masks, a 960x1280 undistortion LUT whose corners leave the frame)
    through `cli prep` (the downsize's demosaic -> undistort -> resize on
@@ -276,18 +296,18 @@ failure:
    NetVLAD forward), K1_bwd and K3 counts, finite losses) and `cli infer`
    of its train_ref images (prep_infer: K1 once per batch of 32, a finite
    unit-norm dump);
-29. parity: the committed flagship exported to TF1 names, `cli parity` of 64
+30. parity: the committed flagship exported to TF1 names, `cli parity` of 64
    PNGs (4 of them resized by the harness) against a golden of the port's
    standard fp32 extractor: rc 0 at tolerance 1e-3; a golden with one row
    moved by 0.01: rc 1; the run's wall;
-30. packed_stem: from the trained flagship at 180x240, B 64: the fp32 packed
+31. packed_stem: from the trained flagship at 180x240, B 64: the fp32 packed
    block1 (+ pool, ReLU) within 1e-5 of the largest output of the standard
    one, the whole model's fp32 descriptors packed against standard at
    cosine >= 0.99999, block1 packed and standard timed under cuDNN in turns
    (bf16, fp32); the int8 packed stack (im2col + torch._int_mm for conv1_1
    .. conv2_1) bit-equal to the direct stack (Q1_stem, Q1, Q1_pool) at B 8
    and 64, its conv2_2 input equal to Q1's, and the two timed in turns;
-31. write the whole report with the card's name and power limit to
+32. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -389,6 +409,9 @@ def phase_build(torch, report):
                      f"alone ({sass})")
         if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
             fail(f"topk: a kernel spills registers: {funcs}")
+        if name == "jpeg" and len(funcs) != 2:
+            fail(f"jpeg: {len(funcs)} kernel functions, expected two (J1's IDCT and pixel "
+                 f"launches): {[f['function'] for f in funcs]}")
         if name == "wms" and len(funcs) != 1:
             fail(f"wms: {len(funcs)} kernel functions, expected one (K3 is one launch): "
                  f"{[f['function'] for f in funcs]}")
@@ -582,7 +605,7 @@ def phase_k2(torch, report):
 
 
 KERNEL_IDS = ("K1", "K1_bwd", "K2", "K3", "K4", "P_gemm", "P6_stages", "Q1", "Q1_pool",
-              "Q1_stem")
+              "Q1_stem", "J1")
 
 
 class LaunchCounts:
@@ -592,6 +615,7 @@ class LaunchCounts:
     def __init__(self, report, path):
         from soft_contrastive_learning_torch.ops.kernels.int8_conv import (
             int8_conv, int8_pool, int8_stem)
+        from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
         from soft_contrastive_learning_torch.ops.kernels.netvlad import (
             netvlad_aggregate_cuda, netvlad_backward_cuda)
         from soft_contrastive_learning_torch.ops.kernels.probe_gemm import probe_gemm
@@ -603,7 +627,8 @@ class LaunchCounts:
         self.report, self.path = report, path
         self.wrappers = dict(zip(KERNEL_IDS, (
             netvlad_aggregate_cuda, netvlad_backward_cuda, topk_l2_cuda, wms_loss_cuda,
-            winograd_conv_cuda, probe_gemm, winograd_stage, int8_conv, int8_pool, int8_stem)))
+            winograd_conv_cuda, probe_gemm, winograd_stage, int8_conv, int8_pool, int8_stem,
+            jpeg_pixels_cuda)))
         for fn in self.wrappers.values():
             fn.launches = 0
 
@@ -641,6 +666,120 @@ def exact_search(torch, q, refs, k, rows=16384):
     inf = torch.full((len(q), 1), float("inf"), dtype=torch.float64, device="cuda")
     gaps = torch.minimum(torch.cat([inf, steps[:, :-1]], 1), steps)
     return want_sq, want_i, gaps
+
+
+JPEG_FIXTURES = Path("soft_contrastive_learning_torch/assets/jpeg")
+JPEG_RATE_DECODES = 256  # decodes per thread count of the 180x240 rate
+QUANT_JPEGS = ("c420_q95.jpg", "c444.jpg", "progressive_pil.jpg", "restart3.jpg")
+
+
+def jpeg_fixtures():
+    """The committed JPEG fixtures' bytes and their OpenCV digests
+    (scripts/make_jpeg_fixtures.py)."""
+    table = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    files = {name: (JPEG_FIXTURES / name).read_bytes()
+             for name in (*table["decoded"], *table["refused"])}
+    return table, files
+
+
+def j1_bound(common, frame):
+    """J1's bound for a frame: each coefficient (2 B) and table entry (4 B)
+    read once, each RGB byte written once; ~11 integer operations a sample
+    (dequantize, two IDCT passes) and ~20 a pixel (upsampling, colour),
+    counted at the fp32 rate."""
+    blocks = frame.block_offsets()[-1]
+    nbytes = 2 * 64 * blocks + 4 * 64 * len(frame.components) + 3 * frame.height * frame.width
+    ops = 11 * 64 * blocks + 20 * frame.height * frame.width
+    return common.bound_ms(ops, nbytes)
+
+
+def phase_jpeg(torch, np, report):
+    """J1 and the compiled entropy decoder on the committed fixtures: every
+    decoded fixture's coefficients equal to the plain Python decoder's, J1
+    on the card bit-equal to the plain pixel stage on the card and hashing
+    to OpenCV's digest; each refused fixture refused with its reason. Then
+    decode img/s of the 180x240 fixtures through ``decode_img(...,
+    device="cuda")`` on 1 and 8 threads, and J1's time (CUDA events) beside
+    the plain stage's and its bound at 180x240 (4:2:0) and on the 1280x960
+    frame, whose host entropy decode is timed apart."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode, jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.perf import common
+    from soft_contrastive_learning_torch.utils.io import decode_img
+    from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients, pixels_plain
+
+    t_phase = time.perf_counter()
+    table, files = jpeg_fixtures()
+    for name, want in table["decoded"].items():
+        co, ref = entropy_decode(files[name], name), decode_coefficients(files[name], name)
+        if not (np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant)
+                and co.frame == ref.frame):
+            fail(f"jpeg {name}: the compiled entropy decoder parts from the plain one")
+        coefs = torch.from_numpy(co.coefs).cuda()
+        quant = torch.from_numpy(co.quant).cuda()
+        got, plain = jpeg_pixels_cuda(coefs, quant, co.frame), pixels_plain(coefs, quant, co.frame)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        if not torch.equal(got, plain) or digest != want["sha256"] \
+                or list(got.shape) != want["shape"]:
+            fail(f"jpeg {name}: J1 equal to plain {torch.equal(got, plain)}, digest "
+                 f"{digest == want['sha256']}, shape {tuple(got.shape)} vs {want['shape']}")
+    for name, reason in table["refused"].items():
+        try:
+            entropy_decode(files[name], name)
+        except ValueError as e:
+            if reason not in str(e):
+                fail(f"jpeg {name}: refused for another reason: {e}")
+        else:
+            fail(f"jpeg {name}: decoded, expected a refusal ({reason})")
+    print(f"jpeg: {len(table['decoded'])} fixtures decoded on the card bit-equal to the plain "
+          f"stage and to OpenCV's digests (OpenCV {table['opencv']}), coefficients equal to "
+          f"the plain decoder's; {len(table['refused'])} refused with their reasons")
+
+    small = [n for n, v in table["decoded"].items() if v["shape"][:2] in ([180, 240], [240, 180])]
+    work = [files[small[i % len(small)]] for i in range(JPEG_RATE_DECODES)]
+    rates = {}
+    for threads in (1, 8):
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            list(pool.map(lambda d: decode_img(d, "r", "cuda"), work[:16]))  # warm-up
+            t0 = time.perf_counter()
+            list(pool.map(lambda d: decode_img(d, "r", "cuda"), work))
+            rates[threads] = len(work) / (time.perf_counter() - t0)
+    by_shape = {}
+    for label, name in (("180x240", "c420_q95.jpg"), ("1280x960", "frame_1280x960.jpg")):
+        data = files[name]
+        host = []
+        for _ in range(5 if label == "180x240" else 3):
+            t0 = time.perf_counter()
+            co = entropy_decode(data, name)
+            host.append(1e3 * (time.perf_counter() - t0))
+        coefs, quant = torch.from_numpy(co.coefs).cuda(), torch.from_numpy(co.quant).cuda()
+        ms = common.time_ms(lambda: jpeg_pixels_cuda(coefs, quant, co.frame), 50)
+        host_ms, device_ms = common.host_and_device_ms(
+            lambda: jpeg_pixels_cuda(coefs, quant, co.frame), 50)
+        plain_ms = common.time_ms(lambda: pixels_plain(coefs, quant, co.frame), 5)
+        bound, bound_by = j1_bound(common, co.frame)
+        by_shape[label] = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=bound_by,
+                               entropy_host_ms=statistics.median(host), file_bytes=len(data),
+                               blocks=co.frame.block_offsets()[-1])
+        print(f"jpeg {label} ({name}, {len(data)} bytes): entropy decode on the host "
+              f"{statistics.median(host):.3f} ms; J1 {ms:.4f} ms a call (two launches; device "
+              f"{device_ms:.4f}, host {host_ms:.4f}), plain stage {plain_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({bound_by})")
+    print(f"jpeg: decode_img on the card, 180x240 fixtures: {rates[1]:.1f} img/s on 1 thread, "
+          f"{rates[8]:.1f} on 8")
+    report["J1"] = dict(
+        name="jpeg_pixels", route="cuda",
+        source="soft_contrastive_learning_torch/ops/kernels/csrc/jpeg.cu",
+        replaces="none: libjpeg-turbo's host IDCT, upsampling and colour conversion "
+                 "(cv2.imdecode, soft_contrastive_learning_tpu/serving.py:39)",
+        max_abs_err=0.0, library_ms=None, by_shape=by_shape,
+        decode_img_s={"threads_1": rates[1], "threads_8": rates[8]},
+        seconds=time.perf_counter() - t_phase,
+        **{key: by_shape["180x240"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
 def phase_serve(torch, np, report, shared):
@@ -759,6 +898,78 @@ def phase_serve(torch, np, report, shared):
                            model_ms_per_batch64=embed_ms, search=search)
     print(f"serve: embed {512 / e2e_s:.1f} img/s end to end (service.embed, 512 images), "
           f"model alone {64e3 / embed_ms:.1f} img/s ({embed_ms:.3f} ms per batch of 64)")
+    report["serve"]["jpeg"] = serve_jpeg(torch, np, report, service)
+
+
+def serve_jpeg(torch, np, report, service):
+    """JPEG uploads to the served flagship over HTTP (127.0.0.1, port 0):
+    /embed of a 180x240 4:2:0 JPEG and of the 1280x960 frame (resized by
+    resize_linear), then /embed_batch and /search of both over the
+    66,048-row index. Exact counts: J1 once per upload, K1 once per
+    request's batch, K2 once. The
+    card's decode equals the plain CPU decode, the descriptors and the
+    search equal the service's on those pixels; /search of the two JPEGs is
+    timed (median of 3)."""
+    import base64
+    import threading
+    import urllib.request
+
+    from soft_contrastive_learning_torch import serving
+    from soft_contrastive_learning_torch.utils.io import decode_img
+
+    _, files = jpeg_fixtures()
+    uploads = {"180x240": files["c420_q95.jpg"], "1280x960": files["frame_1280x960.jpg"]}
+    server = serving.serve(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body, content_type):
+        req = urllib.request.Request(url + path, data=body,
+                                     headers={"Content-Type": content_type})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    body = json.dumps({"images_b64": [base64.b64encode(v).decode() for v in uploads.values()],
+                       "k": 5}).encode()
+    try:
+        counts = LaunchCounts(report, "serve_jpeg")
+        embeds = {k: np.asarray(post("/embed", v, "image/jpeg")["descriptor"], np.float32)
+                  for k, v in uploads.items()}
+        batch = np.asarray(post("/embed_batch", body, "application/json")["descriptors"],
+                           np.float32)
+        found = post("/search", body, "application/json")
+        torch.cuda.synchronize()
+        launches = counts.read({"J1": 6, "K1": 4, "K2": 1})
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            post("/search", body, "application/json")
+            runs.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    on_card = {k: decode_img(v, k, "cuda") for k, v in uploads.items()}
+    plain = {k: decode_img(v, k, "cpu") for k, v in uploads.items()}
+    if any(not np.array_equal(on_card[k], plain[k]) for k in uploads):
+        fail("serve_jpeg: the card's JPEG decode parts from the plain decode")
+    err = max(float(np.abs(embeds[k] - service.embed([plain[k]])[0]).max()) for k in uploads)
+    err = max(err, float(np.abs(batch - service.embed(list(plain.values()))).max()))
+    want_d, want_i = service.search(list(plain.values()), k=5)
+    ids_equal = np.array_equal(np.asarray(found["indices"]), want_i)
+    d_err = float(np.abs(np.asarray(found["distances"]) - want_d).max())
+    print(f"serve_jpeg: /embed of a 180x240 and a 1280x960 JPEG, /embed_batch and /search of "
+          f"both over HTTP: "
+          f"launches {launches}; descriptors within {err:.3g} of the service's on the plain "
+          f"decode's pixels, search ids equal {ids_equal}, distances within {d_err:.3g}; "
+          f"/search of the two JPEGs {statistics.median(runs):.3f} ms (median of 3: "
+          f"{', '.join(f'{t:.3f}' for t in runs)})")
+    if err > 1e-6 or not ids_equal or d_err > 1e-6:
+        fail(f"serve_jpeg: JPEG uploads part from the service on the same pixels ({err}, "
+             f"{ids_equal}, {d_err})")
+    return dict(launches=launches, desc_err=err, search_ms=statistics.median(runs),
+                search_runs=runs)
 
 
 def im2col_int_mm(torch, x, w_kn):
@@ -898,7 +1109,8 @@ def phase_serve_int8(torch, np, report, shared):
         int8_conv, int8_conv_plain, int8_pool, int8_pool_plain, int8_stem, int8_stem_plain)
     from soft_contrastive_learning_torch.perf import common
     from soft_contrastive_learning_torch.serving import DescriptorService
-    from soft_contrastive_learning_torch.utils.io import save_img, save_pickle
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.utils.io import decode_img, save_img, save_pickle
 
     t_phase = time.perf_counter()
     cfg = flagship.flagship_model_config()
@@ -1070,22 +1282,32 @@ def phase_serve_int8(torch, np, report, shared):
           f"{report['Q1']['cudnn_bf16_ms']:.3f}), at B={flagship.SERVING_BATCH} "
           f"{report['Q1']['ms_big']:.3f} ms (bound {report['Q1']['bound_ms_big']:.3f})")
 
-    # 4. `cli quant` from PNGs written here, then `cli serve --quant_scales` on
-    # 127.0.0.1, port 0, over a 66,048-row index (so /search streams through K2)
+    # 4. `cli quant` from 28 PNGs and 4 JPEGs (180x240 fixtures, decoded on
+    # the card) written here, then `cli serve --quant_scales` on 127.0.0.1,
+    # port 0, over a 66,048-row index (so /search streams through K2)
     work = Path(tempfile.mkdtemp(prefix="serve_int8_"))
     png_dir = work / "pngs"
     png_dir.mkdir()
     index_imgs = shared["index_imgs"]
-    for i in range(32):
+    for i in range(28):
         save_img(index_imgs[i], str(png_dir / f"{i:03d}.png"))
+    _, jpegs = jpeg_fixtures()
+    calib = list(index_imgs[:28])
+    for i, name in enumerate(QUANT_JPEGS):
+        (png_dir / f"{28 + i:03d}.jpg").write_bytes(jpegs[name])
+        calib.append(decode_img(jpegs[name], name, "cpu"))
     scales_path = work / "scales.json"
+    j1_before = jpeg_pixels_cuda.launches
     t0 = time.perf_counter()
     if cli.main(["quant", "--image_dir", str(png_dir), "--checkpoint", str(TRAINED_PARAMS_PATH),
                  "--out", str(scales_path), "--num_images", "32"]) != 0:
         fail("serve_int8: cli quant failed")
     quant_s = time.perf_counter() - t0
+    if jpeg_pixels_cuda.launches - j1_before != len(QUANT_JPEGS):
+        fail(f"serve_int8: cli quant launched J1 {jpeg_pixels_cuda.launches - j1_before} times, "
+             f"expected {len(QUANT_JPEGS)} (one per JPEG)")
     written = load_scales(str(scales_path))
-    want = calibrate_scales(params, index_imgs[:32].astype(np.float32), "cuda")
+    want = calibrate_scales(params, np.stack(calib).astype(np.float32), "cuda")
     if set(written) != set(want) or any(abs(written[k] - want[k]) > 1e-6 * want[k]
                                         for k in want):
         fail(f"serve_int8: cli quant's scales {written} differ from calibrate_scales' {want}")
@@ -1164,7 +1386,8 @@ def phase_serve_int8(torch, np, report, shared):
     if not np.array_equal(http_i, local_i) or not (http_i[:4, 0] == np.arange(4)).all():
         fail(f"serve_int8: /search ids {http_i[:, 0]} differ from the in-process search "
              f"{local_i[:, 0]} or miss the index images")
-    print(f"serve_int8: cli quant of 32 PNGs {quant_s:.1f} s (scales equal to calibrate_scales'); "
+    print(f"serve_int8: cli quant of 28 PNGs and 4 JPEGs {quant_s:.1f} s (scales equal to "
+          "calibrate_scales' on the plain decode's pixels); "
           f"index of {n_rows} x {dim} (fp16 pickle) written in {index_s:.1f} s; cli serve "
           f"--quant_scales up in {start_s:.1f} s; /healthz ok, /embed {embed_ms:.1f} ms (max-abs "
           f"{err_embed:.3g} to the in-process embed), /embed_batch of 4 ({err_batch:.3g}), "
@@ -3612,6 +3835,8 @@ def phase_infer(torch, np, report, shared):
         fail(f"infer: descriptors part from the fp32 plain model ({cos}) or the float16 dump "
              f"from the float32 one ({f16_err})")
 
+    oxs = infer_oxs(torch, np, report, shared, img_root, csv_root, lv)
+
     pngs = [str(img_root / p) for p in rel["toy_ref"][:256]]
     decode = {"sub_8_threads": decode_rate(np, pngs, 8)}
     paeth = paeth_copies(np, pngs[:64], root / "paeth")
@@ -3625,8 +3850,52 @@ def phase_infer(torch, np, report, shared):
           f"{decode['paeth_8_threads']:.1f} with every row Paeth")
     report["infer"] = dict(images=n_images, render_s=render_s, walls=walls, img_s=rates,
                            busy_share=busy_s / wall_s, busy_s=busy_s, cos_to_fp32=cos,
-                           f16_err=f16_err, decode_img_s=decode)
+                           f16_err=f16_err, decode_img_s=decode, oxs=oxs)
     shared.update(lv=lv, csv_root=csv_root, sets=sets)
+
+
+def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
+    """An ``oxs`` set through ``cli infer``: its CSV names ``.png`` files
+    and the files are the committed JPEG fixtures as ``.jpg`` (read so, as
+    the JAX package reads oxs sets). Exact counts (J1 once per image, K1
+    once per batch of 32); the dump equal, within 1e-6, to an extractor's
+    descriptors of the same images decoded by the plain CPU path."""
+    from soft_contrastive_learning_torch import cli
+    from soft_contrastive_learning_torch.core.config import ModelConfig
+    from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
+    from soft_contrastive_learning_torch.models.weights import load_trained_params
+    from soft_contrastive_learning_torch.utils.io import decode_img, load_pickle, save_csv
+
+    table, files = jpeg_fixtures()
+    names = sorted(table["decoded"])
+    (img_root / "oxs_test").mkdir(parents=True, exist_ok=True)
+    rel = []
+    for i, name in enumerate(names):
+        (img_root / "oxs_test" / f"{i:04d}.jpg").write_bytes(files[name])
+        rel.append(f"oxs_test/{i:04d}.png")
+    save_csv({"path": rel, "easting": [0.0] * len(rel), "northing": [0.0] * len(rel)},
+             str(csv_root / "oxs_test.csv"))
+    counts = LaunchCounts(report, "infer_oxs")
+    t0 = time.perf_counter()
+    rc = cli.main(["infer", "--set", "oxs_test", "--csv_root", str(csv_root), "--img_root",
+                   str(img_root), "--out_root", str(lv), "--out_name", "wms"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"infer oxs_test: rc {rc}")
+    launches = counts.read({"J1": len(names), "K1": -(-len(names) // 32)})
+    got = load_pickle(str(lv / "oxs_test_wms.pickle"))
+    cfg = ModelConfig()
+    extractor = DescriptorExtractor(cfg, load_trained_params(cfg=cfg), batch_size=32)
+    want = extractor.extract_images([decode_img(files[n], n, "cpu") for n in names])
+    extractor._pool.shutdown(wait=False)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    print(f"infer: oxs_test ({len(names)} JPEGs read as .jpg for .png) in {wall:.1f} s, "
+          f"launches {launches}; dump {got.shape}, within {err:.3g} of the plain decode's "
+          "descriptors")
+    if got.shape != (len(names), cfg.descriptor_dim) or not np.isfinite(got).all() or err > 1e-6:
+        fail(f"infer oxs_test: dump {got.shape}, finite {np.isfinite(got).all()}, err {err}")
+    return dict(images=len(names), wall_s=wall, launches=launches, err=err)
 
 
 def phase_topn(torch, np, report, shared):
@@ -4118,6 +4387,9 @@ def phase_multidevice(torch, np, report, shared):
         "losses within 1e-5": loss_rel <= 1e-5,
         "final parameters within 10x the nudged floor": param_gap <= gate,
         "resumed within 10x the floor": all(r["resumed_vs_uninterrupted"] <= gate for r in ranks),
+        # a trainer on 2 ranks takes cuDNN's deterministic algorithms: without
+        # them two uninterrupted runs parted by 2.6e-5 (scripts/torch_resume_gap.py)
+        "resumed bit-exact": all(r["resumed_vs_uninterrupted"] == 0.0 for r in ranks),
     }
     shutil.rmtree(run_root, ignore_errors=True)
     for r in ranks:
@@ -4516,7 +4788,7 @@ def tf1_export(np, npz_path, out_path):
 def phase_parity(torch, np, report, shared):
     """``cli parity`` on the card: the committed flagship exported to TF1
     names (``tf1_export``), 64 PNGs (60 at 180x240, 4 at 360x480, which the
-    harness resizes), and a golden of the port's standard fp32 extractor
+    harness resizes) and 8 JPEG fixtures (``.jpg``), and a golden of the port's standard fp32 extractor
     (``DescriptorExtractor``, K1) on the same images: rc 0 at tolerance
     1e-3, its max-abs difference and min cosine printed; the golden with
     one row moved by 0.01: rc 1."""
@@ -4528,6 +4800,7 @@ def phase_parity(torch, np, report, shared):
     from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
     from soft_contrastive_learning_torch.models.weights import (
         TRAINED_PARAMS_PATH, load_trained_params)
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
     from soft_contrastive_learning_torch.utils.io import save_img
 
     work = tempfile.TemporaryDirectory()
@@ -4542,6 +4815,10 @@ def phase_parity(torch, np, report, shared):
             for _ in range(4)]):
         paths.append(str(imgs / f"{i:03d}.png"))
         save_img(img, paths[-1])
+    table, jpegs = jpeg_fixtures()
+    for i, name in enumerate(sorted(table["decoded"])[:8]):  # decoded on the card
+        paths.append(str(imgs / f"j{i:02d}.jpg"))
+        Path(paths[-1]).write_bytes(jpegs[name])
     cfg = ModelConfig(compute_dtype="float32")
     extractor = DescriptorExtractor(cfg, load_trained_params(cfg=cfg), batch_size=32)
     golden = extractor.extract_files(sorted(paths))
@@ -4551,10 +4828,12 @@ def phase_parity(torch, np, report, shared):
     np.savez(root / "bad.npz", descriptors=bad)
     base = ["parity", "--checkpoint", str(root / "tf1.npz"), "--images", str(imgs)]
     out = io.StringIO()
+    j1_before = jpeg_pixels_cuda.launches
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = cli.main(base + ["--golden", str(root / "golden.npz")])
     wall_s = time.perf_counter() - t0
+    j1 = jpeg_pixels_cuda.launches - j1_before
     got = json.loads(out.getvalue())
     with contextlib.redirect_stdout(io.StringIO()):
         rc_bad = cli.main(base + ["--golden", str(root / "bad.npz")])
@@ -4562,11 +4841,11 @@ def phase_parity(torch, np, report, shared):
           f"({n_vars} variables) against the fp32 extractor's golden: rc {rc}, max abs "
           f"{got['max_abs_diff']:.3g}, min cosine {got['min_cosine']:.9f}, warm-started "
           f"{got['warm_started_scopes']}, {wall_s:.2f} s; perturbed golden rc {rc_bad}")
-    if rc != 0 or not got["passed"] or got["converted_vars"] != n_vars or rc_bad != 1:
-        fail(f"parity: rc {rc} ({got}), perturbed rc {rc_bad}")
+    if rc != 0 or not got["passed"] or got["converted_vars"] != n_vars or rc_bad != 1 or j1 != 8:
+        fail(f"parity: rc {rc} ({got}), perturbed rc {rc_bad}, J1 launches {j1} (8 JPEGs)")
     report["parity"] = dict(images=len(paths), converted_vars=n_vars, wall_s=wall_s,
                             max_abs_diff=got["max_abs_diff"], min_cosine=got["min_cosine"],
-                            rc=rc, rc_perturbed=rc_bad)
+                            rc=rc, rc_perturbed=rc_bad, j1_launches=j1)
     work.cleanup()
 
 
@@ -4694,6 +4973,7 @@ def main() -> int:
     phase_probe_gemm(torch, report)
     phase_winograd_ablate(torch, report)
     phase_probes(torch, report)
+    phase_jpeg(torch, np, report)
     shared: dict = {}  # what a later phase takes from an earlier one
     phase_serve(torch, np, report, shared)
     phase_serve_int8(torch, np, report, shared)
@@ -4715,12 +4995,13 @@ def main() -> int:
     phase_parity(torch, np, report, shared)
     phase_packed_stem(torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (training
-    # from the fresh prep tree for K1, its backward and K3, rank 0 of the
-    # sharded search for K2, the Winograd training epoch for K4);
+    # launches: the count on the newest path that runs the kernel (JPEG
+    # uploads served for J1, K1 and K2, training from the fresh prep tree for
+    # K1's backward and K3, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it (per
     # rank for the multidevice phase's ranks)
-    paths = ("prep_train", "prep_infer", "multidevice_flagship_r0", "multidevice_search_r0", "bench_train", "train_async",
+    paths = ("serve_jpeg", "infer_oxs", "prep_train", "prep_infer", "multidevice_flagship_r0",
+             "multidevice_search_r0", "bench_train", "train_async",
              "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
              "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
              "serve", "probes")
@@ -4753,6 +5034,8 @@ def main() -> int:
     print(json.dumps({"train_files": report["train_files"], "infer": report["infer"],
                       "topn": report["topn"], "topn_250k": report["topn_250k"]}))
     print(json.dumps({"serve": report["serve"], "serve_winograd": report["serve_winograd"]}))
+    print(json.dumps({"J1": {key: report["J1"][key] for key in (
+        "by_shape", "decode_img_s", "seconds")}}))
     print(json.dumps({"serve_int8": report["serve_int8"],
                       "Q1_stem": {key: report["Q1_stem"][key] for key in ("row", "row_big")},
                       "Q1_per_layer": report["Q1"]["per_layer"],

@@ -5,7 +5,7 @@
     python -m soft_contrastive_learning_torch.cli serve \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz \
         --index features.pickle
-    python -m soft_contrastive_learning_torch.cli quant --image_dir pngs \
+    python -m soft_contrastive_learning_torch.cli quant --image_dir images \
         --checkpoint soft_contrastive_learning_tpu/assets/flagship_trained.npz --out scales.json
     python -m soft_contrastive_learning_torch.cli serve --quant_scales scales.json
     python -m soft_contrastive_learning_torch.cli bench
@@ -57,9 +57,9 @@ configuration has no flag, as in ``scl-tpu``: pass
 sets in code only; ``bench --iters`` sets the timed forwards per
 configuration (these two and ``--device`` are the port's only flags beyond
 ``scl-tpu``'s). ``quant`` calibrates the int8-PTQ activation scales
-(``models/quant.py``) from the PNGs of ``--image_dir`` (JPEG and the other
-extensions JAX lists are refused by the port's decoder) and writes JAX's
-JSON; ``serve --quant_scales`` serves through the int8 stack (Q1 on the
+(``models/quant.py``) from the PNG and JPEG images of ``--image_dir`` (a
+JPEG decoded on ``--device``; a ``.bmp`` is refused with the reason) and
+writes JAX's JSON; ``serve --quant_scales`` serves through the int8 stack (Q1 on the
 card: a build or launch failure fails the command, nothing falls back).
 ``bench`` is the embed benchmark (``benchmark.py``); ``bench --train`` the
 train-loop benchmark (``bench_train.py``) with ``--tuples_per_batch
@@ -228,11 +228,12 @@ def cmd_quant(args) -> int:
     if not names:
         print(f"no images in {args.image_dir}")
         return 1
+    device = resolve_device(args.device)
     imgs = np.stack([
-        normalize_geometry(load_img(os.path.join(args.image_dir, n)), cfg.image_height,
+        normalize_geometry(load_img(os.path.join(args.image_dir, n), device), cfg.image_height,
                            cfg.image_width, keep_aspect=cfg.vlad_cores > 0)
         for n in names]).astype(np.float32)
-    scales = calibrate_scales(params, imgs, resolve_device(args.device))
+    scales = calibrate_scales(params, imgs, device)
     save_scales(scales, args.out)
     print(f"calibrated {len(scales)} conv scales from {len(imgs)} images -> {args.out}")
     return 0
@@ -277,8 +278,10 @@ def cmd_cache(args) -> int:
     if args.toy_city:
         source = ToyCitySource(img_h=args.image_height, img_w=args.image_width)
     else:
+        # JAX's cache has no --device: a JPEG tree is decoded on the card (a
+        # PNG one on the host, anywhere)
         source = FilesystemSource(args.img_root, args.shuffled_root, args.anchor_root,
-                                  args.loc_ref_root)
+                                  args.loc_ref_root, device="cuda")
     cluster_sets = []
     for spec in (args.cluster_sets or "").split(","):
         if spec:
@@ -540,7 +543,8 @@ def _run_training(args, out_dir: str, mesh=None) -> int:
                                img_h=cfg.model.image_height, img_w=cfg.model.image_width)
     else:
         source = FilesystemSource(cfg.img_root, cfg.shuffled_root, cfg.anchor_root,
-                                  cfg.loc_ref_root)
+                                  cfg.loc_ref_root,
+                                  device=mesh.device if mesh is not None else args.device)
     if args.decoded_cache_root:
         from soft_contrastive_learning_torch.data.decoded_cache import CachedDecodedSource
 

@@ -10,7 +10,8 @@ decoder holds the GIL, so 8 threads decode ~1,400 images a second, and a
 host-fed step of 50 images waits on it. This module moves the decode off
 the hot path: a prep stage (``cli cache``) writes every image of a set,
 already geometry-normalized to the model's input
-(``utils/cv.py::normalize_geometry``), into a flat uint8 memmap keyed by the
+(``utils/cv.py::normalize_geometry``; the source decodes each file, PNG or
+JPEG, a JPEG on its ``device``), into a flat uint8 memmap keyed by the
 image key; a batch is then assembled by copies
 (``CachedDecodedSource.load_images_normalized``, which
 ``data/pipeline.py::load_images_standard`` takes where a source has it).

@@ -8,9 +8,10 @@ decode pool and the decoded cache's hook, ``assemble_batch``,
 ``FilesystemSource`` reads the prep pipeline's tree: shuffled epoch CSVs,
 per-epoch anchor lists, cluster references and images at
 ``{img_root}/{date}_stereo_centre_{folder:02d}/{t}.png``, decoded by the
-port's own PNG codec (``utils/io.py``). An image at the model's (height,
-width) needs no resize, so no OpenCV; ``utils/cv.py`` raises where a resize
-would need it.
+port's own codecs (``utils/io.py``) by their content, PNG or JPEG, as
+``cv2.imread`` reads them: a JPEG on the source's ``device`` (J1 on the
+card), a PNG on the host. Images of another size are resized by
+``utils/cv.py``'s OpenCV-exact ``resize_linear``.
 """
 
 from __future__ import annotations
@@ -42,11 +43,13 @@ def pad_to_multiple(x: np.ndarray, multiple: int, axis: int = 0) -> np.ndarray:
 
 
 class FilesystemSource:
-    """Reads the prep pipeline's CSV and PNG artifacts."""
+    """Reads the prep pipeline's CSV and image artifacts; ``device`` is where
+    a JPEG image is decoded (default the CPU)."""
 
     def __init__(self, img_root: str, shuffled_root: str, anchor_root: str = "",
-                 loc_ref_root: str = ""):
+                 loc_ref_root: str = "", device=None):
         self.img_root = img_root
+        self.device = device
         self.shuffled_root = shuffled_root
         self.anchor_root = anchor_root
         self.loc_ref_root = loc_ref_root
@@ -56,7 +59,7 @@ class FilesystemSource:
         return os.path.join(self.img_root, f"{date}_stereo_centre_{int(folder):02d}", f"{t}.png")
 
     def load_image(self, key: ImageKey) -> np.ndarray:
-        return load_img(self.image_path(key))
+        return load_img(self.image_path(key), self.device)
 
     def epoch_meta(self, set_name: str, epoch: int) -> Dict[str, List[str]]:
         return load_csv(os.path.join(self.shuffled_root, f"{set_name}_{epoch:03d}.csv"))

@@ -241,6 +241,7 @@ def trainer_machinery(mesh, cfg: TrainConfig, out_dir: str) -> dict:
         "digest": params_digest(tr.state.model), "resumed_digest": params_digest(tr2.state.model),
         "resumed_vs_uninterrupted": max((state[k].float() - final[k].float()).abs().max().item()
                                         for k in final),
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
         "series": series,
     }
 

@@ -8,9 +8,10 @@ image root) and dumps the feature matrix as ``{set}_{out_name}.pickle``,
 float32 or float16: the raw descriptor with ``reduction`` ``none`` and
 ``pca`` (32,768-D for the flagship, which the top-N sweep whitens
 downstream), the reduced output (FC, SPP) otherwise, as in JAX. Images are read by
-the port's PNG decoder (``utils/io.py::load_img``), 4 batches at a time on
-an 8-thread pool while the card embeds the batches before them; ``oxs``
-sets, which the JAX package reads as JPEG, are refused by that decoder.
+the port's codecs (``utils/io.py::load_img``: PNG on the host, JPEG on the
+extractor's device, J1 on the card), 4 batches at a time on an 8-thread
+pool while the card embeds the batches before them; ``oxs`` sets are read
+as ``.jpg``, as the JAX package reads them.
 With a mesh (``parallel/mesh.py``) each padded batch is split over the
 ranks: each rank embeds its rows on its device and the descriptors are
 gathered in rank order, so every rank returns the whole output, as JAX's
@@ -102,7 +103,7 @@ class DescriptorExtractor:
         next chunk while the card embeds this one."""
 
         def load(p):
-            return load_img(os.path.join(img_root, p))
+            return load_img(os.path.join(img_root, p), self.device)
 
         chunk = self.batch_size * 4
         out: List[np.ndarray] = []

@@ -106,7 +106,7 @@ def embed_with_checkpoint(
             # reference's NetVLAD preprocessing: a center-crop here would
             # feed other pixels than the TF1 run
             imgs = np.stack([
-                normalize_geometry(load_img(f), cfg.image_height, cfg.image_width,
+                normalize_geometry(load_img(f, device), cfg.image_height, cfg.image_width,
                                    keep_aspect=cfg.vlad_cores > 0)
                 for f in chunk
             ]).astype(np.float32)

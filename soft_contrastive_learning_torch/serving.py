@@ -3,7 +3,7 @@
 
 Protocol (JSON unless noted):
   GET  /healthz            -> {"status": "ok", "backend": "cuda"|"cpu", "dim": D}
-  POST /embed              -> body: PNG bytes (Content-Type image/*)
+  POST /embed              -> body: PNG/JPEG bytes (Content-Type image/*)
                               resp: {"descriptor": [...]}
   POST /embed_batch        -> body: {"images_b64": ["...", ...]}
                               resp: {"descriptors": [[...], ...]}
@@ -14,9 +14,13 @@ Protocol (JSON unless noted):
 ``/embed`` returns the raw descriptor with ``reduction`` ``none`` and
 ``pca`` (``pca`` whitening is the top-N sweep's, downstream), and the
 reduced output (FC, SPP) otherwise, as JAX's; ``dim`` says which.
-Uploads are decoded by the port's PNG decoder (``utils/io.py::decode_img``,
-no OpenCV); JPEG and the other formats it refuses get a 400 with its
-reason. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
+Uploads are decoded by the port's own codecs (``utils/io.py::decode_img``,
+no OpenCV) to the pixels JAX's ``cv2.imdecode`` gives, EXIF orientation
+included: a JPEG on the service's device (on the card the compiled entropy
+decoder and J1, ``ops/kernels/jpeg.py``), a PNG on the host; what they
+refuse gets a 400 with the reason. An upload of another size than the
+model's is resized by ``utils/cv.py::resize_linear``, as JAX's by
+``cv2.resize``. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
 ``cli quant`` writes them) the service embeds through the int8-PTQ stack
 (Q1 on a CUDA device). The index is copied to the device once. A search over more than
 ``STREAM_MIN_ROWS`` rows with k <= 128 streams the index through K2
@@ -74,6 +78,11 @@ class DescriptorService:
         self.embed_dim = cfg.descriptor_dim if self.extractor.raw else cfg.output_dim
         self._lock = threading.Lock()
 
+    def decode(self, data: bytes) -> np.ndarray:
+        """An upload's bytes -> (H, W, 3) RGB uint8, a JPEG decoded on the
+        service's device."""
+        return decode_img(data, "upload", self.device)
+
     def embed(self, images) -> np.ndarray:
         with self._lock:
             return self.extractor.extract_images(images)
@@ -120,15 +129,15 @@ def make_handler(service: DescriptorService):
                 length = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(length)
                 if self.path == "/embed":
-                    desc = service.embed([decode_img(raw, "upload")])[0]
+                    desc = service.embed([service.decode(raw)])[0]
                     self._send(200, {"descriptor": desc.tolist()})
                 elif self.path == "/embed_batch":
                     req = json.loads(raw)
-                    imgs = [decode_img(base64.b64decode(s), "upload") for s in req["images_b64"]]
+                    imgs = [service.decode(base64.b64decode(s)) for s in req["images_b64"]]
                     self._send(200, {"descriptors": service.embed(imgs).tolist()})
                 elif self.path == "/search":
                     req = json.loads(raw)
-                    imgs = [decode_img(base64.b64decode(s), "upload") for s in req["images_b64"]]
+                    imgs = [service.decode(base64.b64decode(s)) for s in req["images_b64"]]
                     d, i = service.search(imgs, int(req.get("k", 5)))
                     self._send(200, {"indices": i.tolist(), "distances": d.tolist()})
                 else:

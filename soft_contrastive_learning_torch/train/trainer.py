@@ -151,7 +151,13 @@ class Trainer:
     ``init_params`` draw from ``cfg.seed``. ``save_plots``: the evals also
     write tolerance-curve PDFs (matplotlib) and triptych PNGs (OpenCV).
     ``mesh``: this rank's mesh of a data-parallel run (module docstring);
-    the trainer runs on its device, whatever ``device`` says."""
+    the trainer runs on its device, whatever ``device`` says. On more than
+    one rank it turns on ``torch.backends.cudnn.deterministic`` for the
+    process: cuDNN's default backward algorithms sum with atomics, and
+    ranks that share a card interleave their kernels, so two runs of the
+    same steps, and a run resumed from a checkpoint, parted from each other
+    by up to 2.6e-5 in the flagship's fp32 parameters after 12 steps
+    (``scripts/torch_resume_gap.py``); with the flag they are bit-equal."""
 
     def __init__(self, cfg: TrainConfig, source, out_dir: Optional[str] = None,
                  device: str | torch.device = "cuda",
@@ -164,6 +170,8 @@ class Trainer:
         self.primary = is_primary()
         self.save_plots = save_plots and self.primary
         self.device = mesh.device if mesh is not None else resolve_device(device)
+        if mesh is not None and mesh.size > 1:
+            torch.backends.cudnn.deterministic = True
         self.out_dir = out_dir or cfg.out_dir or "."
         os.makedirs(self.out_dir, exist_ok=True)
         if self.primary:

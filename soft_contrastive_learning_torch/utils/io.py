@@ -1,4 +1,4 @@
-"""Filesystem IO: CSV <-> dict-of-lists, pickle, text, PNG images.
+"""Filesystem IO: CSV <-> dict-of-lists, pickle, text, PNG and JPEG images.
 
 Own copy of ``soft_contrastive_learning_tpu/utils/io.py`` (``load_csv``
 with its header-only quirk, ``load_table``, ``save_csv``, ``load_txt``,
@@ -6,19 +6,28 @@ with its header-only quirk, ``load_table``, ``save_csv``, ``load_txt``,
 layout is the data pipeline's cross-stage contract: columns keyed by
 header, every value kept as a string.
 
-Images are PNG only, read and written by the port's own codec on numpy and
-the standard library's ``zlib`` (no OpenCV or PIL, on any host):
+Images are read and written by the port's own codecs (no OpenCV or PIL, on
+any host), to the pixels ``cv2.imread(IMREAD_COLOR)`` followed by BGR -> RGB
+gives:
 
 - ``load_img`` (a file) and ``decode_img`` (its bytes, as an HTTP upload
-  brings them) take 8-bit gray, gray + alpha, RGB and RGBA, not interlaced,
-  with any of the five row filters, and returns RGB uint8 as
-  ``cv2.imread(IMREAD_COLOR)`` followed by BGR -> RGB does: alpha dropped,
-  gray repeated over the three channels; ``decode_gray`` reads a gray PNG
-  as (H, W), as ``cv2.imdecode(IMREAD_GRAYSCALE)`` does. It checks every
-  chunk's CRC and refuses, naming the reason, 16-bit samples, palettes,
-  Adam7 interlacing and JPEG files.
-- ``save_img`` writes 8-bit RGB, one filter for all rows (Sub by default)
-  or one per row.
+  brings them) tell PNG from JPEG by the signature, as OpenCV does, and
+  return (H, W, 3) RGB uint8 numpy, turned by the file's EXIF orientation
+  (a JPEG's APP1, a PNG's ``eXIf``).
+- PNG, decoded on the host with numpy and ``zlib``, every CRC checked: gray
+  of 1-16 bits, RGB, gray + alpha and RGBA of 8 or 16 bits, palettes of
+  1-8 bits, plain or Adam7-interlaced, any of the five row filters. Alpha
+  and ``tRNS`` are dropped, gray is repeated over the three channels,
+  16-bit samples keep their high byte, 1-4 bit gray is scaled to 8 bits.
+  ``decode_gray`` reads a gray PNG as (H, W), as
+  ``cv2.imdecode(IMREAD_GRAYSCALE)`` does.
+- JPEG (``utils/jpeg.py``): decoded for a device, as ``utils/cv.py``'s ops
+  are: on a CUDA device by the compiled entropy decoder and J1
+  (``ops/kernels/jpeg.py``), on the CPU by the plain decoder and pixel
+  stage; either way the numpy image comes back. What it refuses, and why,
+  is in ``utils/jpeg.py``.
+- ``save_img`` writes 8-bit RGB PNG, one filter for all rows (Sub by
+  default) or one per row.
 
 Unpickling runs code: load only pickles this program or the JAX package
 wrote.
@@ -34,11 +43,16 @@ import zlib
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
+
+from soft_contrastive_learning_torch.utils.jpeg import exif_orientation, is_jpeg, orient
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH = range(5)
-# channels per PNG colour type (8 bits each): gray, RGB, gray + alpha, RGBA
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# channels per PNG colour type: gray, RGB, palette index, gray + alpha, RGBA;
+# and the bit depths each may have
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 
 
 # ---------------------------------------------------------------- text
@@ -222,45 +236,91 @@ def _unfilter(px: np.ndarray, types: np.ndarray) -> np.ndarray:
 
 
 # the file extensions an image directory is read for (JAX evaluation/parity.py's
-# list); the decoder refuses all but PNG
+# list); a file is decoded by its content, PNG or JPEG, whatever its name
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
-def load_img(path: str) -> np.ndarray:
-    """Read a PNG file as an (H, W, 3) RGB uint8 array (``decode_img``)."""
+def load_img(path: str, device=None) -> np.ndarray:
+    """Read a PNG or JPEG file as an (H, W, 3) RGB uint8 array
+    (``decode_img``)."""
     with open(path, "rb") as f:
-        return decode_img(f.read(), path)
+        return decode_img(f.read(), path, device)
 
 
-def decode_img(data: bytes, path: str = "image") -> np.ndarray:
-    """Decode PNG bytes as an (H, W, 3) RGB uint8 array; ``path`` names the
-    source in the reason a refused file is given (JPEG, palette, 16-bit and
-    Adam7 PNGs, anything else)."""
-    px = _decode_png(data, path)
+def decode_img(data: bytes, path: str = "image", device=None) -> np.ndarray:
+    """Decode PNG or JPEG bytes, told apart by their signature as OpenCV
+    does, as an (H, W, 3) RGB uint8 numpy array: what ``cv2.imread`` /
+    ``cv2.imdecode(IMREAD_COLOR)`` and BGR -> RGB give, EXIF orientation
+    applied. A JPEG is decoded for ``device`` (default the CPU): on a CUDA
+    device by the compiled entropy decoder and J1
+    (``ops/kernels/jpeg.py``), on the CPU by the plain decoder and pixel
+    stage (``utils/jpeg.py``); a PNG on the host. ``path`` names the source
+    in the reason a refused file is given."""
+    if is_jpeg(data):
+        from soft_contrastive_learning_torch.ops.kernels.jpeg import decode_jpeg
+
+        device = torch.device("cpu" if device is None else device)
+        return decode_jpeg(data, path, device).cpu().numpy()
+    px, orientation = _decode_png(data, path)
     if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(px[:, :, :3])
+        px = np.repeat(px[:, :, :1], 3, axis=2)
+    return _oriented(px[:, :, :3], orientation)
 
 
 def decode_gray(data: bytes, path: str = "image") -> np.ndarray:
-    """Decode an 8-bit gray PNG (a raw Bayer frame) as an (H, W) uint8
-    array, as ``cv2.imdecode(IMREAD_GRAYSCALE)`` reads one; a PNG with
-    colour is refused (OpenCV would mix its channels to gray)."""
-    px = _decode_png(data, path)
+    """Decode a gray PNG (a raw Bayer frame) as an (H, W) uint8 array, as
+    ``cv2.imdecode(IMREAD_GRAYSCALE)`` reads one; a PNG with colour is
+    refused (OpenCV would mix its channels to gray)."""
+    px, orientation = _decode_png(data, path)
     if px.shape[2] != 1:
-        raise ValueError(f"{path}: a PNG with {px.shape[2]} channels; a gray read takes 8-bit "
-                         "gray PNGs only")
-    return px[:, :, 0]
+        raise ValueError(f"{path}: a PNG with {px.shape[2]} channels; a gray read takes gray "
+                         "PNGs only")
+    return _oriented(px[:, :, 0], orientation)
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
-    """PNG bytes -> (H, W, channels) uint8 samples as stored."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: a JPEG file; the port decodes PNG only (it has no JPEG "
-                         "decoder)")
+def _oriented(px: np.ndarray, orientation: int) -> np.ndarray:
+    """A decoded PNG's samples, C-contiguous, turned by its ``eXIf``
+    orientation (no torch op where there is none to apply)."""
+    if orientation != 1:
+        px = orient(torch.from_numpy(np.ascontiguousarray(px)), orientation).numpy()
+    return np.ascontiguousarray(px)
+
+
+def _unpack(data: bytes, h: int, w: int, depth: int, ch: int, path: str) -> np.ndarray:
+    """One (sub-)image's filtered rows -> (h, w, ch) samples, unfiltered and
+    unpacked: 16-bit samples kept as their high byte (libpng's strip_16, as
+    OpenCV reads them), 1-, 2- and 4-bit samples as their values."""
+    bits = w * ch * depth
+    row = (bits + 7) // 8
+    if len(data) < h * (1 + row):
+        raise ValueError(f"{path}: PNG image data holds {len(data)} bytes, expected "
+                         f"{h * (1 + row)} for {w}x{h}x{ch} at {depth} bits")
+    rows = np.frombuffer(data, np.uint8, h * (1 + row)).reshape(h, 1 + row)
+    types = rows[:, 0]
+    if (types > FILTER_PAETH).any():
+        raise ValueError(f"{path}: PNG row filter type {int(types.max())} does not exist")
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
+    raw = _unfilter(rows[:, 1:].reshape(h, row // bpp, bpp), types).reshape(h, row)
+    if depth == 16:
+        return np.ascontiguousarray(raw[:, 0::2]).reshape(h, w, ch)
+    if depth < 8:
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        raw = ((raw[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    return raw.reshape(h, w, ch)
+
+
+def _decode_png(data: bytes, path: str):
+    """PNG bytes -> ((H, W, channels) uint8 samples, EXIF orientation):
+    palettes expanded to RGB (``tRNS`` dropped, indices past the palette
+    black, as libpng), gray of 1, 2 or 4 bits scaled to 8, 16-bit samples
+    reduced to their high byte, Adam7 passes put in place; the orientation
+    of an ``eXIf`` chunk, 1 without one."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+        raise ValueError(f"{path}: not a PNG or a JPEG file")
+    header, idat, palette, orientation = None, [], None, 1
     for kind, body in _chunks(data, path):
         if header is None:
             if kind != b"IHDR" or len(body) != 13:
@@ -268,33 +328,45 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"eXIf" and orientation == 1:
+            orientation = exif_orientation(body)
     w, h, depth, ctype, method, filter_method, interlace = header
-    if ctype == 3:
-        raise ValueError(f"{path}: palette PNG (colour type 3); the port decodes 8-bit gray, "
-                         "gray + alpha, RGB and RGBA only")
-    if ctype not in _CHANNELS:
+    if ctype not in _DEPTHS:
         raise ValueError(f"{path}: PNG colour type {ctype} is not a valid one")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG samples; the port decodes 8-bit samples only")
-    if interlace:
-        raise ValueError(f"{path}: Adam7-interlaced PNG; the port decodes non-interlaced PNG "
-                         "only")
-    if method or filter_method:
-        raise ValueError(f"{path}: unknown PNG compression or filter method "
-                         f"({method}, {filter_method})")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits is not a valid one")
+    if method or filter_method or interlace > 1:
+        raise ValueError(f"{path}: unknown PNG compression, filter or interlace method "
+                         f"({method}, {filter_method}, {interlace})")
+    if ctype == 3 and (palette is None or len(palette) % 3 or not palette):
+        raise ValueError(f"{path}: palette PNG without a valid PLTE chunk")
     ch = _CHANNELS[ctype]
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: PNG image data does not inflate ({e})") from e
-    if len(raw) != h * (1 + w * ch):
-        raise ValueError(f"{path}: PNG image data holds {len(raw)} bytes, expected "
-                         f"{h * (1 + w * ch)} for {w}x{h}x{ch}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + w * ch)
-    types = rows[:, 0]
-    if (types > FILTER_PAETH).any():
-        raise ValueError(f"{path}: PNG row filter type {int(types.max())} does not exist")
-    return _unfilter(rows[:, 1:].reshape(h, w, ch), types)
+    if not interlace:
+        px = _unpack(raw, h, w, depth, ch, path)
+    else:
+        px = np.zeros((h, w, ch), np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw == 0 or ph == 0:
+                continue  # an empty pass has no rows
+            size = ph * (1 + (pw * ch * depth + 7) // 8)
+            px[y0::dy, x0::dx] = _unpack(raw[at : at + size], ph, pw, depth, ch, path)
+            at += size
+    if ctype == 3:
+        table = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette, np.uint8).reshape(-1, 3)[:256]
+        table[: len(entries)] = entries
+        return table[px[:, :, 0]], orientation
+    if depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
+    return px, orientation
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

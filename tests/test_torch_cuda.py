@@ -1145,3 +1145,89 @@ def test_int8_packed_stem_equals_q1(cuda, b):
     direct = QuantizedConvStack(params, scales, cuda)
     x = torch.from_numpy(images).to(cuda)
     assert torch.equal(packed(x), direct(x))
+
+
+JPEG_FIXTURES = Path(__file__).resolve().parents[1] / "soft_contrastive_learning_torch" / "assets" / "jpeg"
+
+
+def _jpeg_digests():
+    import json
+
+    return json.loads((JPEG_FIXTURES / "digests.json").read_text())
+
+
+def test_j1_and_the_compiled_decoder_on_the_fixtures(cuda):
+    """Every committed JPEG fixture: the compiled entropy decoder gives the
+    plain Python decoder's coefficients and tables; J1 on the card is
+    bit-equal to the plain pixel stage on the card and hashes to OpenCV's
+    committed digest; each refused fixture is refused with its reason."""
+    import hashlib
+
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode, jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients, pixels_plain
+
+    table = _jpeg_digests()
+    for name, want in table["decoded"].items():
+        data = (JPEG_FIXTURES / name).read_bytes()
+        co = entropy_decode(data, name)
+        ref = decode_coefficients(data, name)
+        assert np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant), name
+        assert co.frame == ref.frame, name
+        coefs, quant = torch.from_numpy(co.coefs).to(cuda), torch.from_numpy(co.quant).to(cuda)
+        got = jpeg_pixels_cuda(coefs, quant, co.frame)
+        plain = pixels_plain(coefs, quant, co.frame)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), name
+        assert list(got.shape) == want["shape"], name
+        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == want["sha256"], name
+    for name, reason in table["refused"].items():
+        with pytest.raises(ValueError, match=reason):
+            entropy_decode((JPEG_FIXTURES / name).read_bytes(), name)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("layout", [((2, 2), (1, 1)), ((2, 1), (1, 1)), ((1, 2), (1, 1)),
+                                    ((1, 1), (1, 1)), ((4, 1), (1, 1)), ((2, 2), (2, 1)),
+                                    ((1, 1),)])
+def test_j1_equals_plain_on_random_coefficients(cuda, layout, orientation):
+    """J1 against the plain stage on random coefficients (DC and low AC
+    terms, some saturating) over sampling layouts, partial MCUs, narrow
+    chroma and every orientation."""
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.utils import jpeg
+
+    gen = torch.Generator().manual_seed(orientation * 31 + len(layout))
+    for h, w in ((37, 45), (8, 3), (181, 243), (1, 1)):
+        comps = [jpeg.Component(i + 1, layout[i % len(layout)][0], layout[i % len(layout)][1], 0)
+                 for i in range(1 if len(layout) == 1 else 3)]
+        if len(comps) == 3:
+            comps[2].h, comps[2].v = comps[1].h, comps[1].v
+        hm, vm = max(c.h for c in comps), max(c.v for c in comps)
+        for c in comps:
+            c.dw, c.dh = -(-w * c.h // hm), -(-h * c.v // vm)
+            c.bw = -(-w // (8 * hm)) * c.h if len(comps) > 1 else -(-c.dw // 8)
+            c.bh = -(-h // (8 * vm)) * c.v if len(comps) > 1 else -(-c.dh // 8)
+        colour = jpeg.GRAY if len(comps) == 1 else jpeg.YCC
+        frame = jpeg.Frame(h, w, colour, orientation, comps)
+        n = frame.block_offsets()[-1]
+        coefs = torch.zeros((n, 64), dtype=torch.int16)
+        coefs[:, 0] = torch.randint(-1100, 1100, (n,), generator=gen, dtype=torch.int16)
+        coefs[:, 1:10] = torch.randint(-60, 61, (n, 9), generator=gen, dtype=torch.int16)
+        quant = torch.randint(1, 9, (len(comps), 64), generator=gen, dtype=torch.int32)
+        plain = jpeg.pixels_plain(coefs, quant, frame)
+        got = jpeg_pixels_cuda(coefs.to(cuda), quant.to(cuda), frame)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), plain), (h, w)
+
+
+def test_j1_refuses_what_it_does_not_take(cuda):
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode, jpeg_pixels_cuda
+
+    co = entropy_decode((JPEG_FIXTURES / "c420_q95.jpg").read_bytes(), "c420_q95.jpg")
+    coefs, quant = torch.from_numpy(co.coefs).to(cuda), torch.from_numpy(co.quant).to(cuda)
+    with pytest.raises(TypeError):
+        jpeg_pixels_cuda(coefs.to(torch.int32), quant, co.frame)
+    with pytest.raises(ValueError):
+        jpeg_pixels_cuda(coefs[:-1], quant, co.frame)
+    with pytest.raises(ValueError):
+        jpeg_pixels_cuda(coefs, quant.cpu(), co.frame)

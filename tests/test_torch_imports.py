@@ -127,7 +127,7 @@ def test_prep_and_resize_run_where_opencv_sklearn_and_matplotlib_are_missing():
 
 def test_every_kernel_source_exports_its_c_entry_points():
     names = _build.kernel_names()
-    assert names == ["int8_conv", "netvlad", "probe_gemm", "topk", "winograd", "wms"]
+    assert names == ["int8_conv", "jpeg", "netvlad", "probe_gemm", "topk", "winograd", "wms"]
     text = {n: (_build.SRC_DIR / f"{n}.cu").read_text() for n in names}
     assert 'extern "C"' in text["netvlad"] and "int scl_netvlad_aggregate(" in text["netvlad"]
     assert "int scl_topk_l2(" in text["topk"] and "int scl_topk_num_lists(" in text["topk"]
@@ -176,6 +176,13 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert "roundf" not in q1
     assert q1.count("__global__") == 2 and "mma_sync" not in q1
     assert not any(lib in q1.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
+    # J1 is its own: two kernels (the IDCT into planes, the pixels), and the
+    # entropy decoder beside them is host C++ of the same library; no nvJPEG
+    j1 = text["jpeg"]
+    assert "int scl_jpeg_pixels(" in j1 and "int scl_jpeg_entropy(" in j1
+    assert "int scl_jpeg_info(" in j1 and j1.count("__global__") == 2
+    assert set(re.findall(r"#include <([\w./]+)>", j1)) <= {
+        "stdint.h", "stdio.h", "string.h", "algorithm", "string", "cuda_runtime.h"}
 
 
 def test_build_targets_hopper_and_stays_in_the_checkout():

@@ -6,8 +6,9 @@ the same CSV list and the same weights (the JAX init through
 absolute on unit-norm descriptors (the frameworks sum in other orders);
 float16 dumps are the float32 dump rounded, exactly for the port's own and
 within one float16 step (1e-3) of JAX's. Covered too: ``achen`` sets run
-portrait, ``oxs`` sets read ``.jpg`` and the port's decoder refuses JPEG,
-naming it; a dump dtype other than float32/float16 is refused."""
+portrait, ``oxs`` sets read ``.jpg`` files, which the port decodes to
+OpenCV's pixels, and give JAX's dump within the same 1e-5; a dump dtype
+other than float32/float16 is refused."""
 
 import os
 
@@ -112,17 +113,17 @@ def test_float16_dumps(models, tmp_path):
 
 
 def test_oxs_sets_read_jpg_which_the_port_refuses(models, tmp_path):
-    """JAX reads an oxs set's ``.jpg`` files through OpenCV; the port looks
-    for the same ``.jpg`` paths and its decoder refuses JPEG, saying so."""
-    _write_set(str(tmp_path), "oxs_test", ext=".jpg")
-    cfg, params, jax_cfg, jax_params = models
-    args = ("oxs_test", str(tmp_path / "lists"), str(tmp_path / "imgs"))
-    jax_out = jinference.run_inference(jax_cfg, jax_params, *args, str(tmp_path / "lv"), "m",
-                                       batch_size=BATCH)
-    assert np.asarray(load_pickle(jax_out)).shape == (N, 4 * 512)
-    with pytest.raises(ValueError, match=r"oxs_test/0000\.jpg: a JPEG file"):
-        run_inference(cfg, params, *args, str(tmp_path / "lv_port"), "m", batch_size=BATCH,
-                      device="cpu")
+    """JAX reads an oxs set's ``.jpg`` files through OpenCV; the port reads
+    the same ``.jpg`` paths with its own JPEG decoder (once refused, the
+    test's name), to the same pixels, and its dump equals JAX's within
+    1e-5."""
+    paths = _write_set(str(tmp_path), "oxs_test", ext=".jpg")
+    got, want = _run_both(models, str(tmp_path), "oxs_test")
+    feats, jfeats = load_pickle(got), np.asarray(load_pickle(want))
+    assert feats.shape == (N, 4 * 512) == jfeats.shape
+    np.testing.assert_allclose(feats, jfeats, atol=1e-5, rtol=0)
+    jpg = paths[0].replace(".png", ".jpg")
+    np.testing.assert_array_equal(load_img(jpg), cv2.imread(jpg)[:, :, ::-1])
 
 
 def test_extract_files_of_no_paths_and_the_raw_flag(models):

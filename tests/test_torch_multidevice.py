@@ -317,6 +317,17 @@ def test_the_dryrun_writes_once_and_resumes_exactly(dryrun_two):
         assert r["trainer"]["resumed_steps"] == 12
 
 
+def test_a_trainer_on_two_ranks_takes_cudnn_s_deterministic_algorithms(dryrun_two,
+                                                                        one_process_trainer):
+    """A Trainer on more than one rank turns on cudnn.deterministic in its
+    process (on the card, ranks sharing it otherwise reorder cuDNN's atomic
+    sums from run to run: scripts/torch_resume_gap.py); a one-process
+    Trainer leaves the flag as it was."""
+    results, _ = dryrun_two
+    assert [r["trainer"]["cudnn_deterministic"] for r in results] == [True, True]
+    assert torch.backends.cudnn.deterministic is False
+
+
 def _cli_argv(out_root, *extra):
     return ["train", "--toy_city", "--device", "cpu", "--out_root", str(out_root),
             "--out_folder", "run", "--image_height", "32", "--image_width", "32",

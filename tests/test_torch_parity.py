@@ -120,3 +120,30 @@ def test_parity_list_file_and_empty_dir(artifacts, tmp_path):
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         run_parity(ckpt, str(tmp_path / "empty"), device="cpu")
+
+
+def test_parity_over_a_jpeg_directory_matches_jax(artifacts, tmp_path):
+    """A directory of ``.jpg`` and ``.jpeg`` files (4:2:0, progressive, one
+    of another size that the extractor resizes): the port decodes them to
+    OpenCV's pixels, and its descriptors equal JAX's within 1e-5."""
+    import cv2
+
+    ckpt, _, _, _, _ = artifacts
+    rng = np.random.default_rng(4)
+    imgs = tmp_path / "jpegs"
+    imgs.mkdir()
+    for i, (shape, ext, flags) in enumerate([((32, 48, 3), ".jpg", []),
+                                             ((40, 60, 3), ".jpeg",
+                                              [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+                                             ((45, 50, 3), ".jpg", [])]):
+        img = (rng.random(shape) * 255).astype(np.uint8)
+        cv2.imwrite(str(imgs / f"img_{i:02d}{ext}"), img, flags)
+    jax_out = str(tmp_path / "jax.npz")
+    jax_run_parity(ckpt, str(imgs), out=jax_out, cfg=JaxModelConfig(use_pallas=False, **COMMON))
+    out = str(tmp_path / "ours.npz")
+    rep = run_parity(ckpt, str(imgs), out=out, cfg=ModelConfig(use_kernels=False, **COMMON),
+                     device="cpu")
+    assert rep.n_images == 3
+    with np.load(out, allow_pickle=True) as a, np.load(jax_out, allow_pickle=True) as b:
+        np.testing.assert_allclose(a["descriptors"], b["descriptors"], rtol=0, atol=1e-5)
+        assert list(a["files"]) == list(b["files"])

@@ -370,9 +370,13 @@ def test_cli_flags_are_jax_flags_with_jax_defaults(monkeypatch, command, own):
 
 def test_cli_quant_refuses_random_weights_and_writes_jaxs_scales(tmp_path, capsys):
     """``quant`` without --checkpoint refuses unless --allow_random; with the
-    trained artifact it writes the scales JAX calibrates from the same PNGs
-    (a JPEG beside them is refused by the decoder, with its reason)."""
+    trained artifact it writes the scales JAX calibrates from the same
+    images, two PNGs and a JPEG that the port decodes to JAX's pixels; a
+    truncated JPEG beside them is refused by the decoder, with its reason."""
+    import cv2
+
     from soft_contrastive_learning_tpu import flagship as jax_flagship
+    from soft_contrastive_learning_tpu.utils.io import load_img as jax_load_img
     from soft_contrastive_learning_torch.cli import main
     from soft_contrastive_learning_torch.models.weights import TRAINED_PARAMS_PATH
     from soft_contrastive_learning_torch.utils.io import save_img
@@ -380,9 +384,11 @@ def test_cli_quant_refuses_random_weights_and_writes_jaxs_scales(tmp_path, capsy
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     rng = np.random.default_rng(5)
-    imgs = rng.integers(0, 256, (2, 180, 240, 3), dtype=np.uint8)
-    for i, im in enumerate(imgs):
+    imgs = rng.integers(0, 256, (3, 180, 240, 3), dtype=np.uint8)
+    for i, im in enumerate(imgs[:2]):
         save_img(im, str(img_dir / f"{i}.png"))
+    cv2.imwrite(str(img_dir / "2.jpg"), imgs[2][:, :, ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+    imgs[2] = jax_load_img(str(img_dir / "2.jpg"))
     out = tmp_path / "scales.json"
     argv = ["quant", "--image_dir", str(img_dir), "--out", str(out), "--device", "cpu"]
     assert main(argv) == 1 and not out.exists()
@@ -394,8 +400,8 @@ def test_cli_quant_refuses_random_weights_and_writes_jaxs_scales(tmp_path, capsy
                                jnp.asarray(imgs.astype(np.float32)))
     assert set(got) == set(want)
     assert all(abs(got[k] - want[k]) <= 1e-5 * want[k] for k in want)
-    (img_dir / "2.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(ValueError, match="JPEG"):
+    (img_dir / "3.jpg").write_bytes((img_dir / "2.jpg").read_bytes()[:600])
+    with pytest.raises(ValueError, match="3.jpg: JPEG.*truncated"):
         main(argv + ["--checkpoint", str(TRAINED_PARAMS_PATH)])
 
 

@@ -221,29 +221,40 @@ def test_http_embed_batch_and_search(server_url):
 
 
 def test_http_upload_decodes_without_opencv(server_url, monkeypatch, tmp_path):
-    """The upload decoder is the port's PNG codec: with cv2 unimportable, a
-    PNG posted to the live server returns JAX's descriptor, and a JPEG gets
-    a 400 with the decoder's reason."""
+    """The upload decoder is the port's own codec: with cv2 unimportable, a
+    PNG posted to the live server returns JAX's descriptor; a JPEG (4:2:0
+    and progressive) returns the descriptor of the same pixels posted as
+    PNG, the pixels OpenCV decodes it to; a truncated JPEG gets a 400 with
+    the decoder's reason."""
     import cv2
 
     from soft_contrastive_learning_torch.utils.io import save_img
 
     url, imgs, index = server_url
-    ok, jpeg = cv2.imencode(".jpg", imgs[0])
-    assert ok
+    jpegs = [cv2.imencode(".jpg", imgs[0], flags)[1].tobytes()
+             for flags in ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])]
+    decoded = [cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR)[:, :, ::-1]
+               for j in jpegs]
     monkeypatch.setitem(sys.modules, "cv2", None)  # makes `import cv2` fail
-    path = str(tmp_path / "up.png")
-    save_img(imgs[0], path)
-    with open(path, "rb") as f:
-        png = f.read()
-    status, payload = _post(url + "/embed", png, "image/png")
+
+    def as_png(img, name):
+        path = str(tmp_path / name)
+        save_img(np.ascontiguousarray(img), path)
+        with open(path, "rb") as f:
+            return f.read()
+
+    status, payload = _post(url + "/embed", as_png(imgs[0], "up.png"), "image/png")
     assert status == 200
     np.testing.assert_allclose(np.asarray(payload["descriptor"]), index[0], atol=ATOL)
-    status, payload = _post(url + "/embed", jpeg.tobytes(), "image/jpeg")
-    assert status == 400 and "JPEG" in payload["error"] and "PNG only" in payload["error"]
-    body = json.dumps({"images_b64": [base64.b64encode(jpeg.tobytes()).decode()]}).encode()
+    for k, (jpeg, pixels) in enumerate(zip(jpegs, decoded)):
+        status, from_jpeg = _post(url + "/embed", jpeg, "image/jpeg")
+        assert status == 200, from_jpeg
+        status, from_png = _post(url + "/embed", as_png(pixels, f"{k}.png"), "image/png")
+        assert status == 200
+        assert from_jpeg["descriptor"] == from_png["descriptor"]
+    body = json.dumps({"images_b64": [base64.b64encode(jpegs[0][:300]).decode()]}).encode()
     status, payload = _post(url + "/embed_batch", body)
-    assert status == 400 and "JPEG" in payload["error"]
+    assert status == 400 and "JPEG" in payload["error"] and "truncated" in payload["error"]
 
 
 def test_http_embed_and_errors(server_url):
