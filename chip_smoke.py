@@ -165,14 +165,26 @@ failure:
    refresh from the same weights gives the sync refresh's window and
    neighbour order bit for bit; each run's refresh wall (sync and async),
    steady-window step and with_mining img/s are printed;
-19. bench_train: `cli bench --train` at JAX's defaults (600 poses, 2 tuples,
-   50 device steps) three ways, synchronous, --async_mining and --no_cache,
+19. train_kstep: the K-step dispatch (steps_per_dispatch) through
+   Trainer.train() with cuDNN's deterministic algorithms: the train phase's
+   epoch at K = 2 against K = 1, and at K = 16 (mining every 40 anchors, so
+   that groups of 16 form) against K = 1 at that cadence: every loss,
+   parameter and metrics record bit-equal, K1, its backward and K3 launched
+   as at K = 1, each segment's group count the one JAX's rule gives; the
+   epochs in turns (1, 2, 16, 16, 2, 1) with the per-step dispatch_put and
+   train_step spans, segment_steady img/s and device ms; the eval labels
+   drawn without OpenCV equal to the committed digests, and one K = 2 epoch
+   with save_plots writing its triptych PNGs;
+20. bench_train: `cli bench --train` at JAX's defaults (2 tuples, 50 device
+   steps) on a city of 300 poses (JAX's default 600 cut to keep the script
+   within its time limit) four ways, synchronous, --async_mining,
+   --no_cache and --steps_per_dispatch 16,
    in a fresh temporary directory (the first builds the decoded-uint8
    cache): each JSON line printed, every number finite, with_mining_step_ms
-   at least 0.9x sustained_step_ms, 300 timed steps, K1 and its backward
+   at least 0.9x sustained_step_ms, 150 timed steps, K1 and its backward
    launched as the runs' steps, refreshes and evals call them, no K3; the
    two phases' wall time;
-20. train_files: the same toy city written as the prep pipeline's tree
+21. train_files: the same toy city written as the prep pipeline's tree
    (shuffled/, anchors/, clusters/, PNGs) with the port's writer, and `cli
    train` from it on the host feed (no device image pool: decoded on 8
    threads, built ahead by the Prefetcher) for 20 steps (the anchor list cut
@@ -184,7 +196,7 @@ failure:
    run-to-run floor (at least 1e-6) of the uninterrupted run, on its
    batches; decode img/s (as written, and every row Paeth) and the host-fed
    step beside the pooled one;
-21. losses: the 29 losses that need no streaming-PCA state (all of
+22. losses: the 29 losses that need no streaming-PCA state (all of
    LOSS_NAMES but incremental_*) at B = 50 on the trained flagship's
    descriptors of a batch from a dense toy city (1,200 poses 0.79 m apart,
    so that the 12 positives are mostly distinct), once for (1,12,12) and
@@ -202,7 +214,7 @@ failure:
    the logs of their top 512 values; cuSOLVER's
    eigensolve on 900 seeded wrd-like Grams in fp32 (failures, error) and in
    float64 (the port's solve: must converge on all);
-22. train_zoo: `cli train --toy_city` from the trained weights on the
+23. train_zoo: `cli train --toy_city` from the trained weights on the
    pooled path with no --loss (so wrd) for 20 steps, then 10 steps each of
    pairwise_distance_neg_eigenvalue (PN: two forwards, two backwards, two
    Adam updates a step) and quadruplet: steps, refreshes, exact K1 and
@@ -211,7 +223,7 @@ failure:
    beside the median interval between step calls; then each loss's step
    and the flagship's wms step (K3) on one batch in turns, on the device
    and on the host behind queued work;
-23. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
+24. heads: each reduction at the flagship's width (pca, 1fc, 2fc, 3fc, spp,
    and vlad_cores=0's flattened map) from the trained backbone and a seeded
    head, B = 50: widths, finite, cosine >= 0.99 to the fp32 plain path on
    the card (pca projected by a StreamingPCA fitted on 600 images; its
@@ -220,8 +232,8 @@ failure:
    index images to 512-D, pads them to 66,048 rows and searches 64 queries
    (K2 at D = 512): 16 index images at rank 0, squared distances within
    1e-5 of |q|^2 of an fp64 search;
-24. train_heads: `cli train` at the flagship's width from the trained
-   weights: --reduction pca --loss incremental_residual_mm (6 steps) and
+25. train_heads: `cli train` at the flagship's width from the trained
+   weights: --reduction pca --loss incremental_residual_mm (4 steps) and
    --reduction none with it (the 32,768-wide loss PCA, 4 steps), both from
    a prep tree of a 1,200-pose city with mining windows of 600 images (more
    rows than the PCAs' 512 components), and --reduction 2fc --loss wms
@@ -234,7 +246,7 @@ failure:
    step time beside the interval between step calls and each refresh's
    PCA fits, the host's PCA update at each width and the (2, 525, 525)
    float64 eigensolve;
-25. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
+26. infer: the rehearsal corpus's geometry with 750 refs (its 300 queries
    and 4,400 PCA images) rendered to PNG on 8 processes, then `cli infer`
    for the three sets (fp32) and the queries as fp16: K1 once per batch of
    32, dumps of the right shape, finite, unit-norm, cosine >= 0.99 to the
@@ -244,11 +256,11 @@ failure:
    files, the files are the JPEG fixtures as .jpg): J1 once per image, K1
    once per batch, the dump within 1e-6 of an extractor's descriptors of the
    plain CPU decode's pixels;
-26. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
+27. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
    correctly_localized_curve (`cli roc` draws them where matplotlib is);
-27. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
+28. topn_250k: the whitened ref dump (fit at D = 4,096) padded with seeded
    rows of its per-column normal to 250,000 rows, `top_n_single` at
    spacing 0 for the 300 queries at D = 256 and 4,096 (K2: two launches
    each): on 64 queries squared distances within 1e-5 of |q|^2 from an fp64
@@ -258,11 +270,12 @@ failure:
    differing only at near-ties within that; the repaired D = 66 at 200,001
    rows of eighths equal to the plain version; K2 timed at both widths
    beside the dense topk_l2, the plain version and the bounds;
-28. multidevice (data parallelism over torch.distributed; two ranks share
+29. multidevice (data parallelism over torch.distributed; two ranks share
    the one card on gloo, as NCCL refuses two ranks on one device):
    dryrun_multichip(2) (the pooled step, a sharded top-k, the trainer's 12
-   steps with 6 refreshes, 4 evals and a resume at step 8 to 12, the ranks'
-   parameters bit-equal, K1, its backward and K2 launched on each rank);
+   steps at JAX's steps_per_dispatch=2 with 6 refreshes, 4 evals and a
+   resume at step 8 to 12 bit-exact, the ranks' parameters bit-equal, K1,
+   its backward and K2 launched on each rank);
    the flagship at full width (B = 50, 25 a rank, fused wms: K3) from the
    trained weights through Trainer(mesh=...) for the train phase's
    configuration cut to 12 steps (mining every 4 anchors, evals every 6, a
@@ -283,7 +296,7 @@ failure:
    Printed beside the card's name and power limit: a step on two ranks
    and in one process (fp32 and the flagship's bf16), the 59 MB gradient all-reduce (gloo, and NCCL on one
    rank), a sharded search and K2 on a half beside the one-process K2;
-29. prep: a raw RobotCar tree at its frame size (two dates, 600 + 595 gray
+30. prep: a raw RobotCar tree at its frame size (two dates, 600 + 595 gray
    Bayer PNG frames of 1280x960 in tars along a 1,200 m route, INS at 3x
    the frame rate, four fold masks, a 960x1280 undistortion LUT whose corners leave the frame)
    through `cli prep` (the downsize's demosaic -> undistort -> resize on
@@ -296,18 +309,18 @@ failure:
    NetVLAD forward), K1_bwd and K3 counts, finite losses) and `cli infer`
    of its train_ref images (prep_infer: K1 once per batch of 32, a finite
    unit-norm dump);
-30. parity: the committed flagship exported to TF1 names, `cli parity` of 64
+31. parity: the committed flagship exported to TF1 names, `cli parity` of 64
    PNGs (4 of them resized by the harness) against a golden of the port's
    standard fp32 extractor: rc 0 at tolerance 1e-3; a golden with one row
    moved by 0.01: rc 1; the run's wall;
-31. packed_stem: from the trained flagship at 180x240, B 64: the fp32 packed
+32. packed_stem: from the trained flagship at 180x240, B 64: the fp32 packed
    block1 (+ pool, ReLU) within 1e-5 of the largest output of the standard
    one, the whole model's fp32 descriptors packed against standard at
    cosine >= 0.99999, block1 packed and standard timed under cuDNN in turns
    (bf16, fp32); the int8 packed stack (im2col + torch._int_mm for conv1_1
    .. conv2_1) bit-equal to the direct stack (Q1_stem, Q1, Q1_pool) at B 8
    and 64, its conv2_2 input equal to Q1's, and the two timed in turns;
-32. write the whole report with the card's name and power limit to
+33. write the whole report with the card's name and power limit to
    chiprun_out/chip_smoke_report.json under the working directory, print
    the new paths', serve, train, probe and kernel JSON lines, then the
    result line.
@@ -2121,10 +2134,28 @@ def instrument(torch, tr, pooled=True):
     timed on the device (``tr.step_events``) and its call on the host clock
     (``tr.step_calls``), the first batch kept (``tr.first_batch``), the
     image indices of every sample drawn (``tr.drawn``), and the seconds of
-    the eval hooks and the checkpoint writes (``tr.timing``)."""
+    the eval hooks and the checkpoint writes (``tr.timing``). With
+    ``steps_per_dispatch`` > 1 each group dispatch of K steps is timed on
+    the device too: (start, end, K, global step before it) in
+    ``tr.group_events``."""
     attr = "train_step_pooled" if pooled else "train_step"
     step, sample = getattr(tr, attr), tr._sample
     tr.drawn, tr.step_events, tr.step_calls, tr.first_batch = [], [], [], {}
+    tr.group_events = []
+    scan_attr = "train_step_scan_pooled" if pooled else "train_step_scan"
+    scan = getattr(tr, scan_attr)
+    if scan is not None:
+        def timed_scan(state, stacked, *pool):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            at = tr.global_step
+            start.record()
+            out = scan(state, stacked, *pool)
+            end.record()
+            tr.group_events.append((start, end, len(stacked["epoch"]), at))
+            return out
+
+        setattr(tr, scan_attr, timed_scan)
     tr.timing = {"eval_s": 0.0, "save_s": 0.0}
 
     def recording_sample(*args):
@@ -2167,7 +2198,7 @@ def instrument(torch, tr, pooled=True):
 
 
 def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=None,
-                resume=None, hook=None):
+                resume=None, hook=None, save_plots=False):
     """One epoch through Trainer.train() from ``params``, every step timed
     on the device; fails unless the kernels launched ``expect`` times on it.
     ``out_dir``: a run directory that outlives the call (default: a
@@ -2182,7 +2213,8 @@ def train_epoch(torch, np, report, path, cfg, params, source, expect, out_dir=No
     from soft_contrastive_learning_torch.train.trainer import Trainer
 
     with tempfile.TemporaryDirectory() as tmp_dir:
-        tr = Trainer(cfg, source, out_dir=out_dir or tmp_dir, device="cuda", params=params)
+        tr = Trainer(cfg, source, out_dir=out_dir or tmp_dir, device="cuda", params=params,
+                     save_plots=save_plots)
         if resume is not None and not tr.resume_latest(resume):
             fail(f"{path}: no '{resume}' checkpoint to resume from in {out_dir}")
         instrument(torch, tr, pooled=cfg.device_image_pool)
@@ -2541,7 +2573,168 @@ def phase_train_async(torch, np, report, shared):
                                  seconds=seconds)
 
 
-BENCH_TRAIN_RUNS = (("sync", []), ("async", ["--async_mining"]), ("no_cache", ["--no_cache"]))
+# ---------------------------------------------------------------- K-step dispatch
+KSTEP_TURNS = (1, 2, 16, 16, 2, 1)  # steps_per_dispatch of the timed epochs, in turns
+# a group of 16 needs segments of more than 16 steps: the K = 16 epochs (and
+# the K = 1 epoch they are held to) refresh every 40 anchors (20 steps a
+# segment), the K = 2 ones at train_config()'s 20 (10 steps)
+KSTEP_MINING = {1: 20, 2: 20, 16: 40}
+# K1's forwards in an epoch at each cadence: 60 steps, the refreshes' 3 chunks
+# of 50 (120 or 140 images), the one eval's 2 held-out loss batches and 4 embeds
+KSTEP_FORWARDS = {20: EPOCH_FORWARDS, 40: 60 + 3 * 3 + 2 + 4}
+
+
+def jax_group_counts(np, cfg, n_anchors):
+    """The K-step groups JAX's ``run_segment`` forms in each segment of an
+    epoch of ``n_anchors`` anchors with no faulty batch: after an item, a
+    group of K when the K-1 items after it lie in its segment and host no
+    eval and no save; else the item runs singly."""
+    k = cfg.steps_per_dispatch
+    steps = np.arange(0, n_anchors, cfg.tuples_per_batch)
+    starts = [int(i) for i in np.flatnonzero(steps % cfg.mining_step == 0)] + [len(steps)]
+    counts = []
+    for a, z in zip(starts, starts[1:]):
+        hosts = [int(s) % cfg.eval_step == 0 or int(s) % cfg.save_step == 0 for s in steps[a:z]]
+        i = groups = 0
+        while i < len(hosts):
+            if k > 1 and i + k <= len(hosts) and not any(hosts[i + 1 : i + k]):
+                groups, i = groups + 1, i + k
+            else:
+                i += 1
+        counts.append(groups)
+    return counts
+
+
+def phase_train_kstep(torch, np, report, shared):
+    """The K-step dispatch (``steps_per_dispatch``) through Trainer.train()
+    at the flagship's width, from the trained weights, with cuDNN's
+    deterministic algorithms (its default backward sums with atomics, and
+    two K = 1 epochs already differ without them): the train phase's epoch
+    at K = 2 (mining every 20 anchors: 10 steps a segment) against the same
+    epoch at K = 1, and at K = 16 (mining every 40 anchors: 20 steps a
+    segment, so that groups form; the save at anchor 60 keeps segment 2's
+    items single) against K = 1 at that cadence. Gates: every loss, every
+    parameter and every record of metrics_local.jsonl (the wall clock aside)
+    bit-equal to the K = 1 epoch's; K1, its backward and K3 launched as the
+    K = 1 epoch launches them (the train phase's counts at 20); each
+    segment's group count the one JAX's rule gives. Epochs in turns (1, 2,
+    16, 16, 2, 1), after a K = 1 epoch at 40: per step the dispatch_put and
+    train_step spans, the segment_steady img/s, the device ms (CUDA events
+    around each dispatch, divided by its steps). The second K = 2 epoch
+    runs with save_plots: its triptych PNGs (labelled by put_text, from the
+    committed glyph table: every committed digest checked first) must
+    decode to (180, 720, 3)."""
+    import dataclasses
+    import hashlib
+
+    from soft_contrastive_learning_torch.utils.cv import put_text
+    from soft_contrastive_learning_torch.utils.io import load_img
+
+    t_phase = time.perf_counter()
+    digests = json.loads(Path("soft_contrastive_learning_torch/assets/hershey/"
+                              "digests.json").read_text())
+    for entry in digests["labels"]:
+        canvas = np.random.default_rng(entry["seed"]).integers(0, 256, entry["shape"],
+                                                               dtype=np.uint8)
+        got = put_text(entry["text"], canvas, color=tuple(digests["color"]))
+        if hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"]:
+            fail(f"train_kstep: put_text({entry['text']!r}) is not OpenCV's committed digest")
+    params, source = shared["train_params"], shared["source"]
+    n_anchors = len(source.anchor_indices("train_ref", 1, 0))
+    b = train_config().images_per_batch
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    work = Path(tempfile.mkdtemp(prefix="kstep_"))
+    refs, turns, plots = {}, [], None
+    try:
+        for turn, k in enumerate((1, *KSTEP_TURNS)):
+            mining = 40 if turn == 0 else KSTEP_MINING[k]
+            cfg = dataclasses.replace(train_config(), steps_per_dispatch=k, mining_step=mining)
+            path = "train_kstep" if turn == 2 else f"train_kstep_k{k}_m{mining}_{turn}"
+            out_dir = work / str(turn)
+            save_plots = turn == 5
+            tr, losses, step_ms, (epoch_s, eval_s, save_s), _, launches, _, _ = train_epoch(
+                torch, np, report, path, cfg, params, source,
+                {"K1": KSTEP_FORWARDS[mining], "K1_bwd": 60, "K3": 60 + 2},
+                out_dir=str(out_dir), save_plots=save_plots)
+            records = [{key: v for key, v in r.items() if key != "t"}
+                       for r in tr.writers["local"].read_all()]
+            state = tr.state.model.state_dict()
+            if tr.global_step != 60 or len(losses) != 60 or not np.isfinite(losses).all():
+                fail(f"{path}: {tr.global_step} steps, {len(losses)} losses, finite: "
+                     f"{np.isfinite(losses).all()}")
+            segment = mining // cfg.tuples_per_batch
+            groups = [0] * (60 // segment)
+            for _, _, size, at in tr.group_events:
+                if size != k:
+                    fail(f"{path}: a group of {size} steps at K = {k}")
+                groups[at // segment] += 1
+            want_groups = jax_group_counts(np, cfg, n_anchors)
+            if groups != want_groups:
+                fail(f"{path}: groups per segment {groups}, JAX's rule gives {want_groups}")
+            ref = refs.setdefault(mining, dict(losses=losses, records=records, state=state,
+                                               launches=launches, path=path))
+            if ref["path"] != path:
+                same = dict(
+                    losses=losses == ref["losses"], records=records == ref["records"],
+                    params=all(torch.equal(state[key], ref["state"][key]) for key in state),
+                    launches=launches == ref["launches"])
+                if not all(same.values()):
+                    fail(f"{path}: against {ref['path']} (K = 1) {same}")
+            if save_plots:
+                pngs = sorted(out_dir.glob("*_examples/*.png"))
+                shapes = {load_img(str(f), "cpu").shape for f in pngs}
+                if len(pngs) != 8 or shapes != {(180, 720, 3)}:
+                    fail(f"{path}: save_plots wrote {len(pngs)} triptychs of {shapes}; expected "
+                         "8 of (180, 720, 3) (4 queries in each region)")
+                plots = dict(triptychs=len(pngs), pdfs=len(list(out_dir.glob("*.pdf"))))
+            spans = tr.timer.summary()
+            per_call = [s.elapsed_time(e) for s, e in tr.step_events] + [
+                s.elapsed_time(e) / size for s, e, size, _ in tr.group_events]
+            steady = spans["segment_steady"]
+            row = dict(
+                k=k, mining_step=mining, path=path, epoch_s=epoch_s, eval_s=eval_s,
+                save_s=save_s, groups=groups,
+                dispatch_put_ms=1e3 * spans["dispatch_put"]["total_s"] / 60,
+                train_step_ms=1e3 * spans["train_step"]["total_s"] / 60,
+                segment_steady_img_s=b * steady["count"] / steady["total_s"],
+                device_step_ms_median=statistics.median(per_call),
+                device_step_ms_mean=(sum(s.elapsed_time(e) for s, e in tr.step_events)
+                                     + sum(s.elapsed_time(e) for s, e, _, _ in tr.group_events))
+                / 60,
+                launches=launches)
+            turns.append(row)
+            print(f"{path}: K = {k}, mining every {mining} anchors, groups per segment {groups}; "
+                  f"per step dispatch_put {row['dispatch_put_ms']:.3f} ms, train_step "
+                  f"{row['train_step_ms']:.3f} ms, device {row['device_step_ms_median']:.3f} ms "
+                  f"(median; mean {row['device_step_ms_mean']:.3f}); segment_steady "
+                  f"{row['segment_steady_img_s']:.1f} img/s; epoch {epoch_s:.2f} s; "
+                  f"launches {launches}" + ("" if turn < 2 and k == 1 else
+                                            f"; bit-equal to {ref['path']}"))
+            shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(work, ignore_errors=True)
+    by_k = {k: {key: statistics.mean(r[key] for r in turns[1:] if r["k"] == k)
+                for key in ("dispatch_put_ms", "train_step_ms", "segment_steady_img_s",
+                            "device_step_ms_median")} for k in sorted(set(KSTEP_TURNS))}
+    seconds = time.perf_counter() - t_phase
+    print(f"train_kstep: K = 2 and 16 bit-equal to K = 1 (losses, parameters, metrics "
+          f"records, launches), groups as JAX's rule; {len(digests['labels'])} label digests "
+          f"equal without OpenCV, save_plots wrote {plots}; means of the turns by K: "
+          + "; ".join(f"K={k}: put {v['dispatch_put_ms']:.3f} ms, step {v['train_step_ms']:.3f} "
+                      f"ms, device {v['device_step_ms_median']:.3f} ms, steady "
+                      f"{v['segment_steady_img_s']:.1f} img/s" for k, v in by_k.items())
+          + f"; phase {seconds:.1f} s")
+    report["train_kstep"] = dict(turns=turns, by_k=by_k, plots=plots,
+                                 label_digests=len(digests["labels"]), seconds=seconds)
+
+
+# the bench's toy city, cut from JAX's default 600 poses (300 steps an epoch)
+# to 300 (150 steps) to keep the script inside its time limit
+BENCH_POINTS = 300
+BENCH_TRAIN_RUNS = (("sync", []), ("async", ["--async_mining"]), ("no_cache", ["--no_cache"]),
+                    ("k16", ["--steps_per_dispatch", "16"]))
 
 
 def bench_train_launches(cfg, num_points, scan_iters):
@@ -2560,22 +2753,22 @@ def bench_train_launches(cfg, num_points, scan_iters):
 
 
 def phase_bench_train(torch, np, report, shared):
-    """``cli bench --train`` at JAX's defaults (600 poses, 2 tuples, 50 device
-    steps) three ways: synchronous mining, --async_mining and --no_cache,
-    in one fresh temporary directory (the first run builds the decoded
-    cache, the second reads it). Each run's JSON line is printed; every
-    number must be finite and with_mining_step_ms at least 0.9x
-    sustained_step_ms; K1 and its backward launch as the runs' steps,
-    refreshes and evals call them, K3 never (JAX's bench trains the plain
-    wms)."""
+    """``cli bench --train`` at JAX's defaults (2 tuples, 50 device steps)
+    but BENCH_POINTS poses, four ways: synchronous mining, --async_mining, --no_cache and
+    --steps_per_dispatch 16 (JAX's recommended K), in one fresh temporary
+    directory (the first run builds the decoded cache, the others read it).
+    Each run's JSON line is printed; every number must be finite and
+    with_mining_step_ms at least 0.9x sustained_step_ms; K1 and its backward
+    launch as the runs' steps, refreshes and evals call them, K3 never
+    (JAX's bench trains the plain wms)."""
     import contextlib
     import io
 
     from soft_contrastive_learning_torch import bench_train, cli
 
     t_phase = time.perf_counter()
-    cfg = bench_train.flagship_toy_config(2, 600)
-    expect = bench_train_launches(cfg, 600, 50)
+    cfg = bench_train.flagship_toy_config(2, BENCH_POINTS)
+    expect = bench_train_launches(cfg, BENCH_POINTS, 50)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     results = {}
@@ -2589,7 +2782,7 @@ def phase_bench_train(torch, np, report, shared):
                 log = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(log):  # the trainer's per-step lines
-                    rc = cli.main(["bench", "--train", *flags])
+                    rc = cli.main(["bench", "--train", "--num_points", str(BENCH_POINTS), *flags])
                 seconds = time.perf_counter() - t0
                 (out / f"bench_train_{name}.log").write_text(log.getvalue())
                 launches = counts.read(expect)
@@ -2603,7 +2796,9 @@ def phase_bench_train(torch, np, report, shared):
                     fail(f"bench_train {name}: with_mining_step_ms {d['with_mining_step_ms']} "
                          f"< 0.9 x sustained_step_ms {d['sustained_step_ms']}")
                 if d["async_mining"] != (name == "async") or d["decoded_cache"] != (
-                        name != "no_cache") or d["steps"] != 300:
+                        name != "no_cache") or d["steps"] != BENCH_POINTS // 2 or d[
+                        "steps_per_dispatch"] != (
+                        16 if name == "k16" else 1):
                     fail(f"bench_train {name}: the run's settings are not the ones asked: {d}")
                 print(line)
                 print(f"bench_train {name}: {seconds:.1f} s; launches {launches}")
@@ -2611,7 +2806,7 @@ def phase_bench_train(torch, np, report, shared):
         finally:
             tempfile.tempdir = saved_tmp
     seconds = time.perf_counter() - t_phase
-    print(f"bench_train: three runs in {seconds:.1f} s")
+    print(f"bench_train: {len(BENCH_TRAIN_RUNS)} runs in {seconds:.1f} s")
     report["bench_train"] = dict(runs=results, seconds=seconds)
 
 
@@ -3180,21 +3375,22 @@ HEADS_PCA_COSINE = 0.95
 # the cli runs of train_heads: (label, --reduction, --loss, steps, --train_ref_r,
 # --mining_step, --mining_cache_size, extra flags). The two streaming-PCA
 # runs read a prep tree of the dense city (1,200 poses 0.79 m apart; the
-# held-out sets are the 120-pose city's): r = 79 takes every 101st pose (12
-# anchors, 6 steps), r = 118 every 150th (4 steps). Each of their refreshes
+# held-out sets are the 120-pose city's): r = 118 takes every 150th pose (8
+# anchors, 4 steps; the 'pca' run took r = 79, 6 steps, until the script
+# neared its time limit). Each of their refreshes
 # embeds a window of HEADS_PCA_WINDOW images, more than the 513 rows that
 # fit all 512 components of the PCA and of the loss PCA (a window of fewer
 # leaves components at the 1e-12 variance clamp, which whitening divides
 # by). The 'pca' run refreshes every 3 steps: the first initializes the PCA
 # from the window, the second folds the window in, a batch at a time
-# (update_multi: 12 host SVDs); each segment's third step waits for its
+# (update_multi: 12 host SVDs); the first segment's third step waits for its
 # first step's update (lag 2). The 'none' run: one segment of 4 steps. The
 # '2fc' run reads the CLI's 120-pose toy city: r = 47 every 6th pose (10
 # steps).
 HEADS_PCA_WINDOW = 600
 HEADS_TREE_RUNS = ("pca", "none")
 HEAD_RUNS = (
-    ("pca", "pca", "incremental_residual_mm", 6, 79, 6, HEADS_PCA_WINDOW - 6, ()),
+    ("pca", "pca", "incremental_residual_mm", 4, 118, 6, HEADS_PCA_WINDOW - 6, ()),
     ("none", "none", "incremental_residual_mm", 4, 118, 8, HEADS_PCA_WINDOW - 8,
      ("--save_step", "1000")),
     ("2fc", "2fc", "wms", 10, 47, 20, 100, ("--fused_wms", "True", "--save_step", "1000")),
@@ -4314,7 +4510,8 @@ def phase_multidevice(torch, np, report, shared):
 
     import torch.distributed as dist
 
-    from soft_contrastive_learning_torch.dryrun import dryrun_multichip, record_refreshes
+    from soft_contrastive_learning_torch.dryrun import (
+        dryrun_multichip, record_refreshes, trainer_config)
     from soft_contrastive_learning_torch.launch.multihost import free_port, run_ranks
     from soft_contrastive_learning_torch.losses.registry import build_loss
     from soft_contrastive_learning_torch.models.model import EmbeddingNet
@@ -4335,7 +4532,12 @@ def phase_multidevice(torch, np, report, shared):
         md_record(report, f"multidevice_dryrun_r{r['rank']}", r["launches"])
         if min(r["launches"][k] for k in ("K1", "K1_bwd", "K2")) < 1 or r["backend"] != "gloo":
             fail(f"multidevice dryrun rank {r['rank']}: {r['backend']}, launches {r['launches']}")
+    fused_k = trainer_config(MD_RANKS).steps_per_dispatch
+    if fused_k != 2 or any(r["trainer"]["resumed_vs_uninterrupted"] != 0.0 for r in dry):
+        fail(f"multidevice dryrun: fused_k {fused_k} (JAX's is 2), resumed against the "
+             f"uninterrupted run {[r['trainer']['resumed_vs_uninterrupted'] for r in dry]}")
     out["dryrun"] = dict(seconds=time.perf_counter() - t0, backend=dry[0]["backend"],
+                         fused_k=fused_k,
                          loss=dry[0]["loss"], launches=[r["launches"] for r in dry],
                          refreshes=dry[0]["trainer"]["refresh_count"],
                          resumed_vs_uninterrupted=dry[0]["trainer"]["resumed_vs_uninterrupted"])
@@ -4954,7 +5156,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     report: dict = {}
-    phase_build(torch, report)
+    phase_seconds = report["phase_seconds"] = {}
+
+    def timed(phase, *args):  # each phase's wall seconds, printed as it ends
+        t0 = time.perf_counter()
+        phase(*args)
+        phase_seconds[phase.__name__[len("phase_"):]] = seconds = time.perf_counter() - t0
+        print(f"{phase.__name__}: {seconds:.1f} s", flush=True)
+
+    timed(phase_build, torch, report)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4964,44 +5174,45 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    phase_k1(torch, report)
-    phase_k2(torch, report)
-    phase_k3(torch, np, report)
-    phase_k1_backward(torch, report)
-    phase_k4(torch, report)
-    phase_k4_backward(torch, report)
-    phase_probe_gemm(torch, report)
-    phase_winograd_ablate(torch, report)
-    phase_probes(torch, report)
-    phase_jpeg(torch, np, report)
+    timed(phase_k1, torch, report)
+    timed(phase_k2, torch, report)
+    timed(phase_k3, torch, np, report)
+    timed(phase_k1_backward, torch, report)
+    timed(phase_k4, torch, report)
+    timed(phase_k4_backward, torch, report)
+    timed(phase_probe_gemm, torch, report)
+    timed(phase_winograd_ablate, torch, report)
+    timed(phase_probes, torch, report)
+    timed(phase_jpeg, torch, np, report)
     shared: dict = {}  # what a later phase takes from an earlier one
-    phase_serve(torch, np, report, shared)
-    phase_serve_int8(torch, np, report, shared)
-    phase_serve_winograd(torch, np, report, shared)
-    phase_train(torch, np, report, shared)
-    phase_train_winograd(torch, np, report, shared)
-    phase_train_async(torch, np, report, shared)
-    phase_bench_train(torch, np, report, shared)
-    phase_train_files(torch, np, report, shared)
-    phase_losses(torch, np, report, shared)
-    phase_train_zoo(torch, np, report, shared)
-    phase_heads(torch, np, report, shared)
-    phase_train_heads(torch, np, report, shared)
-    phase_infer(torch, np, report, shared)
-    phase_topn(torch, np, report, shared)
-    phase_topn_250k(torch, np, report, shared)
-    phase_multidevice(torch, np, report, shared)
-    phase_prep(torch, np, report, shared)
-    phase_parity(torch, np, report, shared)
-    phase_packed_stem(torch, np, report, shared)
+    timed(phase_serve, torch, np, report, shared)
+    timed(phase_serve_int8, torch, np, report, shared)
+    timed(phase_serve_winograd, torch, np, report, shared)
+    timed(phase_train, torch, np, report, shared)
+    timed(phase_train_winograd, torch, np, report, shared)
+    timed(phase_train_async, torch, np, report, shared)
+    timed(phase_train_kstep, torch, np, report, shared)
+    timed(phase_bench_train, torch, np, report, shared)
+    timed(phase_train_files, torch, np, report, shared)
+    timed(phase_losses, torch, np, report, shared)
+    timed(phase_train_zoo, torch, np, report, shared)
+    timed(phase_heads, torch, np, report, shared)
+    timed(phase_train_heads, torch, np, report, shared)
+    timed(phase_infer, torch, np, report, shared)
+    timed(phase_topn, torch, np, report, shared)
+    timed(phase_topn_250k, torch, np, report, shared)
+    timed(phase_multidevice, torch, np, report, shared)
+    timed(phase_prep, torch, np, report, shared)
+    timed(phase_parity, torch, np, report, shared)
+    timed(phase_packed_stem, torch, np, report, shared)
 
-    # launches: the count on the newest path that runs the kernel (JPEG
-    # uploads served for J1, K1 and K2, training from the fresh prep tree for
-    # K1's backward and K3, the Winograd training epoch for K4);
+    # launches: the count on the newest path that runs the kernel (the
+    # K-step epoch for K1, its backward and K3, JPEG uploads served for J1
+    # and K2, the Winograd training epoch for K4);
     # launches_by_path: each path's own count, set to 0 just before it (per
     # rank for the multidevice phase's ranks)
-    paths = ("serve_jpeg", "infer_oxs", "prep_train", "prep_infer", "multidevice_flagship_r0",
-             "multidevice_search_r0", "bench_train", "train_async",
+    paths = ("train_kstep", "serve_jpeg", "infer_oxs", "prep_train", "prep_infer",
+             "multidevice_flagship_r0", "multidevice_search_r0", "bench_train", "train_async",
              "train_heads_pca", "train_heads_2fc", "heads_search", "train_zoo_wrd", "topn_250k",
              "infer", "train_files", "train_winograd", "train", "serve_winograd", "serve_int8",
              "serve", "probes")
@@ -5026,6 +5237,7 @@ def main() -> int:
     print(json.dumps({"prep": report["prep"], "parity": report["parity"],
                       "packed_stem": report["packed_stem"]}, default=str))
     print(json.dumps({"multidevice": report["multidevice"]}, default=str))
+    print(json.dumps({"train_kstep": report["train_kstep"]}))
     print(json.dumps({"train_async": report["train_async"],
                       "bench_train": {name: {key: run[key] for key in ("seconds", "launches")}
                                       for name, run in report["bench_train"]["runs"].items()}}))
@@ -5053,7 +5265,7 @@ def main() -> int:
                           "device_ms", "host_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms")}}))
     print(json.dumps({"K4_per_shape": report["K4"]["per_shape"],
                       "K4_forward_B50": report["K4"]["forward_B50"]}))
-    print(json.dumps({"build": report["build"]}))
+    print(json.dumps({"build": report["build"], "phase_seconds": phase_seconds}))
     print(json.dumps({"P_gemm_rows": report["P_gemm"]["rows"],
                       "P6_stages_B256_conv2_2": report["P6_stages"]["stages_B256_conv2_2"],
                       "P6_stages_B64": report["P6_stages"]["stages_B64"]}))

@@ -12,11 +12,11 @@ flagship's configuration on a toy city. One JSON line:
   per step; a synchronous refresh falls between windows;
 * ``with_mining_step_ms`` / ``with_mining_imgs_per_sec``: the timed epoch's
   wall per step with only eval and save taken out, the refresh included;
-* ``device_step_ms``: K eager steps on one resident batch between two CUDA
-  events, one sync (JAX: a ``lax.scan`` of K steps in one call). The model's
-  and the optimizer's state are saved before those steps and restored after,
-  so that the timed epochs start from the state JAX's would (its scan leaves
-  ``tr.state`` alone);
+* ``device_step_ms``: ``scan_iters`` eager steps on one resident batch
+  between two CUDA events, one sync (JAX: a ``lax.scan`` of them in one
+  call). The model's and the optimizer's state are saved before those
+  steps and restored after, so that the timed epochs start from the state
+  JAX's would (its scan leaves ``tr.state`` alone);
 * ``device_busy_frac``: device_step_ms / sustained_step_ms.
 
 Sync against async mining (``async_mining``): compare the with_mining pair,
@@ -25,7 +25,12 @@ refresh's embeds (the overlap is the feature) and not a synchronous one.
 ``scalar_fetches`` / ``scalar_fetch_s`` count the trainer's fetches of the
 train losses during the timed epoch (``Trainer.scalar_fetches``).
 
-    python -m soft_contrastive_learning_torch.bench_train [--async_mining] [--no_cache]
+``steps_per_dispatch`` K groups the epochs' steps K to a dispatch
+(``train/step.py::build_train_step_scan``); ``detail.steps_per_dispatch``
+reports it.
+
+    python -m soft_contrastive_learning_torch.bench_train [--async_mining] [--no_cache] \
+        [--steps_per_dispatch K]
 """
 
 from __future__ import annotations

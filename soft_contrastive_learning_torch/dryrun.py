@@ -17,8 +17,10 @@ run_ranks``; rank i on card ``i % cards``) and runs on their mesh:
    the saved ones, the resumed run's final parameters are compared with the
    uninterrupted run's, and every parameter is finite.
 
-JAX's dryrun runs 3 with ``steps_per_dispatch=2``, its fused ``lax.scan``
-dispatch; the port refuses that setting (``core/config.py``) and runs 1.
+Part 3 trains with ``steps_per_dispatch=2``, as JAX's dryrun does: the
+items between the evals and saves run in groups of two
+(``train/step.py::build_train_step_scan``), and the line reports
+``fused_k=2``.
 The backend is NCCL when every rank has a card of its own, gloo when ranks
 share one or run on the CPU; the dryrun prints the one it chose, and the
 device stays the one asked for. Each rank checks that its parameters are
@@ -142,9 +144,9 @@ def sharded_topk(mesh, queries: np.ndarray, refs: np.ndarray, k: int):
 
 
 def trainer_config(n: int, base_lr: float = 3e-4) -> TrainConfig:
-    """JAX's dryrun trainer configuration for ``n`` ranks, with
-    ``steps_per_dispatch`` 1: 8 images a tuple, the fewest tuples (at least
-    2) whose images divide over the ranks, 12 steps an epoch."""
+    """JAX's dryrun trainer configuration for ``n`` ranks: 8 images a tuple,
+    the fewest tuples (at least 2) whose images divide over the ranks, 12
+    steps an epoch, two steps a dispatch."""
     tpb = max(2, n // math.gcd(n, 8))
     return TrainConfig(
         model=ModelConfig(vlad_cores=8, reduction="none", image_height=32, image_width=32,
@@ -153,7 +155,7 @@ def trainer_config(n: int, base_lr: float = 3e-4) -> TrainConfig:
                            hard_positives_per_tuple=1, hard_negatives_per_tuple=1),
         loss=LossConfig(name="wms"), tuples_per_batch=tpb, max_epoch=1, base_lr=base_lr,
         mining_step=4, mining_cache_size=8, save_step=8, eval_step=6, num_eval_queries=2,
-        eval_ref_r=2, seed=0)
+        eval_ref_r=2, steps_per_dispatch=2, seed=0)
 
 
 def trainer_source_kwargs(cfg: TrainConfig) -> dict:
@@ -323,9 +325,9 @@ def dryrun_multichip(n: int, device: str = "cuda", base_lr: float = 3e-4,
                                 first["trainer"]["resumed_digest"])):
             if got != want:
                 raise RuntimeError(f"rank {r['rank']}'s {key} parameters differ from rank 0's")
-    tm = first["trainer"]
+    tm, cfg = first["trainer"], trainer_config(n)
     print(f"dryrun_multichip({n}): loss={first['loss']:.4f} (pooled step), step={first['step']}, "
           f"sharded-topk ok, trainer(mining_refreshes={tm['refresh_count']}, "
-          f"resume@{trainer_config(n).save_step}->{tm['resumed_steps']}, "
+          f"fused_k={cfg.steps_per_dispatch}, resume@{cfg.save_step}->{tm['resumed_steps']}, "
           f"{eval_summary(tm['series'])}) ok, backend {backend}, ranks bit-equal")
     return results

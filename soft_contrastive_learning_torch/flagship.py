@@ -13,8 +13,9 @@ the float path on the same parameters: mean descriptor cosine above
 ``SERVING_BATCH`` and ``BF16_CONFIRM_BATCH`` are JAX's constants, kept so
 that the benchmark asks the same configurations; where the card's own batch
 knee lies is an open question of the port's PERF.md. Not ported:
-``SERVING_COMPILER_OPTIONS`` (a TPU compiler flag) and
-``save_trained_params`` (an export tool of the JAX training runs).
+``SERVING_COMPILER_OPTIONS`` (a TPU compiler flag). ``save_trained_params``
+writes JAX's float16 artifact from a port's parameters; it takes its path
+(JAX's defaults to the committed artifact, which stays the JAX package's).
 """
 
 from __future__ import annotations
@@ -52,6 +53,33 @@ def calibration_images(cfg: ModelConfig, n: int = 8) -> np.ndarray:
     JAX's values."""
     return (np.random.default_rng(0)
             .random((n, cfg.image_height, cfg.image_width, 3), np.float32) * 255.0)
+
+
+def save_trained_params(params: Dict[str, torch.Tensor], path: str) -> None:
+    """Export an EmbeddingNet state_dict as JAX's float16 npz artifact
+    (``np.savez_compressed``, flax keys and layouts: what both packages'
+    ``load_trained_params`` read). float16 halves the artifact; the int8
+    gate compares the quantized path with the float path on the same loaded
+    parameters, so the rounding cancels out of it. A leaf that is not finite
+    or overflows float16 (|v| > 65504 casts to inf) is refused, with JAX's
+    messages: the loader's key and shape checks would pass such a file."""
+    import os
+
+    from soft_contrastive_learning_torch.models.weights import flax_from_params
+
+    flat = {}
+    for k, v in flax_from_params(params).items():
+        if not np.isfinite(v).all():
+            raise ValueError(f"non-finite values in param {k!r}; not exporting")
+        with np.errstate(over="ignore"):  # overflow is detected and raised below
+            f16 = v.astype(np.float16)
+        if not np.isfinite(f16).all():
+            raise ValueError(
+                f"param {k!r} overflows float16 storage "
+                f"(max |v| = {np.abs(v).max():.4g} > 65504); not exporting")
+        flat[k] = f16
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
 
 
 def flagship_params(cfg: ModelConfig) -> Tuple[Dict[str, torch.Tensor], str]:

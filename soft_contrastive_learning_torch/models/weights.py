@@ -104,6 +104,21 @@ def params_from_flax(
     return state
 
 
+def flax_from_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """An EmbeddingNet state_dict -> flat flax params (slash keys, HWIO
+    kernels, a dense kernel (in, out)) as float32 numpy: the inverse of
+    ``params_from_flax``."""
+    flat = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        t = t.detach().float().cpu()
+        if parts[-1] == "weight":  # OIHW -> HWIO; a dense (out, in) -> (in, out)
+            t = t.permute(2, 3, 1, 0) if t.ndim == 4 else t.T
+            parts[-1] = "kernel"
+        flat["/".join(parts)] = np.ascontiguousarray(t.numpy())
+    return flat
+
+
 def load_trained_params(
     path: Optional[str | Path] = None, cfg: Optional[ModelConfig] = None
 ) -> Dict[str, torch.Tensor]:

@@ -111,6 +111,17 @@ def shard_batch(batch: Any, mesh: Optional[Mesh]) -> Any:
     return {k: v[mesh.rows(len(v))] if k in PER_IMAGE_KEYS else v for k, v in batch.items()}
 
 
+def shard_batch_stacked(batch: Dict[str, Any], mesh: Optional[Mesh]) -> Dict[str, Any]:
+    """``shard_batch`` for the K-step dispatch, whose leaves are stacked to
+    (K, B, ...): this rank's rows along axis 1 of the per-image leaves,
+    every other leaf whole. JAX's ``shard_batch_stacked`` keeps the scan
+    axis whole too."""
+    if mesh is None or mesh.size == 1:
+        return batch
+    return {k: v[:, mesh.rows(v.shape[1])] if k in PER_IMAGE_KEYS else v
+            for k, v in batch.items()}
+
+
 def _wire(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The tensor a collective takes: gloo's on the host."""
     return x.cpu() if mesh.backend == "gloo" and x.is_cuda else x

@@ -19,6 +19,7 @@ primary's writers write.
 
 from __future__ import annotations
 
+import importlib.util
 import os
 from typing import Dict
 
@@ -96,18 +97,25 @@ class EvalHooks:
         t.writers[mode].scalars(scalars, global_step)
         t.log(f"[{mode}] localization @{global_step}: {scalars}")
         if t.save_plots:
-            for rad, bundle in curves.items():
-                save_curve_plot(
-                    bundle, rad, f"{mode} epoch {epoch}",
-                    os.path.join(t.out_dir, f"{mode}_{epoch:02d}_{global_step}_{rad}.pdf"))
+            # the curve PDFs need matplotlib, which a host may lack (the card's
+            # machine does): there they are skipped, said so, and the
+            # triptychs, which need nothing, are written all the same
+            if importlib.util.find_spec("matplotlib") is None:
+                t.log("tolerance-curve PDFs skipped: matplotlib is not installed")
+            else:
+                for rad, bundle in curves.items():
+                    save_curve_plot(
+                        bundle, rad, f"{mode} epoch {epoch}",
+                        os.path.join(t.out_dir, f"{mode}_{epoch:02d}_{global_step}_{rad}.pdf"))
             self.save_triptychs(mode, epoch, global_step, query_meta, q_idx, ref_meta,
                                 latent_idx, opt_idx, query_xy, ref_xy)
         return scalars
 
     def save_triptychs(self, mode, epoch, global_step, query_meta, q_idx, ref_meta,
                        latent_idx, opt_idx, query_xy, ref_xy, num_examples: int = 10) -> None:
-        """Query / retrieved / optimal image triptychs as PNGs (needs
-        OpenCV; taken only with ``save_plots``)."""
+        """Query / retrieved / optimal image triptychs as PNGs, labelled by
+        ``utils/cv.py::put_text`` (OpenCV's pixels from a committed table;
+        taken only with ``save_plots``)."""
         from soft_contrastive_learning_torch.utils.cv import merge_images, put_text
         from soft_contrastive_learning_torch.utils.io import save_img
 

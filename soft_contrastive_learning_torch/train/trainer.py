@@ -1,6 +1,6 @@
 """The training loop, the counterpart of
-``soft_contrastive_learning_tpu/train/trainer.py`` with the single-step path
-of ``train/segment.py::run_segment``.
+``soft_contrastive_learning_tpu/train/trainer.py`` with
+``train/segment.py::run_segment``.
 
 Per epoch: the source's shuffled metadata and anchors; the uint8 image set
 resident on the device (``data/device_pool.py``) when it is on and fits
@@ -25,6 +25,12 @@ before an eval so that the records stay in order, and written as JSONL
 with ``global_step`` counted from 1; ``scalar_fetches`` and
 ``scalar_fetch_s`` count those fetches and their seconds (JAX's
 ``AsyncScalarLogger`` statistics; the port has no such thread).
+With ``steps_per_dispatch`` K > 1 the segment's items run in groups of K
+through ``train_step_scan`` (``train/step.py::build_train_step_scan``),
+formed as JAX's ``run_segment`` forms them (``_run_segment``): an item that
+hosts an eval or a save never sits inside a group, so a checkpoint falls
+between dispatches and a resume lands where a K = 1 run's would; every step
+gets its own record, so ``metrics_local.jsonl`` is the same file at any K.
 Without the device pool (the host-fed path) a ``Prefetcher`` thread samples
 the segment's batches in step order and decodes their images on the
 trainer's 8-thread pool (``_pool``), up to two batches ahead of the card, as
@@ -54,9 +60,10 @@ see.
 ``timer`` (``core/logging.py::StepTimer``) holds JAX's spans, host clock,
 no sync of their own: ``pool_build``, ``mining_refresh`` (a synchronous
 refresh), ``mining_refresh_async`` (the worker's), ``host_build`` (a
-batch's sampling, and its decode on the host-fed path), ``data_wait`` (the
-host-fed path's wait for it), ``dispatch_put`` (its copy to the card and the
-PCA feeds), ``train_step`` (the step's launch), ``pca_update``,
+batch's sampling, and its decode on the host-fed path; a group's stacking),
+``data_wait`` (the host-fed path's wait for it), ``dispatch_put`` (its copy
+to the card and the PCA feeds; a group's one transfer set), ``train_step``
+(the step's launch; a group's K steps), ``pca_update``,
 ``ckpt_save``, ``eval_loss``, ``eval_localization``, and ``segment_steady``:
 each segment's window between a device sync at its start and one at its
 end, the in-segment eval and save spans (``EVAL_SAVE_SPANS``) taken out,
@@ -116,7 +123,12 @@ from soft_contrastive_learning_torch.data.pipeline import (
 from soft_contrastive_learning_torch.launch.multihost import is_primary
 from soft_contrastive_learning_torch.losses.registry import build_loss
 from soft_contrastive_learning_torch.models.model import EmbeddingNet, init_params
-from soft_contrastive_learning_torch.parallel.mesh import Mesh, barrier, shard_batch
+from soft_contrastive_learning_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    shard_batch,
+    shard_batch_stacked,
+)
 from soft_contrastive_learning_torch.pca.async_updater import AsyncPCAUpdater
 from soft_contrastive_learning_torch.pca.incremental import StreamingPCA
 from soft_contrastive_learning_torch.sampling.tuples import TupleSampler
@@ -129,8 +141,10 @@ from soft_contrastive_learning_torch.train.step import (
     build_embed_step,
     build_eval_loss_step,
     build_train_step,
+    build_train_step_scan,
     init_train_state,
 )
+from soft_contrastive_learning_torch.train.schedule import learning_rate
 from soft_contrastive_learning_torch.utils.meta import get_xy, get_yaw, image_keys
 
 # the spans that the steady windows and bench_train's with_mining leave out
@@ -149,7 +163,7 @@ class Trainer:
     """``params``: an initial ``EmbeddingNet`` state_dict (for example
     ``models/weights.py::load_trained_params``); default: a fresh
     ``init_params`` draw from ``cfg.seed``. ``save_plots``: the evals also
-    write tolerance-curve PDFs (matplotlib) and triptych PNGs (OpenCV).
+    write tolerance-curve PDFs (matplotlib) and triptych PNGs.
     ``mesh``: this rank's mesh of a data-parallel run (module docstring);
     the trainer runs on its device, whatever ``device`` says. On more than
     one rank it turns on ``torch.backends.cudnn.deterministic`` for the
@@ -191,6 +205,15 @@ class Trainer:
         loss_fn = build_loss(cfg.loss, cfg.tuples, cfg.tuples_per_batch)
         self.train_step = build_train_step(cfg, loss_fn, mesh=mesh)
         self.train_step_pooled = build_train_step(cfg, loss_fn, image_pool=True, mesh=mesh)
+        # the K-step dispatch (steps_per_dispatch > 1), as JAX builds it: not
+        # where host state is fed back every step; eval and save items, and
+        # stragglers, take the single steps above
+        self.train_step_scan = self.train_step_scan_pooled = None
+        if cfg.steps_per_dispatch > 1 and not cfg.loss.incremental \
+                and cfg.model.reduction != "pca":
+            self.train_step_scan = build_train_step_scan(cfg, loss_fn, mesh=mesh)
+            self.train_step_scan_pooled = build_train_step_scan(cfg, loss_fn, image_pool=True,
+                                                                mesh=mesh)
         self.eval_loss_step = build_eval_loss_step(cfg, model, loss_fn, mesh=mesh)
         self.embed_step = build_embed_step(model, mesh=mesh)
         # None until built; False = unavailable (over the byte budget)
@@ -480,10 +503,18 @@ class Trainer:
         async refresh, spawned once the segment is set up, inside the timed
         window (the overlap is what it measures); from there every way out
         joins the worker, the unwind's cancelling it. Returns the flag for
-        the next segment (False once an item was reached)."""
+        the next segment (False once an item was reached).
+
+        With ``steps_per_dispatch`` K > 1 the items are grouped as JAX's
+        ``run_segment`` groups them: after an item's eval and save, a group
+        of K forms only when the K-1 items after it exist and host neither
+        an eval nor a save; a faulty item ends the group, whose items then
+        run singly, and is handled after it; stragglers run singly."""
         cfg = self.cfg
         timer = self.timer
         pool_rows = self._pool_rows
+        k_steps = cfg.steps_per_dispatch
+        grouped = self.train_step_scan is not None  # built only for K > 1
         updater = None
         if cfg.async_pca and (self.pca is not None or self.loss_pca is not None):
             updater = AsyncPCAUpdater(self.pca, self.loss_pca)
@@ -500,6 +531,25 @@ class Trainer:
 
             prefetch = Prefetcher(build, len(seg_steps) - offset)
             batches = iter(prefetch)
+
+        def take(i: int):
+            """Item ``i``: (sample, host batch), or None for a faulty batch."""
+            if prefetch is not None:
+                with timer.span("data_wait"):
+                    sample, host_batch = next(batches)
+            else:
+                with timer.span("host_build"):
+                    sample = self._sample(sampler, anchor_indices, int(seg_steps[i]))
+                    host_batch = None if sample is None else {
+                        "image_idx": pool_rows[sample.indices.reshape(-1)],
+                        "epoch": np.float32(epoch), **sample.payload}
+            return None if sample is None else (sample, host_batch)
+
+        def boundary(i: int) -> bool:
+            """Does item ``i`` host an eval or a save (and so run singly)?"""
+            s = int(seg_steps[i])
+            return s % cfg.eval_step == 0 or s % cfg.save_step == 0
+
         records = []  # (global_step, metrics: device losses and the lr)
         done = offset
         # the steady window: from a sync here to one after the loop, the
@@ -509,7 +559,9 @@ class Trainer:
         try:
             if spawn_args is not None:
                 self._spawn_mining_refresh(*spawn_args)
-            for i in range(offset, len(seg_steps)):
+            pending = False  # a faulty item ended the last group
+            while done < len(seg_steps):
+                i = done
                 s = int(seg_steps[i])
                 self._seg_ctx["consumed"] = i  # items behind us; a resume trains this one
                 side_effects, suppress_first = not suppress_first, False
@@ -519,35 +571,27 @@ class Trainer:
                 if side_effects and s % cfg.save_step == 0:
                     self._write_train_metrics(records)
                     self._save("part", self.global_step)
-                if prefetch is not None:
-                    with timer.span("data_wait"):
-                        sample, host_batch = next(batches)
-                else:
-                    with timer.span("host_build"):
-                        sample = self._sample(sampler, anchor_indices, s)
+                item = None if pending else take(i)
+                pending = False
                 done = i + 1
-                if sample is None:
+                if item is None:
                     self.log("Faulty training batch... skipping.")
                     continue
-                with timer.span("dispatch_put"):
-                    snaps = updater.feed_states() if updater is not None else None
-                    if prefetch is None:
-                        batch = self._augment_batch(self._to_device(
-                            {"image_idx": pool_rows[sample.indices.reshape(-1)],
-                             "epoch": np.float32(epoch), **sample.payload}), snaps)
-                    else:
-                        batch = self._augment_batch(self._to_device(host_batch), snaps)
-                with timer.span("train_step"):
-                    if prefetch is None:
-                        self.state, metrics = self.train_step_pooled(self.state, batch,
-                                                                     self._image_pool.array)
-                    else:
-                        self.state, metrics = self.train_step(self.state, batch)
-                self.used_images.update(sample.used_indices)
-                self.global_step += 1
-                with timer.span("pca_update"):
-                    self._update_pca(metrics.pop("pca_in", None), metrics.pop("loss_pca_in", None))
-                records.append((self.global_step, metrics))
+                group = [item]
+                if grouped and all(j < len(seg_steps) and not boundary(j)
+                                   for j in range(i + 1, i + k_steps)):
+                    while len(group) < k_steps:
+                        nxt = take(i + len(group))
+                        if nxt is None:
+                            pending = True  # handled after the group
+                            break
+                        group.append(nxt)
+                if len(group) == k_steps and grouped:
+                    self._dispatch_group(epoch, group, records)
+                else:
+                    for one in group:
+                        self._dispatch_single(one, updater, records)
+                done = i + len(group)
         except BaseException:
             if updater is not None:  # the original error goes on; the workers' are logged
                 try:
@@ -570,6 +614,49 @@ class Trainer:
                   time.perf_counter() - t0 - (self._span_total(*EVAL_SAVE_SPANS) - excluded0),
                   count=done - offset)
         return suppress_first
+
+    def _dispatch_single(self, item, updater, records: list) -> None:
+        """One step on one item: its copy to the card (with the PCA feeds),
+        the step, its PCA updates and its record."""
+        sample, host_batch = item
+        with self.timer.span("dispatch_put"):
+            snaps = updater.feed_states() if updater is not None else None
+            batch = self._augment_batch(self._to_device(host_batch), snaps)
+        with self.timer.span("train_step"):
+            if self._pool_rows is not None:
+                self.state, metrics = self.train_step_pooled(self.state, batch,
+                                                             self._image_pool.array)
+            else:
+                self.state, metrics = self.train_step(self.state, batch)
+        self.used_images.update(sample.used_indices)
+        self.global_step += 1
+        with self.timer.span("pca_update"):
+            self._update_pca(metrics.pop("pca_in", None), metrics.pop("loss_pca_in", None))
+        records.append((self.global_step, metrics))
+
+    def _dispatch_group(self, epoch: int, items: list, records: list) -> None:
+        """K steps in one dispatch (``build_train_step_scan``): the K host
+        batches stacked (``host_build``), one transfer set (``dispatch_put``),
+        the K steps (``train_step``), then a record per step, in order."""
+        with self.timer.span("host_build"):
+            stacked = {k: np.stack([batch[k] for _, batch in items]) for k in items[0][1]}
+        with self.timer.span("dispatch_put"):
+            batch = {k: v if k == "epoch" else
+                     torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                     for k, v in shard_batch_stacked(stacked, self.mesh).items()}
+        with self.timer.span("train_step"):
+            if self._pool_rows is not None:
+                self.state, metrics = self.train_step_scan_pooled(self.state, batch,
+                                                                  self._image_pool.array)
+            else:
+                self.state, metrics = self.train_step_scan(self.state, batch)
+        lr = learning_rate(self.cfg, float(np.float32(epoch)))  # the single step's float
+        for i, (sample, _) in enumerate(items):
+            self.used_images.update(sample.used_indices)
+            self.global_step += 1
+            records.append((self.global_step, {
+                **{k: v[i] for k, v in metrics.items() if k != "learning_rate"},
+                "learning_rate": lr}))
 
     def _update_pca(self, pca_in, loss_pca_in) -> None:
         """Fold a step's PCA feeds in: through the segment's updater, or on

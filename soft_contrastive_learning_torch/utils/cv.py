@@ -6,14 +6,18 @@ plots' ``put_text`` and ``merge_images``). JAX resizes with
 ``cv2.resize(INTER_LINEAR)``; the port resizes with ``resize_linear``, which
 returns OpenCV's pixels (held equal to ``cv2.resize`` by
 ``tests/test_torch_cv_resize.py``) in integer arithmetic on any device, so
-it needs no OpenCV. ``put_text`` still draws with OpenCV's Hershey font and
-raises where OpenCV is missing.
+it needs no OpenCV. ``put_text`` draws OpenCV's pixels from a committed
+glyph table (``assets/hershey/``, written by
+``scripts/make_hershey_glyphs.py``), held equal to ``cv2.putText`` by
+``tests/test_torch_put_text.py``, so it needs no OpenCV either.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+import os
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -25,13 +29,23 @@ _COEF_SCALE = 1 << _COEF_BITS
 _DBL_EPSILON = float(np.finfo(np.float64).eps)
 
 
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            "drawing text on an image needs OpenCV (cv2), which is not installed") from e
-    return cv2
+# put_text's table: per printable ASCII character, the coverage cv2.putText
+# draws for it alone (FONT_HERSHEY_SIMPLEX, scale 1, thickness 2; OpenCV 5
+# antialiases), its offset from the text origin and the character's advance
+_GLYPH_TABLE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "assets", "hershey", "glyphs.npz")
+_TEXT_ORIGIN = (10, 35)
+
+
+@functools.lru_cache(maxsize=1)
+def _glyphs() -> Dict[int, Tuple[np.ndarray, int, int, int]]:
+    glyphs = {}
+    with np.load(_GLYPH_TABLE) as z:
+        for code in range(32, 127):
+            cover = z[f"g{code}"]
+            cover.flags.writeable = False  # shared by every call
+            glyphs[code] = (cover, *map(int, z["meta"][code - 32]))
+    return glyphs
 
 
 def _taps(n_in: int, n_out: int, scale: float, device, columns: bool
@@ -188,9 +202,34 @@ def normalize_geometry(
 
 def put_text(text: str, image: np.ndarray, scale: float = 1,
              color: Tuple[int, int, int] = (0, 255, 0)) -> np.ndarray:
-    """Overlay a label in the top-left corner (OpenCV's Hershey font)."""
-    cv2 = _cv2()
-    return cv2.putText(image, text, (10, 35), cv2.FONT_HERSHEY_SIMPLEX, scale, color, 2)
+    """Overlay a label in the top-left corner of an (H, W, 3) uint8 image,
+    in place, and return the image: JAX's ``cv2.putText(image, text, (10,
+    35), FONT_HERSHEY_SIMPLEX, scale, color, 2)``, drawn from the glyph
+    table. The characters are drawn
+    one after the other, character i at the origin plus the advances of the
+    characters before it, clipped to the image: a pixel under coverage a
+    becomes ``(v * (255 - a) + c * a + 127) // 255`` of its value v and the
+    colour c, as OpenCV blends. The table holds scale 1 and printable ASCII
+    only: anything else raises ``ValueError``."""
+    if scale != 1:
+        raise ValueError(f"put_text draws at scale 1 only (the glyph table's), not {scale}")
+    bad = sorted({ch for ch in text if not 32 <= ord(ch) <= 126})
+    if bad:
+        raise ValueError(f"put_text draws printable ASCII only, not {bad}")
+    value = np.asarray(color, dtype=np.int32)
+    h, w = image.shape[:2]
+    x = _TEXT_ORIGIN[0]
+    for ch in text:
+        cover, dx, dy, advance = _glyphs()[ord(ch)]
+        top, left = _TEXT_ORIGIN[1] + dy, x + dx
+        y0, y1 = max(top, 0), min(top + cover.shape[0], h)
+        x0, x1 = max(left, 0), min(left + cover.shape[1], w)
+        if y1 > y0 and x1 > x0:
+            a = cover[y0 - top : y1 - top, x0 - left : x1 - left, None].astype(np.int32)
+            region = image[y0:y1, x0:x1]
+            region[...] = (region.astype(np.int32) * (255 - a) + value * a + 127) // 255
+        x += advance
+    return image
 
 
 def merge_images(left: np.ndarray, right: np.ndarray) -> np.ndarray:

@@ -104,30 +104,44 @@ def test_cli_bench_train_passes_its_flags(monkeypatch, capsys):
     monkeypatch.setattr(bench_train, "run", fake_run)
     assert cli.main(["bench", "--train", "--tuples_per_batch", "1", "--num_points", "40",
                      "--no_cache", "--async_mining", "--device", "cpu"]) == 0
-    assert seen == dict(tuples_per_batch=1, num_points=40, use_cache=False, async_mining=True,
-                        device="cpu")
+    assert seen == dict(tuples_per_batch=1, num_points=40, use_cache=False, steps_per_dispatch=1,
+                        async_mining=True, device="cpu")
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["value"] == 1.0
 
 
-def test_cli_bench_refuses_steps_per_dispatch():
-    """The K-step dispatch is not ported: refused with the reason, with and
-    without --train; the configuration refuses it too."""
-    for flags in (["--train"], []):
-        with pytest.raises(SystemExit, match="steps_per_dispatch 2: .*not ported"):
-            cli.main(["bench", *flags, "--steps_per_dispatch", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        bench_train.flagship_toy_config(2, 600, steps_per_dispatch=2)
+def test_cli_bench_refuses_steps_per_dispatch(monkeypatch, capsys):
+    """--steps_per_dispatch is a flag of the train-loop benchmark: refused
+    without --train, with the reason; with it, K reaches the benchmark
+    (JAX's ``bench_train.py`` flag), whose configuration takes it."""
+    with pytest.raises(SystemExit, match="steps_per_dispatch.*pass --train"):
+        cli.main(["bench", "--steps_per_dispatch", "2", "--device", "cpu"])
+    seen = {}
+
+    def fake_run(**kw):
+        seen.update(kw)
+        return {"metric": "train_loop_throughput", "value": 1.0, "unit": "images/sec/chip",
+                "detail": {"steps_per_dispatch": kw["steps_per_dispatch"]}}
+
+    monkeypatch.setattr(bench_train, "run", fake_run)
+    assert cli.main(["bench", "--train", "--steps_per_dispatch", "16", "--device", "cpu"]) == 0
+    assert seen["steps_per_dispatch"] == 16
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["detail"]["steps_per_dispatch"] == 16
+    assert bench_train.flagship_toy_config(2, 600, steps_per_dispatch=16).steps_per_dispatch == 16
 
 
 def test_the_flagship_configuration_is_jax_s():
     from soft_contrastive_learning_tpu import bench_train as jax_bench_train
 
-    ours = json.loads(bench_train.flagship_toy_config(2, 600, async_mining=True).to_json())
-    theirs = json.loads(jax_bench_train.flagship_toy_config(2, 600, async_mining=True).to_json())
-    for key in ("tuples_per_batch", "max_epoch", "mining_step", "mining_cache_size",
-                "eval_step", "save_step", "num_eval_queries", "eval_ref_r", "train_ref_r",
-                "steps_per_dispatch", "async_mining", "seed", "base_lr"):
-        assert ours[key] == theirs[key], key
+    for k in (1, 16):  # 16: JAX's recommended K (docs/TRAINBENCH.md)
+        ours = json.loads(bench_train.flagship_toy_config(2, 600, k, async_mining=True).to_json())
+        theirs = json.loads(
+            jax_bench_train.flagship_toy_config(2, 600, k, async_mining=True).to_json())
+        for key in ("tuples_per_batch", "max_epoch", "mining_step", "mining_cache_size",
+                    "eval_step", "save_step", "num_eval_queries", "eval_ref_r", "train_ref_r",
+                    "steps_per_dispatch", "async_mining", "seed", "base_lr"):
+            assert ours[key] == theirs[key], key
+        assert ours["steps_per_dispatch"] == k
     for key in ("image_height", "image_width", "vlad_cores", "compute_dtype", "reduction"):
         assert ours["model"][key] == theirs["model"][key], key
     assert ours["loss"]["name"] == theirs["loss"]["name"] == "wms"

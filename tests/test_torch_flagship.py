@@ -172,3 +172,55 @@ def test_benchmark_fails_when_the_int8_kernel_fails(monkeypatch):
     monkeypatch.setattr(quant, "int8_conv", broken)
     with pytest.raises(RuntimeError, match="Q1 int8_conv: launch failed"):
         benchmark.run(device="cpu", configs=[("int8-ptq", 2, 1), ("bf16", 2, 1)])
+
+
+def test_save_trained_params_round_trips_through_jax_s_loader(tmp_path):
+    """The port's ``save_trained_params`` writes JAX's float16 artifact: JAX's
+    ``load_trained_params`` reads every leaf back as the float16 rounding
+    of the port's parameter, bit for bit, and the port's loader reads the
+    same values; the file's arrays equal those JAX's own exporter writes
+    for the same parameters."""
+    import jax
+
+    from soft_contrastive_learning_torch.models.model import init_params
+    from soft_contrastive_learning_torch.models.weights import flax_from_params
+
+    cfg = flagship.flagship_model_config()
+    params = init_params(cfg, 7)
+    path = str(tmp_path / "trained.npz")
+    flagship.save_trained_params(params, path)
+    flat = flax_from_params(params)
+    loaded = jax_flagship.load_trained_params(jax_flagship.flagship_model_config(), path)
+    got = {"/".join(str(p.key) for p in kp): np.asarray(leaf)
+           for kp, leaf in jax.tree_util.tree_flatten_with_path(loaded)[0]}
+    assert set(got) == set(flat)
+    for key, value in flat.items():
+        assert got[key].dtype == np.float32
+        np.testing.assert_array_equal(got[key], value.astype(np.float16).astype(np.float32))
+    port = load_trained_params(path, cfg)
+    assert all(torch.equal(port[k], params[k].to(torch.float16).float()) for k in params)
+    jax_path = str(tmp_path / "jax.npz")
+    jax_flagship.save_trained_params(loaded, jax_path)
+    with np.load(path) as ours, np.load(jax_path) as theirs:
+        assert set(ours.files) == set(theirs.files)
+        assert all(ours[k].dtype == np.float16 and np.array_equal(ours[k], theirs[k])
+                   for k in ours.files)
+
+
+def test_save_trained_params_refuses_nonfinite_and_overflowing_leaves(tmp_path):
+    """As JAX's (``tests/test_flagship.py``): a NaN/Inf leaf, or a value
+    that overflows float16, fails at export with JAX's message, and no file
+    is written."""
+    from soft_contrastive_learning_torch.models.model import init_params
+
+    params = init_params(flagship.flagship_model_config(), 0)
+    first = next(iter(params))
+    for value, match in ((float("inf"), "non-finite"), (float("nan"), "non-finite"),
+                         (70000.0, "overflows float16")):
+        bad = dict(params)
+        bad[first] = params[first].clone()
+        bad[first].view(-1)[0] = value
+        path = tmp_path / "x.npz"
+        with pytest.raises(ValueError, match=match):
+            flagship.save_trained_params(bad, str(path))
+        assert not path.exists()

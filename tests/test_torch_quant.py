@@ -405,30 +405,33 @@ def test_cli_quant_refuses_random_weights_and_writes_jaxs_scales(tmp_path, capsy
         main(argv + ["--checkpoint", str(TRAINED_PARAMS_PATH)])
 
 
-def test_cli_bench_train_is_refused():
+def test_cli_bench_train_is_refused(monkeypatch):
     """``bench --train`` runs the train-loop benchmark
-    (``tests/test_torch_bench_train.py``). It is refused where it cannot
-    run: with --steps_per_dispatch other than 1 (not ported), and, without
-    a card, on its default CUDA device (no silent CPU fallback)."""
+    (``tests/test_torch_bench_train.py``), --steps_per_dispatch K included
+    (it reaches the benchmark). It is refused where it cannot run: without
+    a card, on its default CUDA device (no silent CPU fallback), at any K."""
+    from soft_contrastive_learning_torch import bench_train
     from soft_contrastive_learning_torch.cli import main
 
-    with pytest.raises(SystemExit, match="steps_per_dispatch 4: .*not ported"):
-        main(["bench", "--train", "--steps_per_dispatch", "4", "--device", "cpu"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            main(["bench", "--train"])
+        for extra in ([], ["--steps_per_dispatch", "4"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                main(["bench", "--train", *extra])
+    seen = {}
+    monkeypatch.setattr(bench_train, "run", lambda **kw: seen.update(kw) or {"value": 0.0})
+    assert main(["bench", "--train", "--steps_per_dispatch", "4", "--device", "cpu"]) == 0
+    assert seen["steps_per_dispatch"] == 4 and seen["device"] == "cpu"
 
 
 @pytest.mark.parametrize("flags", [["--tuples_per_batch", "4"], ["--num_points", "50"],
                                    ["--no_cache"], ["--steps_per_dispatch", "2"],
                                    ["--async_mining"]])
 def test_cli_bench_refuses_the_train_loop_flags(flags):
-    """The train-loop benchmark's flags are refused without --train (the
-    embed benchmark reads none of them), and --steps_per_dispatch other than
-    1 is refused with its reason whatever else is set."""
+    """The train-loop benchmark's flags, --steps_per_dispatch among them,
+    are refused without --train (the embed benchmark reads none of them)."""
     from soft_contrastive_learning_torch.cli import main
 
-    with pytest.raises(SystemExit, match=f"bench {flags[0]}.*: .*(pass --train|not ported)"):
+    with pytest.raises(SystemExit, match=f"bench {flags[0]}.*: .*pass --train"):
         main(["bench", *flags, "--device", "cpu"])
 
 
