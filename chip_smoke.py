@@ -21,7 +21,8 @@ failure:
    output by TMA stores, UTMASTG), netvlad the TMA loads; Q1's tile shapes
    per layer (ring stages, shared memory, resident weights) and Q1_stem's;
    wms must hold one kernel function (K3 is one launch), and no topk kernel
-   may spill; jpeg must hold two kernel functions (J1's two launches);
+   may spill; jpeg must hold three kernel functions (J1's IDCT, plain and
+   smoothing, and its pixel launch);
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
    plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
@@ -85,13 +86,21 @@ failure:
 12. jpeg: the committed JPEG fixtures (soft_contrastive_learning_torch/
    assets/jpeg, written by scripts/make_jpeg_fixtures.py: 4:2:0, 4:4:4,
    4:2:2, 4:4:0, 4:1:1, gray, progressive, restart intervals, 181x243, EXIF
-   orientations 2-8, Adobe RGB, a 1280x960 frame): the compiled entropy
-   decoder's coefficients equal to the plain Python decoder's, J1 bit-equal
-   to the plain pixel stage on the card and hashing to OpenCV's committed
-   digest; the refused fixtures (truncated, arithmetic, lossless, 12-bit,
-   CMYK) refused with their reasons; decode img/s of the 180x240 fixtures on
-   1 and 8 threads, J1 timed beside the plain stage and its bound at 180x240
-   and on the frame, whose host entropy decode is timed apart;
+   orientations 2-8, Adobe RGB, a 1280x960 frame; files cut short, with and
+   without an EOI marker, progressive ones smoothed, a bad Huffman code, a
+   dropped restart marker and junk before one, MJPEG frames without DHT,
+   CMYK and YCCK, SOF9/SOF10 patched and real SOF9 transcodes) in both of
+   OpenCV's modes (file: cv2.imread, buffer: cv2.imdecode): the compiled
+   entropy decoder's coefficients, tables and frame (smoothing state
+   included) equal to the plain Python decoder's, J1 bit-equal to the plain
+   pixel stage on the card and hashing to OpenCV's committed digest; where
+   OpenCV gives no image (truncated in buffer mode, lossless, 12-bit) both
+   refuse with the reason; the recorded divergence (16-bit IDCT lanes) held
+   to the plain stage only; decode img/s of the seventeen original 180x240
+   fixtures on 1 and 8 threads, J1 timed beside the plain stage and its
+   bound at 180x240 and on the frame, on CMYK and YCCK files and on
+   smoothed progressive files at both sizes, and the host entropy decode,
+   Huffman and arithmetic, at both sizes;
 13. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
    DescriptorService (batch 64): embed 512 index images, pad the index with
    seeded random unit vectors to 66,048 x 32,768 fp32 so that search takes
@@ -102,11 +111,14 @@ failure:
    search, squared distances within 1e-5 (the plain version's own fp32 error
    is printed beside), and time /search (embed of the queries and one K2
    launch); then serve_jpeg: the service over HTTP on 127.0.0.1 (port 0),
-   /embed of a 180x240 JPEG and of the 1280x960 frame (resized by
-   resize_linear), /embed_batch and /search of both: J1 6, K1 4 and K2 1
-   launches exactly,
-   the card's decode equal to the plain CPU decode, descriptors and search
-   equal to the service's on those pixels, /search of the two JPEGs timed;
+   /embed of a 180x240 JPEG, of the 1280x960 frame (resized by
+   resize_linear), of the frame without its DHT (an MJPEG frame), of a
+   YCCK, a smoothed progressive and an arithmetic-coded file, /embed_batch
+   and /search of all six: J1 18, K1 8 and K2 1 launches exactly; a
+   truncated upload answered 400 (cv2.imdecode gives no image) with no J1
+   launch; the card's decode equal to the plain CPU decode, descriptors and
+   search (the MJPEG frame's ids among them) equal to the service's on
+   those pixels, /search of the six JPEGs timed;
 14. serve_int8: the shipped int8-PTQ path (models/quant.py, flagship.py)
    at the flagship's width from the trained npz: Q1_stem (conv1_1 with the
    input's requant and 3x3 gather) against its plain version on the raw
@@ -422,9 +434,10 @@ def phase_build(torch, report):
                      f"alone ({sass})")
         if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
             fail(f"topk: a kernel spills registers: {funcs}")
-        if name == "jpeg" and len(funcs) != 2:
-            fail(f"jpeg: {len(funcs)} kernel functions, expected two (J1's IDCT and pixel "
-                 f"launches): {[f['function'] for f in funcs]}")
+        if name == "jpeg" and len(funcs) != 3:
+            fail(f"jpeg: {len(funcs)} kernel functions, expected three (J1's IDCT, plain and "
+                 f"with the block smoothing, and its pixel launch): "
+                 f"{[f['function'] for f in funcs]}")
         if name == "wms" and len(funcs) != 1:
             fail(f"wms: {len(funcs)} kernel functions, expected one (K3 is one launch): "
                  f"{[f['function'] for f in funcs]}")
@@ -684,37 +697,61 @@ def exact_search(torch, q, refs, k, rows=16384):
 JPEG_FIXTURES = Path("soft_contrastive_learning_torch/assets/jpeg")
 JPEG_RATE_DECODES = 256  # decodes per thread count of the 180x240 rate
 QUANT_JPEGS = ("c420_q95.jpg", "c444.jpg", "progressive_pil.jpg", "restart3.jpg")
+# the original 180x240 fixtures (the decode rate's files, so that the rate
+# compares across versions), and cli parity's JPEGs
+RATE_JPEGS = ("adobe_rgb.jpg", "c411.jpg", "c420_q95.jpg", "c422.jpg", "c440.jpg", "c444.jpg",
+              "gray.jpg", "orient2.jpg", "orient3.jpg", "orient4.jpg", "orient5.jpg",
+              "orient6.jpg", "orient7.jpg", "orient8.jpg", "progressive_cv2.jpg",
+              "progressive_pil.jpg", "restart3.jpg")
+PARITY_JPEGS = ("adobe_rgb.jpg", "c411.jpg", "c420_q95.jpg", "c422.jpg", "c440.jpg", "c444.jpg",
+                "frame_1280x960.jpg", "gray.jpg")
+# the files J1 and the entropy decoder are timed on beyond the 4:2:0 ones
+JPEG_TIMED = (("cmyk_180x240", "cmyk_pil.jpg"), ("ycck_420_180x240", "ycck_420.jpg"),
+              ("smoothed_180x240", "progressive_cut_2_3.jpg"),
+              ("smoothed_1280x960", "frame_progressive_cut.jpg"),
+              ("arith_180x240", "c420_q95_arith.jpg"),
+              ("arith_1280x960", "frame_1280x960_arith.jpg"))
 
 
 def jpeg_fixtures():
-    """The committed JPEG fixtures' bytes and their OpenCV digests
+    """The committed JPEG fixtures' table (per fixture and mode, OpenCV's
+    digest or the refusal's words; ``diverges``) and their bytes
     (scripts/make_jpeg_fixtures.py)."""
     table = json.loads((JPEG_FIXTURES / "digests.json").read_text())
     files = {name: (JPEG_FIXTURES / name).read_bytes()
-             for name in (*table["decoded"], *table["refused"])}
+             for name in (*table["fixtures"], *table["diverges"])}
     return table, files
 
 
 def j1_bound(common, frame):
     """J1's bound for a frame: each coefficient (2 B) and table entry (4 B)
     read once, each RGB byte written once; ~11 integer operations a sample
-    (dequantize, two IDCT passes) and ~20 a pixel (upsampling, colour),
-    counted at the fp32 rate."""
+    (dequantize, two IDCT passes), ~20 a pixel (upsampling, colour), ~10
+    more a pixel for a fourth plane (CMYK, YCCK) and ~300 a block where the
+    frame is smoothed (the estimates from 25 DC values), counted at the
+    fp32 rate."""
     blocks = frame.block_offsets()[-1]
-    nbytes = 2 * 64 * blocks + 4 * 64 * len(frame.components) + 3 * frame.height * frame.width
-    ops = 11 * 64 * blocks + 20 * frame.height * frame.width
+    nc = len(frame.components)
+    nbytes = 2 * 64 * blocks + 4 * 64 * nc + 3 * frame.height * frame.width
+    ops = 11 * 64 * blocks + (20 + 10 * (nc == 4)) * frame.height * frame.width
+    if frame.smoothing is not None:
+        ops += 300 * blocks
     return common.bound_ms(ops, nbytes)
 
 
 def phase_jpeg(torch, np, report):
-    """J1 and the compiled entropy decoder on the committed fixtures: every
-    decoded fixture's coefficients equal to the plain Python decoder's, J1
-    on the card bit-equal to the plain pixel stage on the card and hashing
-    to OpenCV's digest; each refused fixture refused with its reason. Then
-    decode img/s of the 180x240 fixtures through ``decode_img(...,
-    device="cuda")`` on 1 and 8 threads, and J1's time (CUDA events) beside
-    the plain stage's and its bound at 180x240 (4:2:0) and on the 1280x960
-    frame, whose host entropy decode is timed apart."""
+    """J1 and the compiled entropy decoder on the committed fixtures in both
+    of OpenCV's modes: every decode's coefficients, tables and frame equal
+    to the plain Python decoder's (run once a fixture, as a file: where the
+    buffer decodes too it gives the same), J1 on the card bit-equal to the
+    plain pixel stage on the card and hashing to OpenCV's digest of each
+    mode; each refusal (both decoders) with its reason; the recorded
+    divergence held to the plain stage. Then decode img/s of the original 180x240
+    fixtures through ``decode_img(..., device="cuda")`` on 1 and 8 threads,
+    and J1's time (CUDA events) beside the plain stage's and its bound at
+    180x240 (4:2:0), on the 1280x960 frame, on CMYK, YCCK and smoothed files,
+    with each file's host entropy decode (Huffman and arithmetic) timed
+    apart."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -723,36 +760,53 @@ def phase_jpeg(torch, np, report):
     from soft_contrastive_learning_torch.utils.io import decode_img
     from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients, pixels_plain
 
+    def same(a, b):
+        return (np.array_equal(a.coefs, b.coefs) and np.array_equal(a.quant, b.quant)
+                and a.frame == b.frame)
+
     t_phase = time.perf_counter()
     table, files = jpeg_fixtures()
-    for name, want in table["decoded"].items():
-        co, ref = entropy_decode(files[name], name), decode_coefficients(files[name], name)
-        if not (np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant)
-                and co.frame == ref.frame):
-            fail(f"jpeg {name}: the compiled entropy decoder parts from the plain one")
-        coefs = torch.from_numpy(co.coefs).cuda()
-        quant = torch.from_numpy(co.quant).cuda()
-        got, plain = jpeg_pixels_cuda(coefs, quant, co.frame), pixels_plain(coefs, quant, co.frame)
-        torch.cuda.synchronize()
-        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
-        if not torch.equal(got, plain) or digest != want["sha256"] \
-                or list(got.shape) != want["shape"]:
-            fail(f"jpeg {name}: J1 equal to plain {torch.equal(got, plain)}, digest "
-                 f"{digest == want['sha256']}, shape {tuple(got.shape)} vs {want['shape']}")
-    for name, reason in table["refused"].items():
-        try:
-            entropy_decode(files[name], name)
-        except ValueError as e:
-            if reason not in str(e):
-                fail(f"jpeg {name}: refused for another reason: {e}")
-        else:
-            fail(f"jpeg {name}: decoded, expected a refusal ({reason})")
-    print(f"jpeg: {len(table['decoded'])} fixtures decoded on the card bit-equal to the plain "
-          f"stage and to OpenCV's digests (OpenCV {table['opencv']}), coefficients equal to "
-          f"the plain decoder's; {len(table['refused'])} refused with their reasons")
+    decodes = refusals = 0
+    for name in (*table["fixtures"], *table["diverges"]):
+        modes = table["fixtures"].get(name, {m: {} for m in ("file", "buffer")})
+        data = files[name]
+        ref = None
+        for mode, want in modes.items():
+            if "refused" in want:
+                for decode in (entropy_decode, decode_coefficients):
+                    try:
+                        decode(data, name, mode)
+                    except ValueError as e:
+                        if want["refused"] not in str(e):
+                            fail(f"jpeg {name} ({mode}): refused for another reason: {e}")
+                    else:
+                        fail(f"jpeg {name} ({mode}): decoded, expected a refusal "
+                             f"({want['refused']})")
+                refusals += 1
+                continue
+            co = entropy_decode(data, name, mode)
+            if ref is None:
+                ref = decode_coefficients(data, name, mode)
+                coefs = torch.from_numpy(co.coefs).cuda()
+                quant = torch.from_numpy(co.quant).cuda()
+                got = jpeg_pixels_cuda(coefs, quant, co.frame)
+                plain = pixels_plain(coefs, quant, co.frame)
+                torch.cuda.synchronize()
+                if not torch.equal(got, plain):
+                    fail(f"jpeg {name}: J1 parts from the plain stage")
+                digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+            if not same(co, ref):
+                fail(f"jpeg {name} ({mode}): the compiled entropy decoder parts from the plain one")
+            if want and (digest != want["sha256"] or list(got.shape) != want["shape"]):
+                fail(f"jpeg {name} ({mode}): digest {digest == want['sha256']}, shape "
+                     f"{tuple(got.shape)} vs {want['shape']}")
+            decodes += 1
+    print(f"jpeg: {len(table['fixtures'])} fixtures in both modes, {decodes} decodes on the card "
+          f"bit-equal to the plain stage and (but {len(table['diverges'])} recorded "
+          f"divergence) to OpenCV {table['opencv']}'s digests, coefficients equal to the plain "
+          f"decoder's; {refusals} refusals with their reasons")
 
-    small = [n for n, v in table["decoded"].items() if v["shape"][:2] in ([180, 240], [240, 180])]
-    work = [files[small[i % len(small)]] for i in range(JPEG_RATE_DECODES)]
+    work = [files[RATE_JPEGS[i % len(RATE_JPEGS)]] for i in range(JPEG_RATE_DECODES)]
     rates = {}
     for threads in (1, 8):
         with ThreadPoolExecutor(max_workers=threads) as pool:
@@ -761,10 +815,11 @@ def phase_jpeg(torch, np, report):
             list(pool.map(lambda d: decode_img(d, "r", "cuda"), work))
             rates[threads] = len(work) / (time.perf_counter() - t0)
     by_shape = {}
-    for label, name in (("180x240", "c420_q95.jpg"), ("1280x960", "frame_1280x960.jpg")):
+    for label, name in (("180x240", "c420_q95.jpg"), ("1280x960", "frame_1280x960.jpg"),
+                        *JPEG_TIMED):
         data = files[name]
         host = []
-        for _ in range(5 if label == "180x240" else 3):
+        for _ in range(5 if "1280x960" not in label else 3):
             t0 = time.perf_counter()
             co = entropy_decode(data, name)
             host.append(1e3 * (time.perf_counter() - t0))
@@ -777,18 +832,20 @@ def phase_jpeg(torch, np, report):
         by_shape[label] = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
                                bound_ms=bound, bound_by=bound_by,
                                entropy_host_ms=statistics.median(host), file_bytes=len(data),
-                               blocks=co.frame.block_offsets()[-1])
+                               blocks=co.frame.block_offsets()[-1], file=name,
+                               smoothed=co.frame.smoothing is not None,
+                               components=len(co.frame.components))
         print(f"jpeg {label} ({name}, {len(data)} bytes): entropy decode on the host "
               f"{statistics.median(host):.3f} ms; J1 {ms:.4f} ms a call (two launches; device "
               f"{device_ms:.4f}, host {host_ms:.4f}), plain stage {plain_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({bound_by})")
-    print(f"jpeg: decode_img on the card, 180x240 fixtures: {rates[1]:.1f} img/s on 1 thread, "
-          f"{rates[8]:.1f} on 8")
+    print(f"jpeg: decode_img on the card, the 17 original 180x240 fixtures: {rates[1]:.1f} "
+          f"img/s on 1 thread, {rates[8]:.1f} on 8")
     report["J1"] = dict(
         name="jpeg_pixels", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/jpeg.cu",
-        replaces="none: libjpeg-turbo's host IDCT, upsampling and colour conversion "
-                 "(cv2.imdecode, soft_contrastive_learning_tpu/serving.py:39)",
+        replaces="none: libjpeg-turbo's host block smoothing, IDCT, upsampling and colour "
+                 "conversion (cv2.imdecode, soft_contrastive_learning_tpu/serving.py:39)",
         max_abs_err=0.0, library_ms=None, by_shape=by_shape,
         decode_img_s={"threads_1": rates[1], "threads_8": rates[8]},
         seconds=time.perf_counter() - t_phase,
@@ -916,22 +973,28 @@ def phase_serve(torch, np, report, shared):
 
 def serve_jpeg(torch, np, report, service):
     """JPEG uploads to the served flagship over HTTP (127.0.0.1, port 0):
-    /embed of a 180x240 4:2:0 JPEG and of the 1280x960 frame (resized by
-    resize_linear), then /embed_batch and /search of both over the
-    66,048-row index. Exact counts: J1 once per upload, K1 once per
-    request's batch, K2 once. The
-    card's decode equals the plain CPU decode, the descriptors and the
-    search equal the service's on those pixels; /search of the two JPEGs is
-    timed (median of 3)."""
+    /embed of a 180x240 4:2:0 JPEG, of the 1280x960 frame (resized by
+    resize_linear), of the same frame without its DHT segments (an MJPEG
+    frame: the default tables), of a YCCK file, a smoothed progressive file
+    and an arithmetic-coded one, then /embed_batch and /search of all six
+    over the 66,048-row index. Exact counts: J1 once per upload, K1 once
+    per request's batch, K2 once. A truncated upload (cv2.imdecode gives no
+    image) is answered 400 without a J1 launch. The card's decode equals the
+    plain CPU decode, the descriptors and the search (the MJPEG frame's ids
+    among them) equal the service's on those pixels; /search of the six
+    JPEGs is timed (median of 3)."""
     import base64
     import threading
+    import urllib.error
     import urllib.request
 
     from soft_contrastive_learning_torch import serving
     from soft_contrastive_learning_torch.utils.io import decode_img
 
     _, files = jpeg_fixtures()
-    uploads = {"180x240": files["c420_q95.jpg"], "1280x960": files["frame_1280x960.jpg"]}
+    uploads = {"180x240": files["c420_q95.jpg"], "1280x960": files["frame_1280x960.jpg"],
+               "mjpeg_1280x960": files["mjpeg_1280x960.jpg"], "ycck": files["ycck_420.jpg"],
+               "smoothed": files["progressive_cut_2_3.jpg"], "arith": files["c420_q95_arith.jpg"]}
     server = serving.serve(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -952,8 +1015,14 @@ def serve_jpeg(torch, np, report, service):
         batch = np.asarray(post("/embed_batch", body, "application/json")["descriptors"],
                            np.float32)
         found = post("/search", body, "application/json")
+        try:
+            post("/embed", files["truncated_no_eoi.jpg"], "image/jpeg")
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = (e.code, json.loads(e.read()).get("error", ""))
         torch.cuda.synchronize()
-        launches = counts.read({"J1": 6, "K1": 4, "K2": 1})
+        n = len(uploads)
+        launches = counts.read({"J1": 3 * n, "K1": n + 2, "K2": 1})
         runs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -963,6 +1032,8 @@ def serve_jpeg(torch, np, report, service):
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
+    if refused is None or refused[0] != 400 or "truncated" not in refused[1]:
+        fail(f"serve_jpeg: a truncated upload was answered {refused}, expected a 400 refusal")
     on_card = {k: decode_img(v, k, "cuda") for k, v in uploads.items()}
     plain = {k: decode_img(v, k, "cpu") for k, v in uploads.items()}
     if any(not np.array_equal(on_card[k], plain[k]) for k in uploads):
@@ -971,18 +1042,20 @@ def serve_jpeg(torch, np, report, service):
     err = max(err, float(np.abs(batch - service.embed(list(plain.values()))).max()))
     want_d, want_i = service.search(list(plain.values()), k=5)
     ids_equal = np.array_equal(np.asarray(found["indices"]), want_i)
+    mjpeg_row = list(uploads).index("mjpeg_1280x960")
     d_err = float(np.abs(np.asarray(found["distances"]) - want_d).max())
-    print(f"serve_jpeg: /embed of a 180x240 and a 1280x960 JPEG, /embed_batch and /search of "
-          f"both over HTTP: "
-          f"launches {launches}; descriptors within {err:.3g} of the service's on the plain "
-          f"decode's pixels, search ids equal {ids_equal}, distances within {d_err:.3g}; "
-          f"/search of the two JPEGs {statistics.median(runs):.3f} ms (median of 3: "
+    print(f"serve_jpeg: /embed of {n} JPEGs ({', '.join(uploads)}), /embed_batch and /search "
+          f"of all over HTTP: launches {launches}; descriptors within {err:.3g} of the "
+          f"service's on the plain decode's pixels, search ids equal {ids_equal} (the MJPEG "
+          f"frame's {np.asarray(found['indices'])[mjpeg_row].tolist()}), distances within "
+          f"{d_err:.3g}; a truncated upload: {refused[0]}; /search of the {n} JPEGs "
+          f"{statistics.median(runs):.3f} ms (median of 3: "
           f"{', '.join(f'{t:.3f}' for t in runs)})")
     if err > 1e-6 or not ids_equal or d_err > 1e-6:
         fail(f"serve_jpeg: JPEG uploads part from the service on the same pixels ({err}, "
              f"{ids_equal}, {d_err})")
     return dict(launches=launches, desc_err=err, search_ms=statistics.median(runs),
-                search_runs=runs)
+                search_runs=runs, uploads=list(uploads), truncated_status=refused[0])
 
 
 def im2col_int_mm(torch, x, w_kn):
@@ -4052,8 +4125,9 @@ def phase_infer(torch, np, report, shared):
 
 def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
     """An ``oxs`` set through ``cli infer``: its CSV names ``.png`` files
-    and the files are the committed JPEG fixtures as ``.jpg`` (read so, as
-    the JAX package reads oxs sets). Exact counts (J1 once per image, K1
+    and the files are the committed JPEG fixtures that cv2.imread decodes,
+    as ``.jpg`` (read so, as the JAX package reads oxs sets: a file cut short
+    among them, read to its end). Exact counts (J1 once per image, K1
     once per batch of 32); the dump equal, within 1e-6, to an extractor's
     descriptors of the same images decoded by the plain CPU path."""
     from soft_contrastive_learning_torch import cli
@@ -4063,7 +4137,10 @@ def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
     from soft_contrastive_learning_torch.utils.io import decode_img, load_pickle, save_csv
 
     table, files = jpeg_fixtures()
-    names = sorted(table["decoded"])
+    # what cv2.imread reads (a file cut short included), but the 1280x960
+    # variants of the frame
+    names = [n for n, v in sorted(table["fixtures"].items()) if "sha256" in v["file"]
+             and (v["file"]["shape"][:2] != [960, 1280] or n == "frame_1280x960.jpg")]
     (img_root / "oxs_test").mkdir(parents=True, exist_ok=True)
     rel = []
     for i, name in enumerate(names):
@@ -4083,7 +4160,8 @@ def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
     got = load_pickle(str(lv / "oxs_test_wms.pickle"))
     cfg = ModelConfig()
     extractor = DescriptorExtractor(cfg, load_trained_params(cfg=cfg), batch_size=32)
-    want = extractor.extract_images([decode_img(files[n], n, "cpu") for n in names])
+    want = extractor.extract_images([decode_img(files[n], n, "cpu", source="file")
+                                     for n in names])
     extractor._pool.shutdown(wait=False)
     err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
     print(f"infer: oxs_test ({len(names)} JPEGs read as .jpg for .png) in {wall:.1f} s, "
@@ -5017,8 +5095,8 @@ def phase_parity(torch, np, report, shared):
             for _ in range(4)]):
         paths.append(str(imgs / f"{i:03d}.png"))
         save_img(img, paths[-1])
-    table, jpegs = jpeg_fixtures()
-    for i, name in enumerate(sorted(table["decoded"])[:8]):  # decoded on the card
+    _, jpegs = jpeg_fixtures()
+    for i, name in enumerate(PARITY_JPEGS):  # decoded on the card
         paths.append(str(imgs / f"j{i:02d}.jpg"))
         Path(paths[-1]).write_bytes(jpegs[name])
     cfg = ModelConfig(compute_dtype="float32")

@@ -3,19 +3,33 @@ PIL and g++ (no card needed):
 
     python scripts/jpeg_crosscheck.py [--fuzz 300]
 
+Every comparison is made in both of OpenCV's modes: ``file`` (cv2.imread,
+``load_img``) and ``buffer`` (cv2.imdecode, ``decode_img``). "Exact" means
+the port decodes where OpenCV does, refuses where it gives no image, and
+gives its pixels wherever the IDCT stays in libjpeg-turbo's 16-bit SIMD
+lanes (``utils/jpeg.py::idct_in_16_bit_lanes``; outside them the port
+computes exactly, a recorded divergence, counted apart).
+
 1. OpenCV and PIL write JPEGs of every layout the port decodes (4:2:0,
    4:4:4, 4:2:2, 4:4:0, 4:1:1, gray; baseline, progressive, restart
    intervals; qualities 5-100; sizes 1x1 to 181x243; PIL's own progressive
-   scans and Adobe RGB; EXIF orientations 1-8), and the plain path
-   (``utils/jpeg.py``) must decode each to ``cv2.imdecode``'s pixels.
+   scans, Adobe RGB and CMYK at three samplings, with the Adobe transform
+   0, 1 and 2; EXIF orientations 1-8), and from them: baseline files
+   without their DHT segments (MJPEG frames), sequential arithmetic-coded
+   (SOF9) transcodes (``scripts/make_jpeg_fixtures.py``'s encoder), and
+   progressive files cut at random points with and without an EOI marker
+   after (smoothed); the plain path (``utils/jpeg.py``) must be exact on
+   each.
 2. ``ops/kernels/csrc/jpeg.cu`` is built with g++ (its kernels are under
    ``__CUDACC__``; their per-thread functions are ``__host__ __device__``),
-   and on every file of (1) its entropy decoder must give the plain
-   decoder's coefficients and tables, and a host loop over J1's two
-   launches' per-thread functions the plain pixel stage's image.
-3. Truncations and single-byte changes of three files (baseline,
-   progressive, restart intervals): both entropy decoders must refuse, or
-   give the same coefficients.
+   and on every file of (1) in both modes its entropy decoder must refuse
+   where the plain decoder does or give its coefficients, tables and frame,
+   and a host loop over J1's two launches' per-thread functions the plain
+   pixel stage's image.
+3. Cuts (with and without an EOI marker after) and single-byte changes of
+   five files (baseline, progressive, restart intervals, arithmetic-coded,
+   CMYK): in both modes both entropy decoders must agree, and the plain
+   path must be exact against OpenCV.
 
 It prints one line per part and exits non-zero on any disagreement.
 """
@@ -38,8 +52,11 @@ from PIL import Image
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from soft_contrastive_learning_torch.ops.kernels.jpeg import _geometry  # noqa: E402
+from make_jpeg_fixtures import arithmetic_transcode, without_dht  # noqa: E402
+from soft_contrastive_learning_torch.ops.kernels.jpeg import _bind, _geometry  # noqa: E402
 from soft_contrastive_learning_torch.utils import jpeg  # noqa: E402
+
+MODES = ("file", "buffer")
 
 # the host loop over J1's two launches: every block's column and row passes,
 # then every output pixel, through the kernels' own per-thread functions
@@ -47,20 +64,29 @@ HARNESS = r"""
 #include "%s"
 extern "C" int j1_on_host(const int16_t* coefs, const int32_t* quant, uint8_t* planes,
                           uint8_t* out, const int64_t* comp, int ncomp, int colour,
-                          int orientation, int height, int width, int64_t blocks) {
+                          int orientation, int height, int width, int smooth, int imcu_rows,
+                          int last_good, int64_t blocks) {
   J1Geom g;
+  J1Smooth sm;
   memset(&g, 0, sizeof g);
+  memset(&sm, 0, sizeof sm);
   g.ncomp = ncomp; g.colour = colour; g.orientation = orientation;
   g.height = height; g.width = width; g.blocks = blocks;
+  sm.imcu_rows = imcu_rows; sm.last_good = last_good;
   for (int c = 0; c < ncomp; ++c) {
-    const int64_t* k = comp + 9 * c;
-    g.c[c] = J1Comp{k[0], k[1], (int)k[2], (int)k[3], (int)k[4], (int)k[5], (int)k[6],
-                    (int)k[7], (int)k[8]};
+    const int64_t* k = comp + 30 * c;
+    J1Comp& j = g.c[c];
+    j.block0 = k[0]; j.plane0 = k[1]; j.bw = (int)k[2]; j.bh = (int)k[3]; j.dw = (int)k[4];
+    j.dh = (int)k[5]; j.hr = (int)k[6]; j.vr = (int)k[7]; j.fancy = (int)k[8]; j.v = (int)k[9];
+    for (int i = 0; i < 20; ++i) sm.bits[c][i] = (int)k[10 + i];
   }
   for (int64_t blk = 0; blk < blocks; ++blk) {
     long long ws[64];
     const int ci = find_comp(g, blk);
-    for (int lane = 0; lane < 8; ++lane) idct_column(coefs + blk * 64, quant + ci * 64, lane, ws);
+    for (int lane = 0; lane < 8; ++lane) {
+      if (smooth) idct_column<true>(coefs, quant, g, sm, ci, blk, lane, ws);
+      else idct_column<false>(coefs, quant, g, sm, ci, blk, lane, ws);
+    }
     const J1Comp& k = g.c[ci];
     const int64_t b = blk - k.block0;
     const int by = (int)(b / k.bw), bx = (int)(b %% k.bw);
@@ -93,11 +119,11 @@ def files():
         bgr = np.ascontiguousarray(rgb[..., ::-1])
         for samp in sampling:
             for q in (95, 50, 5, 100):
-                for extra in ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
-                              [cv2.IMWRITE_JPEG_RST_INTERVAL, 3]):
+                for extra, what in (([], "[]"), ([cv2.IMWRITE_JPEG_PROGRESSIVE, 1], "PROGRESSIVE"),
+                                    ([cv2.IMWRITE_JPEG_RST_INTERVAL, 3], "RST3")):
                     params = [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                               samp, *extra]
-                    out.append((f"{h}x{w} {samp:#x} q{q} {extra}",
+                    out.append((f"{h}x{w} {samp:#x} q{q} {what}",
                                 cv2.imencode(".jpg", bgr, params)[1].tobytes()))
         gray = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
         out.append((f"{h}x{w} gray", cv2.imencode(".jpg", gray)[1].tobytes()))
@@ -114,6 +140,25 @@ def files():
         buf = io.BytesIO()
         Image.fromarray(textured(rng, 20, 30)).save(buf, "JPEG", quality=95, exif=ex.tobytes())
         out.append((f"orientation {o}", buf.getvalue()))
+    for _ in range(24):  # PIL's CMYK, its Adobe transform 0 (CMYK), 1 or 2 (YCCK)
+        h, w = (int(v) for v in rng.integers(1, 120, 2))
+        sub, transform = int(rng.integers(0, 3)), int(rng.integers(0, 3))
+        buf = io.BytesIO()
+        Image.fromarray(textured(rng, h, w)).convert("CMYK").save(
+            buf, "JPEG", quality=int(rng.integers(20, 100)), subsampling=sub,
+            progressive=bool(rng.integers(0, 2)))
+        data = bytearray(buf.getvalue())
+        data[data.find(b"\xff\xee") + 15] = transform
+        out.append((f"{h}x{w} CMYK sub{sub} transform{transform}", bytes(data)))
+    baseline = [(n, d) for n, d in out if "[]" in n and "gray" not in n]
+    for name, data in baseline[::3]:
+        out.append((f"{name} without DHT", without_dht(data)))
+        out.append((f"{name} SOF9 transcode", arithmetic_transcode(data)))
+    progressive = [(n, d) for n, d in out if "PROGRESSIVE" in n or "progTrue" in n]
+    for name, data in progressive[::2]:
+        cut = int(rng.integers(3, len(data)))
+        out.append((f"{name} cut {cut}", data[:cut]))
+        out.append((f"{name} cut {cut}+EOI", data[:cut] + b"\xff\xd9"))
     return out
 
 
@@ -126,21 +171,19 @@ def build(tmp):
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-o", lib, src],
                    check=True)
     dll = ctypes.CDLL(lib)
-    p = ctypes.c_void_p
-    dll.scl_jpeg_info.argtypes = [p, ctypes.c_int64, p, p, ctypes.c_int]
-    dll.scl_jpeg_entropy.argtypes = [p, ctypes.c_int64, p, p, p, p, ctypes.c_int]
-    dll.j1_on_host.argtypes = [p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64]
+    _bind(dll)
+    dll.j1_on_host.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64]
     return dll
 
 
-def native(dll, data):
+def native(dll, data, source="buffer"):
     """``ops/kernels/jpeg.py::entropy_decode`` on the g++ build."""
     import soft_contrastive_learning_torch.ops.kernels.jpeg as kj
 
     real = kj._lib
     kj._lib = lambda: dll
     try:
-        return kj.entropy_decode(data, "f")
+        return kj.entropy_decode(data, "f", source)
     finally:
         kj._lib = real
 
@@ -150,18 +193,50 @@ def j1_on_host(dll, co):
     geom = _geometry(f)
     planes = np.zeros(f.block_offsets()[-1] * 64, np.uint8)
     out = np.zeros((*f.output_shape(), 3), np.uint8)
+    smooth = f.smoothing is not None
     dll.j1_on_host(co.coefs.ctypes.data, co.quant.ctypes.data, planes.ctypes.data,
                    out.ctypes.data, geom.ctypes.data, len(f.components), f.colour,
-                   f.orientation, f.height, f.width, f.block_offsets()[-1])
+                   f.orientation, f.height, f.width, int(smooth), f.imcu_rows,
+                   f.smoothing[0] if smooth else 0, f.block_offsets()[-1])
     return out
 
 
-def outcome(fn, data):
+def outcome(fn, data, mode):
     try:
-        co = fn(data)
-        return "ok", co.coefs.tobytes() + co.quant.tobytes()
+        co = fn(data, mode)
+        return "ok", co.coefs.tobytes() + co.quant.tobytes() + repr(co.frame).encode()
     except ValueError as e:
         return "refused", str(e)
+
+
+def opencv(data: bytes, mode: str):
+    """cv2.imread / cv2.imdecode of ``data`` as RGB, None for no image."""
+    if mode == "file":
+        with tempfile.NamedTemporaryFile(suffix=".jpg") as f:
+            f.write(data)
+            f.flush()
+            bgr = cv2.imread(f.name)
+    else:
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if bgr is None else np.ascontiguousarray(bgr[..., ::-1])
+
+
+def against_opencv(data: bytes, mode: str) -> str:
+    """``exact``, ``lanes`` (the recorded divergence) or what differs."""
+    want = opencv(data, mode)
+    try:
+        co = jpeg.decode_coefficients(data, "f", mode)
+    except ValueError as e:
+        return "exact" if want is None else f"refused where OpenCV decodes: {e}"
+    if want is None:
+        return "decoded where OpenCV gives no image"
+    coefs, quant = torch.from_numpy(co.coefs), torch.from_numpy(co.quant)
+    got = jpeg.pixels_plain(coefs, quant, co.frame).numpy()
+    if got.shape == want.shape and (got == want).all():
+        return "exact"
+    if not jpeg.idct_in_16_bit_lanes(coefs, quant, co.frame):
+        return "lanes"
+    return f"pixels differ ({int((got != want).sum())})"
 
 
 def main(argv=None) -> int:
@@ -170,57 +245,83 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     bad = 0
     sweep = files()
+    tally = {"exact": 0, "lanes": 0}
     for name, data in sweep:
-        want = cv2.cvtColor(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR),
-                            cv2.COLOR_BGR2RGB)
-        co = jpeg.decode_coefficients(data, name)
-        got = jpeg.pixels_plain(torch.from_numpy(co.coefs), torch.from_numpy(co.quant),
-                                co.frame).numpy()
-        if got.shape != want.shape or (got != want).any():
-            bad += 1
-            print(f"plain decode differs from OpenCV: {name}")
-    print(f"1. {len(sweep)} OpenCV/PIL files: {len(sweep) - bad} decoded to OpenCV's pixels")
+        for mode in MODES:
+            verdict = against_opencv(data, mode)
+            if verdict in tally:
+                tally[verdict] += 1
+            else:
+                bad += 1
+                print(f"plain decode not exact ({mode}): {name}: {verdict}")
+    print(f"1. {len(sweep)} OpenCV/PIL files and their cuts, MJPEG frames and SOF9 transcodes "
+          f"in both modes: {tally['exact']} exact, {tally['lanes']} outside the 16-bit lanes, "
+          f"{bad} not exact")
     with tempfile.TemporaryDirectory() as tmp:
         dll = build(tmp)
-        wrong = 0
+        wrong = checked = 0
         for name, data in sweep:
-            co, ref = native(dll, data), jpeg.decode_coefficients(data, name)
-            same = (np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant)
-                    and co.frame == ref.frame)
-            plain = jpeg.pixels_plain(torch.from_numpy(ref.coefs), torch.from_numpy(ref.quant),
-                                      ref.frame).numpy()
-            if not same or not np.array_equal(j1_on_host(dll, co), plain):
-                wrong += 1
-                print(f"compiled decoder or J1's functions differ: {name}")
-        print(f"2. the same files: the g++-built entropy decoder and J1's per-thread functions "
-              f"equal the plain ones on {len(sweep) - wrong}")
+            for mode in MODES:
+                a = outcome(lambda x, m: jpeg.decode_coefficients(x, name, m), data, mode)
+                b = outcome(lambda x, m: native(dll, x, m), data, mode)
+                if a[0] != b[0] or (a[0] == "ok" and a[1] != b[1]):
+                    wrong += 1
+                    print(f"compiled decoder differs ({mode}): {name}")
+                    continue
+                if a[0] == "refused":
+                    continue
+                co = native(dll, data, mode)
+                plain = jpeg.pixels_plain(torch.from_numpy(co.coefs), torch.from_numpy(co.quant),
+                                          co.frame).numpy()
+                checked += 1
+                if not np.array_equal(j1_on_host(dll, co), plain):
+                    wrong += 1
+                    print(f"J1's functions differ ({mode}): {name}")
+        print(f"2. the same files: the g++-built entropy decoder equals the plain one on "
+              f"{2 * len(sweep) - wrong} of {2 * len(sweep)} decodes, J1's per-thread functions "
+              f"the plain pixel stage on {checked} images; {wrong} differ")
         bad += wrong
         rng = np.random.default_rng(5)
         im = rng.integers(0, 255, (40, 56, 3), np.uint8)
         seeds = [cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, 80, *extra])[1].tobytes()
                  for extra in ([], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1],
                                [cv2.IMWRITE_JPEG_RST_INTERVAL, 2])]
+        seeds.append(arithmetic_transcode(seeds[0], restart=2))
+        buf = io.BytesIO()
+        Image.fromarray(im).convert("CMYK").save(buf, "JPEG", quality=80, subsampling=2)
+        seeds.append(buf.getvalue())
         cases = []
         for s in seeds:
-            cases += [s[:cut] for cut in range(0, len(s), 7)]
+            cases += [s[:cut] for cut in range(3, len(s), 11)]
+            cases += [s[:cut] + b"\xff\xd9" for cut in range(3, len(s), 23)]
             for _ in range(args.fuzz):
                 d = bytearray(s)
                 d[rng.integers(2, len(d))] = rng.integers(0, 256)
                 cases.append(bytes(d))
         counts = {"refused": 0, "ok": 0}
         differ = 0
+        verdicts = {"exact": 0, "lanes": 0}
         for d in cases:
-            a = outcome(lambda x: jpeg.decode_coefficients(x, "f"), d)
-            b = outcome(lambda x: native(dll, x), d)
-            if a[0] != b[0] or (a[0] == "ok" and a[1] != b[1]):
-                differ += 1
-                print(f"decoders differ: {a[0]} / {b[0]}: {a[1][:160] if a[0] == 'refused' else ''} "
-                      f"| {b[1][:160] if b[0] == 'refused' else ''}")
-            else:
-                counts[a[0]] += 1
-        print(f"3. {len(cases)} truncated or changed files: both decoders refused "
-              f"{counts['refused']}, both gave the same coefficients for {counts['ok']}, "
-              f"{differ} differ")
+            for mode in MODES:
+                a = outcome(lambda x, m: jpeg.decode_coefficients(x, "f", m), d, mode)
+                b = outcome(lambda x, m: native(dll, x, m), d, mode)
+                if a[0] != b[0] or (a[0] == "ok" and a[1] != b[1]):
+                    differ += 1
+                    print(f"decoders differ ({mode}): {a[0]} / {b[0]}: "
+                          f"{a[1][:160] if a[0] == 'refused' else ''} | "
+                          f"{b[1][:160] if b[0] == 'refused' else ''}")
+                else:
+                    counts[a[0]] += 1
+                verdict = against_opencv(d, mode)
+                if verdict in verdicts:
+                    verdicts[verdict] += 1
+                else:
+                    differ += 1
+                    print(f"plain decode not exact ({mode}): {verdict}")
+        print(f"3. {len(cases)} cut or changed files in both modes: both decoders refused "
+              f"{counts['refused']}, gave the same coefficients for {counts['ok']}; against "
+              f"OpenCV {verdicts['exact']} exact, {verdicts['lanes']} outside the 16-bit "
+              f"lanes; {differ} differ")
         bad += differ
     return 1 if bad else 0
 

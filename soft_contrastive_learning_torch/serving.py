@@ -17,8 +17,9 @@ reduced output (FC, SPP) otherwise, as JAX's; ``dim`` says which.
 Uploads are decoded by the port's own codecs (``utils/io.py::decode_img``,
 no OpenCV) to the pixels JAX's ``cv2.imdecode`` gives, EXIF orientation
 included: a JPEG on the service's device (on the card the compiled entropy
-decoder and J1, ``ops/kernels/jpeg.py``), a PNG on the host; what they
-refuse gets a 400 with the reason. An upload of another size than the
+decoder and J1, ``ops/kernels/jpeg.py``), read as ``cv2.imdecode`` reads
+bytes (a truncated JPEG is refused, where ``cv2.imread`` of a file would
+read it), a PNG on the host; what they refuse gets a 400 with the reason. An upload of another size than the
 model's is resized by ``utils/cv.py::resize_linear``, as JAX's by
 ``cv2.resize``. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
 ``cli quant`` writes them) the service embeds through the int8-PTQ stack
@@ -80,8 +81,9 @@ class DescriptorService:
 
     def decode(self, data: bytes) -> np.ndarray:
         """An upload's bytes -> (H, W, 3) RGB uint8, a JPEG decoded on the
-        service's device."""
-        return decode_img(data, "upload", self.device)
+        service's device as ``cv2.imdecode`` reads bytes: one that ends
+        before its decode does is refused."""
+        return decode_img(data, "upload", self.device, source="buffer")
 
     def embed(self, images) -> np.ndarray:
         with self._lock:

@@ -245,12 +245,14 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 
 def load_img(path: str, device=None) -> np.ndarray:
     """Read a PNG or JPEG file as an (H, W, 3) RGB uint8 array
-    (``decode_img``)."""
+    (``decode_img``), as ``cv2.imread`` reads it: a JPEG that ends early
+    reads to its end and the rest is grey."""
     with open(path, "rb") as f:
-        return decode_img(f.read(), path, device)
+        return decode_img(f.read(), path, device, source="file")
 
 
-def decode_img(data: bytes, path: str = "image", device=None) -> np.ndarray:
+def decode_img(data: bytes, path: str = "image", device=None,
+               source: str = "buffer") -> np.ndarray:
     """Decode PNG or JPEG bytes, told apart by their signature as OpenCV
     does, as an (H, W, 3) RGB uint8 numpy array: what ``cv2.imread`` /
     ``cv2.imdecode(IMREAD_COLOR)`` and BGR -> RGB give, EXIF orientation
@@ -258,12 +260,15 @@ def decode_img(data: bytes, path: str = "image", device=None) -> np.ndarray:
     device by the compiled entropy decoder and J1
     (``ops/kernels/jpeg.py``), on the CPU by the plain decoder and pixel
     stage (``utils/jpeg.py``); a PNG on the host. ``path`` names the source
-    in the reason a refused file is given."""
+    in the reason a refused file is given. ``source`` says how a JPEG is
+    read: ``"buffer"`` as ``cv2.imdecode`` reads bytes (data that ends
+    before the decoder is done is refused, as OpenCV gives no image) or
+    ``"file"`` as ``cv2.imread`` reads a file (``load_img``)."""
     if is_jpeg(data):
         from soft_contrastive_learning_torch.ops.kernels.jpeg import decode_jpeg
 
         device = torch.device("cpu" if device is None else device)
-        return decode_jpeg(data, path, device).cpu().numpy()
+        return decode_jpeg(data, path, device, source).cpu().numpy()
     px, orientation = _decode_png(data, path)
     if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
         px = np.repeat(px[:, :, :1], 3, axis=2)

@@ -6,6 +6,7 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -1157,32 +1158,107 @@ def _jpeg_digests():
 
 
 def test_j1_and_the_compiled_decoder_on_the_fixtures(cuda):
-    """Every committed JPEG fixture: the compiled entropy decoder gives the
-    plain Python decoder's coefficients and tables; J1 on the card is
-    bit-equal to the plain pixel stage on the card and hashes to OpenCV's
-    committed digest; each refused fixture is refused with its reason."""
+    """Every committed JPEG fixture in both of OpenCV's modes (``file``:
+    cv2.imread, ``buffer``: cv2.imdecode): the compiled entropy decoder gives
+    the plain Python decoder's coefficients, tables and frame (smoothing
+    state included); J1 on the card is bit-equal to the plain pixel stage on
+    the card and hashes to OpenCV's committed digest; where OpenCV gives no
+    image both decoders refuse with the reason."""
     import hashlib
 
     from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode, jpeg_pixels_cuda
     from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients, pixels_plain
 
     table = _jpeg_digests()
-    for name, want in table["decoded"].items():
+    for name, modes in table["fixtures"].items():
         data = (JPEG_FIXTURES / name).read_bytes()
-        co = entropy_decode(data, name)
-        ref = decode_coefficients(data, name)
-        assert np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant), name
-        assert co.frame == ref.frame, name
-        coefs, quant = torch.from_numpy(co.coefs).to(cuda), torch.from_numpy(co.quant).to(cuda)
-        got = jpeg_pixels_cuda(coefs, quant, co.frame)
-        plain = pixels_plain(coefs, quant, co.frame)
-        torch.cuda.synchronize()
-        assert torch.equal(got, plain), name
-        assert list(got.shape) == want["shape"], name
-        assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == want["sha256"], name
-    for name, reason in table["refused"].items():
-        with pytest.raises(ValueError, match=reason):
-            entropy_decode((JPEG_FIXTURES / name).read_bytes(), name)
+        for mode, want in modes.items():
+            if "refused" in want:
+                for decode in (entropy_decode, decode_coefficients):
+                    with pytest.raises(ValueError, match=want["refused"]):
+                        decode(data, name, mode)
+                continue
+            co = entropy_decode(data, name, mode)
+            ref = decode_coefficients(data, name, mode)
+            assert np.array_equal(co.coefs, ref.coefs) and np.array_equal(co.quant, ref.quant), name
+            assert co.frame == ref.frame, name
+            coefs, quant = torch.from_numpy(co.coefs).to(cuda), torch.from_numpy(co.quant).to(cuda)
+            got = jpeg_pixels_cuda(coefs, quant, co.frame)
+            plain = pixels_plain(coefs, quant, co.frame)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (name, mode)
+            assert list(got.shape) == want["shape"], name
+            assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == want["sha256"], name
+
+
+def test_compiled_decoder_equals_plain_on_cut_and_changed_files(cuda):
+    """The 32x48 fixture cut at every 7th byte (with and without an EOI
+    after) and with 300 single bytes changed, as a file and as bytes: the
+    compiled entropy decoder refuses where the plain one does and otherwise
+    gives its coefficients, tables and frame."""
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode
+    from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients
+
+    seed = (JPEG_FIXTURES / "small_32x48.jpg").read_bytes()
+    rng = np.random.default_rng(18)
+    cases = [seed[:c] for c in range(3, len(seed), 7)]
+    cases += [seed[:c] + b"\xff\xd9" for c in range(3, len(seed), 7)]
+    for _ in range(300):
+        d = bytearray(seed)
+        d[rng.integers(2, len(d))] = rng.integers(0, 256)
+        cases.append(bytes(d))
+
+    def outcome(fn, data, mode):
+        try:
+            co = fn(data, "f", mode)
+        except ValueError:
+            return None
+        return co.coefs.tobytes(), co.quant.tobytes(), co.frame
+
+    for data in cases:
+        for mode in ("file", "buffer"):
+            assert outcome(entropy_decode, data, mode) == outcome(decode_coefficients, data, mode)
+
+
+@pytest.mark.parametrize("colour", ["cmyk", "ycck"])
+@pytest.mark.parametrize("smooth", [False, True])
+def test_j1_equals_plain_with_four_components_and_smoothing(cuda, colour, smooth):
+    """J1 against the plain stage on random coefficients of 4-component
+    frames (CMYK and YCCK, 4:2:0 and 4:4:4) and 3-component ones, with and
+    without block smoothing (random known bits per coefficient, some rows
+    after the last whole iMCU row), over partial MCUs and orientations."""
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.utils import jpeg
+
+    gen = torch.Generator().manual_seed(int(smooth) * 7 + len(colour))
+    for (h, w), layout, orientation in (((37, 45), ((2, 2), (1, 1)), 1), ((181, 243), ((1, 1),), 6),
+                                        ((17, 9), ((2, 1), (1, 1)), 3), ((8, 3), ((1, 1),), 1)):
+        for nc in (4, 3):
+            comps = [jpeg.Component(i + 1, *(layout[0] if i == 0 else layout[-1]), 0)
+                     for i in range(nc)]
+            hm, vm = max(c.h for c in comps), max(c.v for c in comps)
+            for c in comps:
+                c.dw, c.dh = -(-w * c.h // hm), -(-h * c.v // vm)
+                c.bw = -(-w // (8 * hm)) * c.h
+                c.bh = -(-h // (8 * vm)) * c.v
+            col = {"cmyk": jpeg.CMYK, "ycck": jpeg.YCCK}[colour] if nc == 4 else jpeg.YCC
+            frame = jpeg.Frame(h, w, col, orientation, comps)
+            if smooth:
+                bits = torch.randint(-1, 3, (nc, 20), generator=gen)
+                bits[:, 0] = torch.randint(0, 2, (nc,), generator=gen)
+                bits[:, 10] = 0
+                if nc == 3:
+                    bits[1:, 1:10] = -1  # chroma: only the DC known (interpolated)
+                frame.smoothing = (frame.imcu_rows // 2, *bits.flatten().tolist())
+            n = frame.block_offsets()[-1]
+            coefs = torch.zeros((n, 64), dtype=torch.int16)
+            coefs[:, 0] = torch.randint(-700, 700, (n,), generator=gen, dtype=torch.int16)
+            coefs[:, 1:12] = torch.randint(-4, 5, (n, 11), generator=gen, dtype=torch.int16)
+            quant = torch.randint(1, 9, (nc, 64), generator=gen, dtype=torch.int32)
+            plain = jpeg.pixels_plain(coefs, quant, frame)
+            got = jpeg_pixels_cuda(coefs.to(cuda), quant.to(cuda), frame)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), plain), (h, w, nc)
 
 
 @pytest.mark.parametrize("orientation", range(1, 9))
@@ -1231,3 +1307,6 @@ def test_j1_refuses_what_it_does_not_take(cuda):
         jpeg_pixels_cuda(coefs[:-1], quant, co.frame)
     with pytest.raises(ValueError):
         jpeg_pixels_cuda(coefs, quant.cpu(), co.frame)
+    two = dataclasses.replace(co.frame, components=co.frame.components[:2])
+    with pytest.raises(ValueError, match="2 components"):  # no colour of two planes
+        jpeg_pixels_cuda(coefs[: two.block_offsets()[-1]], quant[:2], two)

@@ -106,14 +106,19 @@ def _jpeg(patch=None, **kw):
     return bytes(data)
 
 
-def _cmyk_jpeg():
+def _cmyk_jpeg(sampling=None):
+    """PIL's 8x8 CMYK JPEG; with ``sampling`` its first components'
+    sampling bytes patched."""
     import io
 
     from PIL import Image
 
     buf = io.BytesIO()
     Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).convert("CMYK").save(buf, "JPEG")
-    return buf.getvalue()
+    data = bytearray(buf.getvalue())
+    for k, value in enumerate(sampling or ()):
+        data[data.find(b"\xff\xc0") + 11 + 3 * k] = value
+    return bytes(data)
 
 
 @pytest.mark.parametrize("data,reason", [
@@ -125,18 +130,49 @@ def _cmyk_jpeg():
     (b"\xff\xd8\xff\xe0" + bytes(16), "JPEG"),
     (b"GIF89a" + bytes(16), "not a PNG"),
     pytest.param(_jpeg("cut"), "JPEG.*truncated", id="jpeg-truncated"),
-    pytest.param(_jpeg("code", code=0xC9), "arithmetic-coded", id="jpeg-arithmetic"),
-    pytest.param(_jpeg("code", code=0xCA), "arithmetic-coded progressive",
+    pytest.param(_jpeg("code", code=0xCB), "arithmetic-coded lossless", id="jpeg-arithmetic"),
+    pytest.param(_jpeg("code", code=0xCE), "arithmetic-coded hierarchical progressive",
                  id="jpeg-arithmetic-progressive"),
     pytest.param(_jpeg("code", code=0xC3), "lossless", id="jpeg-lossless"),
     pytest.param(_jpeg("precision", bits=12), "12-bit JPEG", id="jpeg-12-bit"),
-    pytest.param(_cmyk_jpeg(), "CMYK", id="jpeg-cmyk"),
+    pytest.param(_cmyk_jpeg(sampling=(0x31, 0x21)), "fractional sampling", id="jpeg-cmyk"),
 ])
 def test_decoder_refuses_with_the_reason(tmp_path, data, reason):
+    """What OpenCV gives no image for, read as an upload (``decode_img``,
+    cv2.imdecode's reading of bytes: a cut JPEG is refused there, where
+    ``load_img`` reads a cut file to its end as cv2.imread does): arithmetic
+    lossless and hierarchical frames, 12-bit samples, a CMYK frame with
+    components sampled 3x1 and 2x1."""
     path = tmp_path / "bad.png"
     path.write_bytes(data)
     with pytest.raises(ValueError, match=reason):
-        tio.load_img(str(path))
+        tio.decode_img(data, str(path))
+    if data[:2] == b"\xff\xd8":
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+
+
+@pytest.mark.parametrize("data", [
+    pytest.param(_jpeg("cut"), id="jpeg-truncated"),
+    pytest.param(_jpeg("code", code=0xC9), id="jpeg-arithmetic"),
+    pytest.param(_jpeg("code", code=0xCA), id="jpeg-arithmetic-progressive"),
+    pytest.param(_cmyk_jpeg(), id="jpeg-cmyk"),
+])
+def test_decoder_reads_what_opencv_reads(tmp_path, data):
+    """Files the decoder once refused, as the JAX package's load_img
+    (cv2.imread) reads them: a cut JPEG (the rest grey), an SOF9 marker on
+    Huffman data (read as arithmetic coding), PIL's CMYK JPEG; and SOF10 on
+    a baseline file, which OpenCV refuses (a sequential scan in a
+    progressive frame) and the port with it."""
+    path = str(tmp_path / "f.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    try:
+        want = jio.load_img(path)
+    except FileNotFoundError:
+        with pytest.raises(ValueError, match="progressive scan parameters"):
+            tio.load_img(path)
+        return
+    assert np.array_equal(tio.load_img(path), want)
 
 
 def test_decoder_refuses_real_16_bit_palette_and_jpeg_files(tmp_path):

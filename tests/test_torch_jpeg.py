@@ -6,15 +6,23 @@ pixel stage to the pixels ``soft_contrastive_learning_tpu.utils.io.load_img``
 and the JAX service's upload decode give, EXIF orientation included. Every
 comparison is exact (tolerance 0): the decode is integer arithmetic end to
 end. Neither OpenCV nor PIL exposes a JPEG's coefficients, so the entropy
-decoder is held to OpenCV through the decoded pixels. The refused variants
-raise a ValueError naming the file and the reason. J1 itself and the compiled entropy decoder run only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+decoder is held to OpenCV through the decoded pixels. Both of OpenCV's
+readers are held: ``cv2.imread`` of a file (``load_img``, source "file")
+and ``cv2.imdecode`` of bytes (``decode_img``, source "buffer"), on files
+cut short, corrupt, without Huffman tables, CMYK/YCCK, smoothed and
+arithmetic-coded; where OpenCV gives no image the port raises a
+ValueError naming the file and the reason. The one recorded divergence,
+coefficients that take the IDCT out of libjpeg-turbo's 16-bit SIMD lanes,
+is pinned by ``idct_in_16_bit_lanes``. J1 itself and the compiled entropy
+decoder run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``)."""
 
 import hashlib
 import io
 import json
 import os
 import struct
+import tempfile
 
 import cv2
 import numpy as np
@@ -54,28 +62,236 @@ def _encode(rgb, *params):
     return buf.tobytes()
 
 
-@pytest.mark.parametrize("name", sorted(DIGESTS["decoded"]))
+MODES = ("file", "buffer")
+FIXTURE_BYTES = {}
+
+
+def _fixture(name):
+    if name not in FIXTURE_BYTES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            FIXTURE_BYTES[name] = f.read()
+    return FIXTURE_BYTES[name]
+
+
+def _port(data, name, mode, path=None):
+    """The port's CPU decode of ``data`` as ``mode`` reads it: ``load_img``
+    of the file, ``decode_img`` of the bytes."""
+    return load_img(path) if mode == "file" else decode_img(data, name, "cpu")
+
+
+def _jax(data, path, mode):
+    """JAX's read (cv2.imread / cv2.imdecode), None where it gives no image."""
+    try:
+        return jax_load_img(path) if mode == "file" else jax_decode_upload(data)
+    except (FileNotFoundError, ValueError):
+        return None
+
+
+def _opencv(data, mode):
+    """cv2's read of bytes as RGB, None where it gives no image."""
+    if mode == "file":
+        with tempfile.NamedTemporaryFile(suffix=".jpg") as f:
+            f.write(data)
+            f.flush()
+            bgr = cv2.imread(f.name)
+    else:
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if bgr is None else np.ascontiguousarray(bgr[..., ::-1])
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, v in DIGESTS["fixtures"].items() if any("sha256" in m for m in v.values())))
 def test_fixture_decodes_as_jax_reads_it(name):
-    """Each committed fixture: the port's CPU decode equals JAX's load_img
-    (cv2.imread) and JAX's upload decode (cv2.imdecode), and its digest is
-    the one committed beside it (what the card is held to)."""
+    """Each committed fixture in both of OpenCV's modes: the port's CPU
+    decode through ``load_img`` equals JAX's load_img (cv2.imread) and
+    through ``decode_img`` JAX's upload decode (cv2.imdecode), and its digest
+    is the one committed beside it (what the card is held to); where JAX
+    gets no image the port refuses."""
     path = os.path.join(FIXTURES, name)
-    got = load_img(path)
-    assert got.dtype == np.uint8 and got.flags["C_CONTIGUOUS"]
-    assert list(got.shape) == DIGESTS["decoded"][name]["shape"]
-    np.testing.assert_array_equal(got, jax_load_img(path))
-    with open(path, "rb") as f:
-        data = f.read()
-    np.testing.assert_array_equal(decode_img(data, name, "cpu"), jax_decode_upload(data))
-    assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS["decoded"][name]["sha256"]
+    data = _fixture(name)
+    for mode, want in DIGESTS["fixtures"][name].items():
+        theirs = _jax(data, path, mode)
+        if "refused" in want:
+            assert theirs is None, mode
+            with pytest.raises(ValueError, match=want["refused"]):
+                _port(data, name, mode, path)
+            continue
+        got = _port(data, name, mode, path)
+        assert got.dtype == np.uint8 and got.flags["C_CONTIGUOUS"]
+        assert list(got.shape) == want["shape"], mode
+        np.testing.assert_array_equal(got, theirs, err_msg=mode)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"], mode
 
 
-@pytest.mark.parametrize("name", sorted(DIGESTS["refused"]))
+@pytest.mark.parametrize("name", sorted(
+    n for n, v in DIGESTS["fixtures"].items() if any("refused" in m for m in v.values())))
 def test_refused_fixture_names_file_and_reason(name):
     path = os.path.join(FIXTURES, name)
-    with pytest.raises(ValueError, match=DIGESTS["refused"][name]) as e:
-        load_img(path)
-    assert str(e.value).startswith(path + ": ")
+    for mode, want in DIGESTS["fixtures"][name].items():
+        if "refused" not in want:
+            continue
+        with pytest.raises(ValueError, match=want["refused"]) as e:
+            _port(_fixture(name), path, mode, path)
+        assert str(e.value).startswith(path + ": ")
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS["diverges"]))
+def test_recorded_divergence_lies_outside_the_16_bit_lanes(name):
+    """A fixture OpenCV decodes to other pixels than the port does: its
+    coefficients take the IDCT out of the range where libjpeg-turbo's SIMD
+    code (16-bit lanes) is exact, where the port computes exactly."""
+    data = _fixture(name)
+    for mode in MODES:
+        co = jpeg.decode_coefficients(data, name, mode)
+        assert not jpeg.idct_in_16_bit_lanes(torch.from_numpy(co.coefs),
+                                             torch.from_numpy(co.quant), co.frame)
+        theirs = _opencv(data, mode)
+        assert theirs is not None and theirs.shape == _port(
+            data, name, mode, os.path.join(FIXTURES, name)).shape
+
+
+def test_file_and_buffer_modes_as_opencv_reads_them(tmp_path):
+    """``load_img`` reads a JPEG file as cv2.imread does (a file cut short
+    decodes, the rest grey); ``decode_img`` reads bytes as cv2.imdecode does
+    (refused), and takes the mode as an argument."""
+    data = _fixture("truncated_no_eoi.jpg")
+    path = str(tmp_path / "cut.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    np.testing.assert_array_equal(load_img(path), jax_load_img(path))
+    np.testing.assert_array_equal(decode_img(data, path, "cpu", source="file"),
+                                  jax_load_img(path))
+    with pytest.raises(ValueError, match="cut.jpg: JPEG data ends before"):
+        decode_img(data, path, "cpu")
+    with pytest.raises(ValueError, match="undecodable"):
+        jax_decode_upload(data)
+    with pytest.raises(ValueError, match="'file' or 'buffer'"):
+        decode_img(data, path, "cpu", source="stream")
+    with pytest.raises(ValueError, match="'file' or 'buffer'"):
+        kjpeg.entropy_decode(data, path, "stream")
+
+
+@pytest.mark.parametrize("arith, huffman", [("c420_q95_arith.jpg", "c420_q95.jpg"),
+                                            ("restart3_arith_dac.jpg", "restart3.jpg")])
+def test_arithmetic_transcode_decodes_to_its_huffman_original(arith, huffman):
+    """A real SOF9 file (the fixture script's encoder over a Huffman
+    fixture's coefficients; the second with restart intervals and DAC
+    conditioning): OpenCV and the port decode it to the Huffman original's
+    pixels, and to the same coefficients."""
+    a, h = _fixture(arith), _fixture(huffman)
+    assert a[:2] == b"\xff\xd8" and b"\xff\xc9" in a and b"\xff\xc0" not in a
+    np.testing.assert_array_equal(_opencv(a, "buffer"), _opencv(h, "buffer"))
+    np.testing.assert_array_equal(decode_img(a, arith, "cpu"), decode_img(h, huffman, "cpu"))
+    ca, ch = jpeg.decode_coefficients(a, arith), jpeg.decode_coefficients(h, huffman)
+    np.testing.assert_array_equal(ca.coefs, ch.coefs)
+
+
+def test_mjpeg_frames_take_the_default_tables_sequential_only():
+    """A frame without DHT segments (an MJPEG camera's) decodes with ITU
+    T.81 K.3's tables, libjpeg's defaults, to the original's pixels; a
+    progressive file without them is refused, as OpenCV refuses it
+    (libjpeg installs the defaults for sequential frames only)."""
+    for frame, original in (("mjpeg_180x240.jpg", "c420_q95.jpg"),
+                            ("mjpeg_1280x960.jpg", "frame_1280x960.jpg")):
+        assert b"\xff\xc4" not in _fixture(frame)[: _fixture(frame).find(b"\xff\xda")]
+    np.testing.assert_array_equal(decode_img(_fixture("mjpeg_180x240.jpg"), "m", "cpu"),
+                                  decode_img(_fixture("c420_q95.jpg"), "c", "cpu"))
+    stripped = _fixture("refused_progressive_no_dht.jpg")
+    assert b"\xff\xc4" not in stripped and b"\xff\xc4" in _fixture("progressive_cv2.jpg")
+    assert _opencv(stripped, "buffer") is None
+    with pytest.raises(ValueError, match="Huffman table"):
+        decode_img(stripped, "p", "cpu")
+
+
+@pytest.mark.parametrize("code", [0xC3, 0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF])
+def test_lossless_and_hierarchical_frames_are_refused_as_opencv_refuses_them(code):
+    """The SOF marker of a baseline fixture patched to a lossless or
+    hierarchical type: OpenCV gives no image, and the port refuses naming
+    it."""
+    data = bytearray(_fixture("c420_q95.jpg"))
+    data[data.find(b"\xff\xc0") + 1] = code
+    for mode in MODES:
+        assert _opencv(bytes(data), mode) is None
+        with pytest.raises(ValueError, match="lossless|hierarchical"):
+            decode_img(bytes(data), "s", "cpu", source=mode)
+
+
+@pytest.mark.parametrize("name", ["progressive_cv2.jpg", "progressive_pil.jpg"])
+def test_sof10_patched_progressive_files_decode(name):
+    """SOF10 (arithmetic progressive) patched onto the progressive fixtures:
+    OpenCV decodes both (the Huffman data read as arithmetic); the port
+    decodes both, equal to OpenCV where the IDCT stays in the 16-bit lanes
+    (the cv2 file's coefficients leave them: ``diverges``)."""
+    data = bytearray(_fixture(name))
+    data[data.find(b"\xff\xc2") + 1] = 0xCA
+    co = jpeg.decode_coefficients(bytes(data), name)
+    got = decode_img(bytes(data), name, "cpu")
+    theirs = _opencv(bytes(data), "buffer")
+    assert theirs is not None and got.shape == theirs.shape
+    if jpeg.idct_in_16_bit_lanes(torch.from_numpy(co.coefs), torch.from_numpy(co.quant),
+                                 co.frame):
+        np.testing.assert_array_equal(got, theirs)
+    else:
+        assert name.replace(".jpg", "_sof10.jpg") in DIGESTS["diverges"]
+
+
+SMALL = "small_32x48.jpg"
+
+
+@settings(max_examples=60, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(change=st.one_of(
+    st.tuples(st.just("cut"), st.integers(3, 812), st.just(0)),
+    st.tuples(st.just("cut+eoi"), st.integers(3, 812), st.just(0)),
+    st.tuples(st.just("byte"), st.integers(2, 812), st.integers(0, 255))))
+def test_cut_and_changed_files_decode_exactly_where_opencv_does(change):
+    """A committed fixture cut at any point (with or without an EOI marker
+    after) or with any one byte changed, in both modes: the port decodes
+    exactly where OpenCV does and refuses exactly where it gives no image;
+    the pixels are equal wherever the IDCT stays in libjpeg-turbo's 16-bit
+    lanes (the recorded divergence)."""
+    kind, at, value = change
+    data = _fixture(SMALL)
+    assert len(data) == 813
+    if kind == "cut":
+        data = data[:at]
+    elif kind == "cut+eoi":
+        data = data[:at] + b"\xff\xd9"
+    else:
+        data = data[:at] + bytes([value]) + data[at + 1 :]
+    for mode in MODES:
+        theirs = _opencv(data, mode)
+        try:
+            got = decode_img(data, "f", "cpu", source=mode)
+        except ValueError as e:
+            assert theirs is None, (mode, str(e))
+            continue
+        assert theirs is not None and got.shape == theirs.shape, mode
+        co = jpeg.decode_coefficients(data, "f", mode)
+        if jpeg.idct_in_16_bit_lanes(torch.from_numpy(co.coefs), torch.from_numpy(co.quant),
+                                     co.frame):
+            np.testing.assert_array_equal(got, theirs, err_msg=mode)
+
+
+@pytest.mark.parametrize("sampling", [0, 1, 2])
+@pytest.mark.parametrize("transform", [None, 0, 1, 2])
+def test_cmyk_and_ycck_as_opencv(sampling, transform):
+    """PIL's CMYK files (Adobe transform 0) at 4:4:4, 4:2:2 and 4:2:0, and
+    the same with the transform patched to 1 or 2 (libjpeg reads both as
+    YCCK) or the APP14 marker taken out (CMYK): OpenCV's CMYK -> BGR of
+    libjpeg's samples."""
+    rgb = _textured(np.random.default_rng(sampling), 37, 53)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(buf, "JPEG", quality=85, subsampling=sampling)
+    data = bytearray(buf.getvalue())
+    at = data.find(b"\xff\xeeAdobe"[:2])
+    if transform is None:
+        length = data[at + 2] << 8 | data[at + 3]
+        data = data[:at] + data[at + 2 + length :]
+    else:
+        data[at + 4 + 11] = transform
+    np.testing.assert_array_equal(decode_img(bytes(data), "k", "cpu"),
+                                  jax_decode_upload(bytes(data)))
 
 
 @settings(max_examples=30, deadline=None, derandomize=True,
@@ -132,17 +348,42 @@ def test_exif_orientation_as_opencv(orientation, order):
 
 
 def test_incomplete_progressive_file_is_refused_where_libjpeg_smooths():
-    """A progressive file that ends after its first scans: libjpeg smooths
-    its blocks (OpenCV returns an image); the port refuses it, naming the
-    reason. The complete file is not smoothed and decodes exactly."""
+    """A progressive file that ends after its first scans (cut before the
+    third, with and without an EOI marker): libjpeg smooths its blocks, and
+    the port decodes it to OpenCV's pixels in both modes (without the EOI
+    an upload is refused, as cv2.imdecode gives no image). The complete file
+    is not smoothed and decodes exactly."""
     rgb = _textured(np.random.default_rng(3), 48, 64)
     data = _encode(rgb, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
     sos = [i for i in range(len(data) - 1) if data[i : i + 2] == b"\xff\xda"]
     cut = data[: sos[2]] + b"\xff\xd9"
-    assert cv2.imdecode(np.frombuffer(cut, np.uint8), cv2.IMREAD_COLOR) is not None
-    with pytest.raises(ValueError, match="cut.jpg: progressive JPEG.*smooths"):
-        decode_img(cut, "cut.jpg", "cpu")
+    co = jpeg.decode_coefficients(cut, "cut.jpg")
+    assert co.frame.smoothing is not None and co.frame.smoothing[0] == 2  # every row whole
+    for mode in MODES:
+        np.testing.assert_array_equal(decode_img(cut, "cut.jpg", "cpu", source=mode),
+                                      _opencv(cut, mode))
+    np.testing.assert_array_equal(decode_img(data[: sos[2]], "c", "cpu", source="file"),
+                                  _opencv(data[: sos[2]], "file"))
+    with pytest.raises(ValueError, match="c: JPEG data ends before"):
+        decode_img(data[: sos[2]], "c", "cpu")
+    assert jpeg.decode_coefficients(data, "x").frame.smoothing is None
     np.testing.assert_array_equal(decode_img(data, "x", "cpu"), jax_decode_upload(data))
+
+
+def test_smoothing_windows_as_libjpeg_reads_them():
+    """The 5x5 windows of the block smoothing: columns repeat the edge
+    block; rows follow libjpeg's image_block_row arithmetic, whose last iMCU
+    row counts its rows as if every iMCU row had as many (here a luma
+    component 3 blocks high at v = 2: its last row takes the row above as
+    the one two above), and rows past the array read DC 0."""
+    c = jpeg.Component(1, 2, 2, 0, dw=17, dh=17, bw=4, bh=4)
+    rows, cols = jpeg.smoothing_neighbours(c, 2)
+    assert cols == [[0, 0, 0, 1, 2], [0, 0, 1, 2, 2], [0, 1, 2, 2, 2], [1, 2, 2, 2, 2]]
+    assert rows[0] == [0, 0, 0, 1, 2] and rows[1] == [0, 0, 1, 2, 3]
+    assert rows[2] == [1, 1, 2, 2, 2]  # last iMCU row: one row counted, image_block_row 1
+    gray = jpeg.Component(1, 1, 2, 0, dw=8, dh=17, bw=1, bh=3)  # one component at v = 2
+    rows, _ = jpeg.smoothing_neighbours(gray, 2)
+    assert rows[1] == [0, 0, 1, 2, -1]  # the padded fourth row: DC 0
 
 
 @pytest.mark.parametrize("scale", [3, 5])
@@ -200,7 +441,8 @@ def test_wrapper_on_cpu_tensors_is_the_plain_stage():
     geom = kjpeg._geometry(co.frame)
     assert geom[:, 0].tolist() == co.frame.block_offsets()[:-1]
     assert geom[:, 1].tolist() == [64 * b for b in co.frame.block_offsets()[:-1]]
-    assert geom[1:, 6:].tolist() == [[2, 2, 1], [2, 2, 1]]  # 4:2:0 chroma, fancy
+    assert geom[1:, 6:9].tolist() == [[2, 2, 1], [2, 2, 1]]  # 4:2:0 chroma, fancy
+    assert geom[:, 9].tolist() == [2, 1, 1] and not geom[:, 10:].any()  # v; no smoothing
 
 
 def test_a_jpeg_training_tree_reads_and_caches_as_jax(tmp_path):

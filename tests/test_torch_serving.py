@@ -257,6 +257,30 @@ def test_http_upload_decodes_without_opencv(server_url, monkeypatch, tmp_path):
     assert status == 400 and "JPEG" in payload["error"] and "truncated" in payload["error"]
 
 
+def test_http_truncated_jpeg_upload_is_refused_as_jax_refuses_it(server_url):
+    """A JPEG cut short (the committed fixture, half a baseline file without
+    its EOI): JAX's upload decode (cv2.imdecode) gives no image and raises;
+    the port's service, which decodes uploads as cv2.imdecode reads bytes,
+    answers 400 with its reason, where ``load_img`` of the same bytes as a
+    file (cv2.imread) decodes them."""
+    import os
+
+    from soft_contrastive_learning_torch.utils import io as tio
+    from soft_contrastive_learning_tpu.serving import _decode_image
+
+    url, imgs, index = server_url
+    path = os.path.join(os.path.dirname(tio.__file__), os.pardir, "assets", "jpeg",
+                        "truncated_no_eoi.jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    with pytest.raises(ValueError, match="undecodable"):
+        _decode_image(data)
+    status, payload = _post(url + "/embed", data, "image/jpeg")
+    assert status == 400 and "upload: JPEG data ends before" in payload["error"]
+    assert "truncated" in payload["error"]
+    assert tio.load_img(path).shape == (180, 240, 3)
+
+
 def test_http_embed_and_errors(server_url):
     url, imgs, index = server_url
     status, payload = _post(url + "/embed", _png(imgs[0]), "image/png")
