@@ -21,8 +21,8 @@ failure:
    output by TMA stores, UTMASTG), netvlad the TMA loads; Q1's tile shapes
    per layer (ring stages, shared memory, resident weights) and Q1_stem's;
    wms must hold one kernel function (K3 is one launch), and no topk kernel
-   may spill; jpeg must hold three kernel functions (J1's IDCT, plain and
-   smoothing, and its pixel launch);
+   may spill; jpeg must hold two kernel functions (J1's fused kernel, plain
+   and with the block smoothing);
 2. print the card's name and power limit (nvidia-smi);
 3. K1 (NetVLAD aggregation, one cluster of 4 blocks per image) against its
    plain version at B=64 and B=50, N=165, D=512, K=64, with fp32 and with
@@ -92,15 +92,20 @@ failure:
    CMYK and YCCK, SOF9/SOF10 patched and real SOF9 transcodes) in both of
    OpenCV's modes (file: cv2.imread, buffer: cv2.imdecode): the compiled
    entropy decoder's coefficients, tables and frame (smoothing state
-   included) equal to the plain Python decoder's, J1 bit-equal to the plain
-   pixel stage on the card and hashing to OpenCV's committed digest; where
-   OpenCV gives no image (truncated in buffer mode, lossless, 12-bit) both
-   refuse with the reason; the recorded divergence (16-bit IDCT lanes) held
-   to the plain stage only; decode img/s of the seventeen original 180x240
-   fixtures on 1 and 8 threads, J1 timed beside the plain stage and its
-   bound at 180x240 and on the frame, on CMYK and YCCK files and on
-   smoothed progressive files at both sizes, and the host entropy decode,
-   Huffman and arithmetic, at both sizes;
+   included) equal to the plain Python decoder's; J1 (one fused launch a
+   batch) bit-equal to the plain pixel stage on the card and hashing to
+   OpenCV's committed digest three ways: every decode alone
+   (jpeg_pixels_batch of one, and jpeg_pixels_cuda of tensors on the card),
+   all of them in one mixed launch, and 64 180x240 images in one launch,
+   each counted as one launch; where OpenCV gives no image (truncated in
+   buffer mode, lossless, 12-bit) both refuse with the reason; the recorded
+   divergence (16-bit IDCT lanes) held to the plain stage only; decode
+   img/s of the seventeen original 180x240 fixtures on 1 and 8 threads
+   (decode_img) and in batches of 64 (decode_imgs, 8 entropy threads); J1
+   timed (the kernel's device time, a call's host time, the tiles' phase
+   clocks) beside the plain stage and its bound at 180x240 alone and 64 in
+   a batch, on the 1280x960 frame plain and smoothed, on CMYK and YCCK, and
+   the host entropy decode, Huffman and arithmetic, at both sizes;
 13. serve the committed trained VGG16 + NetVLAD-64 at 180x240 through
    DescriptorService (batch 64): embed 512 index images, pad the index with
    seeded random unit vectors to 66,048 x 32,768 fp32 so that search takes
@@ -113,8 +118,9 @@ failure:
    launch); then serve_jpeg: the service over HTTP on 127.0.0.1 (port 0),
    /embed of a 180x240 JPEG, of the 1280x960 frame (resized by
    resize_linear), of the frame without its DHT (an MJPEG frame), of a
-   YCCK, a smoothed progressive and an arithmetic-coded file, /embed_batch
-   and /search of all six: J1 18, K1 8 and K2 1 launches exactly; a
+   YCCK, a smoothed progressive (the frame cut short) and an
+   arithmetic-coded file, /embed_batch and /search of all six: J1 8 (one
+   a request), K1 8 and K2 1 launches exactly; a
    truncated upload answered 400 (cv2.imdecode gives no image) with no J1
    launch; the card's decode equal to the plain CPU decode, descriptors and
    search (the MJPEG frame's ids among them) equal to the service's on
@@ -265,9 +271,9 @@ failure:
    fp32 plain model on 64 images, the fp16 dump within 1e-3; img/s end to
    end, the card's busy share (CUDA events around every embed) and decode
    img/s; then an oxs set through `cli infer` (infer_oxs: its CSV names .png
-   files, the files are the JPEG fixtures as .jpg): J1 once per image, K1
-   once per batch, the dump within 1e-6 of an extractor's descriptors of the
-   plain CPU decode's pixels;
+   files, the files are the JPEG fixtures as .jpg): J1 once per chunk of
+   128 images, K1 once per batch, the dump within 1e-6 of an extractor's
+   descriptors of the plain CPU decode's pixels;
 27. topn: `cli topn` over the dumps (D up to 1,024, L in {0, 0.3, 1, 5} m,
    N = 25): 20 settings in the JAX pickle layout, >= 90% of the queries'
    top-1 within 25 m at l0.0_dim256, the curves by
@@ -434,10 +440,9 @@ def phase_build(torch, report):
                      f"alone ({sass})")
         if name == "topk" and any(f["spill_stores"] or f["spill_loads"] for f in funcs):
             fail(f"topk: a kernel spills registers: {funcs}")
-        if name == "jpeg" and len(funcs) != 3:
-            fail(f"jpeg: {len(funcs)} kernel functions, expected three (J1's IDCT, plain and "
-                 f"with the block smoothing, and its pixel launch): "
-                 f"{[f['function'] for f in funcs]}")
+        if name == "jpeg" and len(funcs) != 2:
+            fail(f"jpeg: {len(funcs)} kernel functions, expected two (J1's fused kernel, plain "
+                 f"and with the block smoothing): {[f['function'] for f in funcs]}")
         if name == "wms" and len(funcs) != 1:
             fail(f"wms: {len(funcs)} kernel functions, expected one (K3 is one launch): "
                  f"{[f['function'] for f in funcs]}")
@@ -705,12 +710,14 @@ RATE_JPEGS = ("adobe_rgb.jpg", "c411.jpg", "c420_q95.jpg", "c422.jpg", "c440.jpg
               "progressive_pil.jpg", "restart3.jpg")
 PARITY_JPEGS = ("adobe_rgb.jpg", "c411.jpg", "c420_q95.jpg", "c422.jpg", "c440.jpg", "c444.jpg",
                 "frame_1280x960.jpg", "gray.jpg")
-# the files J1 and the entropy decoder are timed on beyond the 4:2:0 ones
-JPEG_TIMED = (("cmyk_180x240", "cmyk_pil.jpg"), ("ycck_420_180x240", "ycck_420.jpg"),
-              ("smoothed_180x240", "progressive_cut_2_3.jpg"),
-              ("smoothed_1280x960", "frame_progressive_cut.jpg"),
-              ("arith_180x240", "c420_q95_arith.jpg"),
-              ("arith_1280x960", "frame_1280x960_arith.jpg"))
+# J1's timed cases beyond 180x240 alone: (label, files)
+JPEG_TIMED = (("batch64_180x240", tuple(RATE_JPEGS[i % 17] for i in range(64))),
+              ("1280x960", ("frame_1280x960.jpg",)),
+              ("smoothed_1280x960", ("frame_progressive_cut.jpg",)),
+              ("cmyk_180x240", ("cmyk_pil.jpg",)), ("ycck_420_180x240", ("ycck_420.jpg",)))
+# the entropy decoder's timed files beyond the 4:2:0 ones
+ENTROPY_TIMED = (("arith_180x240", "c420_q95_arith.jpg"),
+                 ("arith_1280x960", "frame_1280x960_arith.jpg"))
 
 
 def jpeg_fixtures():
@@ -723,19 +730,21 @@ def jpeg_fixtures():
     return table, files
 
 
-def j1_bound(common, frame):
-    """J1's bound for a frame: each coefficient (2 B) and table entry (4 B)
-    read once, each RGB byte written once; ~11 integer operations a sample
-    (dequantize, two IDCT passes), ~20 a pixel (upsampling, colour), ~10
-    more a pixel for a fourth plane (CMYK, YCCK) and ~300 a block where the
-    frame is smoothed (the estimates from 25 DC values), counted at the
-    fp32 rate."""
-    blocks = frame.block_offsets()[-1]
-    nc = len(frame.components)
-    nbytes = 2 * 64 * blocks + 4 * 64 * nc + 3 * frame.height * frame.width
-    ops = 11 * 64 * blocks + (20 + 10 * (nc == 4)) * frame.height * frame.width
-    if frame.smoothing is not None:
-        ops += 300 * blocks
+def j1_bound(common, frames):
+    """J1's bound for a batch of frames: each coefficient (2 B) and table
+    entry (4 B) read once, each RGB byte written once; ~11 integer
+    operations a sample (dequantize, two IDCT passes), ~20 a pixel
+    (upsampling, colour), ~10 more a pixel for a fourth plane (CMYK, YCCK)
+    and ~300 a block where the frame is smoothed (the estimates from 25 DC
+    values), counted at the fp32 rate."""
+    nbytes = ops = 0
+    for frame in frames:
+        blocks = frame.block_offsets()[-1]
+        nc = len(frame.components)
+        nbytes += 2 * 64 * blocks + 4 * 64 * nc + 3 * frame.height * frame.width
+        ops += 11 * 64 * blocks + (20 + 10 * (nc == 4)) * frame.height * frame.width
+        if frame.smoothing is not None:
+            ops += 300 * blocks
     return common.bound_ms(ops, nbytes)
 
 
@@ -743,37 +752,47 @@ def phase_jpeg(torch, np, report):
     """J1 and the compiled entropy decoder on the committed fixtures in both
     of OpenCV's modes: every decode's coefficients, tables and frame equal
     to the plain Python decoder's (run once a fixture, as a file: where the
-    buffer decodes too it gives the same), J1 on the card bit-equal to the
+    buffer decodes too it gives the same); J1 on the card bit-equal to the
     plain pixel stage on the card and hashing to OpenCV's digest of each
-    mode; each refusal (both decoders) with its reason; the recorded
-    divergence held to the plain stage. Then decode img/s of the original 180x240
-    fixtures through ``decode_img(..., device="cuda")`` on 1 and 8 threads,
-    and J1's time (CUDA events) beside the plain stage's and its bound at
-    180x240 (4:2:0), on the 1280x960 frame, on CMYK, YCCK and smoothed files,
-    with each file's host entropy decode (Huffman and arithmetic) timed
-    apart."""
+    mode, each decode alone, all of them in one launch, and 64 180x240
+    images in one launch (the launch counts exact); each refusal (both
+    decoders) with its reason; the recorded divergence held to the plain
+    stage. Then decode img/s of the original 180x240 fixtures on 1 and 8
+    threads and in batches of 64, and J1 timed: the kernel alone (CUDA
+    events, coefficients staged on the card once), a call's host time from
+    host coefficients, and one profiled launch's phase clocks, beside the
+    plain stage and the bound, with each size's host entropy decode
+    (Huffman and arithmetic) timed apart."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
 
-    from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode, jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.ops.kernels import jpeg as kj
     from soft_contrastive_learning_torch.perf import common
-    from soft_contrastive_learning_torch.utils.io import decode_img
+    from soft_contrastive_learning_torch.utils.io import decode_img, finish_imgs, prepare_img
     from soft_contrastive_learning_torch.utils.jpeg import decode_coefficients, pixels_plain
 
     def same(a, b):
         return (np.array_equal(a.coefs, b.coefs) and np.array_equal(a.quant, b.quant)
                 and a.frame == b.frame)
 
+    def plain_of(co):
+        return pixels_plain(torch.from_numpy(co.coefs).cuda(), torch.from_numpy(co.quant).cuda(),
+                            co.frame)
+
+    def digest(img):
+        return hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+
     t_phase = time.perf_counter()
     table, files = jpeg_fixtures()
     decodes = refusals = 0
+    batch, wants, names = [], [], []
     for name in (*table["fixtures"], *table["diverges"]):
         modes = table["fixtures"].get(name, {m: {} for m in ("file", "buffer")})
         data = files[name]
         ref = None
         for mode, want in modes.items():
             if "refused" in want:
-                for decode in (entropy_decode, decode_coefficients):
+                for decode in (kj.entropy_decode, decode_coefficients):
                     try:
                         decode(data, name, mode)
                     except ValueError as e:
@@ -784,27 +803,47 @@ def phase_jpeg(torch, np, report):
                              f"({want['refused']})")
                 refusals += 1
                 continue
-            co = entropy_decode(data, name, mode)
+            co = kj.entropy_decode(data, name, mode)
             if ref is None:
                 ref = decode_coefficients(data, name, mode)
-                coefs = torch.from_numpy(co.coefs).cuda()
-                quant = torch.from_numpy(co.quant).cuda()
-                got = jpeg_pixels_cuda(coefs, quant, co.frame)
-                plain = pixels_plain(coefs, quant, co.frame)
-                torch.cuda.synchronize()
-                if not torch.equal(got, plain):
-                    fail(f"jpeg {name}: J1 parts from the plain stage")
-                digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
             if not same(co, ref):
                 fail(f"jpeg {name} ({mode}): the compiled entropy decoder parts from the plain one")
-            if want and (digest != want["sha256"] or list(got.shape) != want["shape"]):
-                fail(f"jpeg {name} ({mode}): digest {digest == want['sha256']}, shape "
-                     f"{tuple(got.shape)} vs {want['shape']}")
+            plain = plain_of(co)
+            before = kj.jpeg_pixels_cuda.launches
+            alone = kj.jpeg_pixels_batch([co], "cuda")[0]
+            tensors = kj.jpeg_pixels_cuda(torch.from_numpy(co.coefs).cuda(),
+                                          torch.from_numpy(co.quant).cuda(), co.frame)
+            torch.cuda.synchronize()
+            if kj.jpeg_pixels_cuda.launches - before != 2:
+                fail(f"jpeg {name} ({mode}): {kj.jpeg_pixels_cuda.launches - before} launches "
+                     "for two images alone")
+            if not (torch.equal(alone, plain) and torch.equal(tensors, plain)):
+                fail(f"jpeg {name} ({mode}): J1 parts from the plain stage")
+            if want and (digest(alone) != want["sha256"] or list(alone.shape) != want["shape"]):
+                fail(f"jpeg {name} ({mode}): digest {digest(alone) == want['sha256']}, shape "
+                     f"{tuple(alone.shape)} vs {want['shape']}")
+            batch.append(co)
+            wants.append(plain)
+            names.append(f"{name} ({mode})")
             decodes += 1
+    # all of them in one launch, then 64 180x240 images in one launch
+    small = [co for co, n in zip(batch, names) if co.frame.height == 180
+             and n.split()[0] in RATE_JPEGS][:16] * 4
+    for label, images, plains in (("mixed", batch, wants),
+                                  ("64", small, [plain_of(co) for co in small])):
+        before = kj.jpeg_pixels_cuda.launches
+        got = kj.jpeg_pixels_batch(images, "cuda")
+        torch.cuda.synchronize()
+        if kj.jpeg_pixels_cuda.launches - before != 1:
+            fail(f"jpeg: {kj.jpeg_pixels_cuda.launches - before} launches for the {label} batch")
+        bad = [i for i, (a, b) in enumerate(zip(got, plains)) if not torch.equal(a, b)]
+        if bad or len(got) != len(images):
+            fail(f"jpeg: the {label} batch of {len(images)} parts from the plain stage at {bad}")
     print(f"jpeg: {len(table['fixtures'])} fixtures in both modes, {decodes} decodes on the card "
           f"bit-equal to the plain stage and (but {len(table['diverges'])} recorded "
-          f"divergence) to OpenCV {table['opencv']}'s digests, coefficients equal to the plain "
-          f"decoder's; {refusals} refusals with their reasons")
+          f"divergence) to OpenCV {table['opencv']}'s digests, alone, all {decodes} in one J1 "
+          f"launch and {len(small)} 180x240 in one; coefficients equal to the plain decoder's; "
+          f"{refusals} refusals with their reasons")
 
     work = [files[RATE_JPEGS[i % len(RATE_JPEGS)]] for i in range(JPEG_RATE_DECODES)]
     rates = {}
@@ -813,41 +852,69 @@ def phase_jpeg(torch, np, report):
             list(pool.map(lambda d: decode_img(d, "r", "cuda"), work[:16]))  # warm-up
             t0 = time.perf_counter()
             list(pool.map(lambda d: decode_img(d, "r", "cuda"), work))
-            rates[threads] = len(work) / (time.perf_counter() - t0)
+            rates[f"threads_{threads}"] = len(work) / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        def decode64(chunk):  # extract_files' way: entropy on 8 threads, one J1 launch
+            return finish_imgs(list(pool.map(lambda d: prepare_img(d, "r", "cuda"), chunk)),
+                               "cuda")
+
+        decode64(work[:64])
+        t0 = time.perf_counter()
+        for s in range(0, len(work), 64):
+            decode64(work[s : s + 64])
+        rates["batches_64_threads_8"] = len(work) / (time.perf_counter() - t0)
     by_shape = {}
+    for label, timed in (("180x240", ("c420_q95.jpg",)), *JPEG_TIMED):
+        images = [kj.entropy_decode(files[n], n) for n in timed]
+        frames = [co.frame for co in images]
+        launch = kj.staged_launcher(images, "cuda")
+        ms = common.time_ms(launch, 50)
+        launch_host_ms, device_ms = common.host_and_device_ms(launch, 20)
+        calls = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kj.jpeg_pixels_batch(images, "cuda")
+            calls.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        clocks = torch.zeros(kj.CLOCKS * launch.plan.tiles, dtype=torch.int64, device="cuda")
+        kj.staged_launcher(images, "cuda", clocks)()
+        torch.cuda.synchronize()
+        plain_ms = common.time_ms(lambda: [pixels_plain(torch.from_numpy(co.coefs).cuda(),
+                                                        torch.from_numpy(co.quant).cuda(),
+                                                        co.frame) for co in images], 3)
+        bound, bound_by = j1_bound(common, frames)
+        by_shape[label] = dict(
+            images=len(images), ms=ms, device_ms=device_ms, launch_host_ms=launch_host_ms,
+            call_host_ms=statistics.median(calls), plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, tiles=launch.plan.tiles, smem=launch.plan.smem,
+            phases=kj.phase_clocks(clocks, launch.plan.tiles),
+            blocks=sum(f.block_offsets()[-1] for f in frames),
+            smoothed=sum(f.smoothing is not None for f in frames))
+        print(f"jpeg {label} ({len(images)} images, {launch.plan.tiles} tiles): J1 {ms:.5f} ms a "
+              f"launch back to back (device {device_ms:.5f}, its host {launch_host_ms:.4f}); a "
+              f"call from host coefficients {statistics.median(calls):.4f} ms of host time; "
+              f"plain stage {plain_ms:.4f} ms; bound {bound:.5f} ms ({bound_by}); phases "
+              f"{ {k: round(v) for k, v in by_shape[label]['phases'].items()} }")
     for label, name in (("180x240", "c420_q95.jpg"), ("1280x960", "frame_1280x960.jpg"),
-                        *JPEG_TIMED):
-        data = files[name]
+                        *ENTROPY_TIMED):
         host = []
         for _ in range(5 if "1280x960" not in label else 3):
             t0 = time.perf_counter()
-            co = entropy_decode(data, name)
+            kj.entropy_decode(files[name], name)
             host.append(1e3 * (time.perf_counter() - t0))
-        coefs, quant = torch.from_numpy(co.coefs).cuda(), torch.from_numpy(co.quant).cuda()
-        ms = common.time_ms(lambda: jpeg_pixels_cuda(coefs, quant, co.frame), 50)
-        host_ms, device_ms = common.host_and_device_ms(
-            lambda: jpeg_pixels_cuda(coefs, quant, co.frame), 50)
-        plain_ms = common.time_ms(lambda: pixels_plain(coefs, quant, co.frame), 5)
-        bound, bound_by = j1_bound(common, co.frame)
-        by_shape[label] = dict(ms=ms, device_ms=device_ms, host_ms=host_ms, plain_ms=plain_ms,
-                               bound_ms=bound, bound_by=bound_by,
-                               entropy_host_ms=statistics.median(host), file_bytes=len(data),
-                               blocks=co.frame.block_offsets()[-1], file=name,
-                               smoothed=co.frame.smoothing is not None,
-                               components=len(co.frame.components))
-        print(f"jpeg {label} ({name}, {len(data)} bytes): entropy decode on the host "
-              f"{statistics.median(host):.3f} ms; J1 {ms:.4f} ms a call (two launches; device "
-              f"{device_ms:.4f}, host {host_ms:.4f}), plain stage {plain_ms:.4f} ms, bound "
-              f"{bound:.5f} ms ({bound_by})")
-    print(f"jpeg: decode_img on the card, the 17 original 180x240 fixtures: {rates[1]:.1f} "
-          f"img/s on 1 thread, {rates[8]:.1f} on 8")
+        by_shape.setdefault(label, {})["entropy_host_ms"] = statistics.median(host)
+        print(f"jpeg {label} ({name}, {len(files[name])} bytes): entropy decode on the host "
+              f"{statistics.median(host):.3f} ms")
+    print(f"jpeg: the 17 original 180x240 fixtures on the card: decode_img {rates['threads_1']:.1f} "
+          f"img/s on 1 thread, {rates['threads_8']:.1f} on 8; decode_imgs of 64 (8 entropy "
+          f"threads, one J1 launch) {rates['batches_64_threads_8']:.1f} img/s")
     report["J1"] = dict(
         name="jpeg_pixels", route="cuda",
         source="soft_contrastive_learning_torch/ops/kernels/csrc/jpeg.cu",
         replaces="none: libjpeg-turbo's host block smoothing, IDCT, upsampling and colour "
                  "conversion (cv2.imdecode, soft_contrastive_learning_tpu/serving.py:39)",
-        max_abs_err=0.0, library_ms=None, by_shape=by_shape,
-        decode_img_s={"threads_1": rates[1], "threads_8": rates[8]},
+        max_abs_err=0.0, library_ms=None, by_shape=by_shape, decode_img_s=rates,
         seconds=time.perf_counter() - t_phase,
         **{key: by_shape["180x240"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
@@ -976,13 +1043,14 @@ def serve_jpeg(torch, np, report, service):
     /embed of a 180x240 4:2:0 JPEG, of the 1280x960 frame (resized by
     resize_linear), of the same frame without its DHT segments (an MJPEG
     frame: the default tables), of a YCCK file, a smoothed progressive file
-    and an arithmetic-coded one, then /embed_batch and /search of all six
-    over the 66,048-row index. Exact counts: J1 once per upload, K1 once
-    per request's batch, K2 once. A truncated upload (cv2.imdecode gives no
-    image) is answered 400 without a J1 launch. The card's decode equals the
-    plain CPU decode, the descriptors and the search (the MJPEG frame's ids
-    among them) equal the service's on those pixels; /search of the six
-    JPEGs is timed (median of 3)."""
+    (the 1280x960 frame cut short) and an arithmetic-coded one, then
+    /embed_batch and /search of all six over the 66,048-row index. Exact
+    counts: J1 once per request (a request's uploads in one launch: 6 + 1 +
+    1), K1 once per request's batch, K2 once. A truncated upload
+    (cv2.imdecode gives no image) is answered 400 without a J1 launch. The
+    card's decode equals the plain CPU decode, the descriptors and the
+    search (the MJPEG frame's ids among them) equal the service's on those
+    pixels; /search of the six JPEGs is timed (median of 3)."""
     import base64
     import threading
     import urllib.error
@@ -994,7 +1062,8 @@ def serve_jpeg(torch, np, report, service):
     _, files = jpeg_fixtures()
     uploads = {"180x240": files["c420_q95.jpg"], "1280x960": files["frame_1280x960.jpg"],
                "mjpeg_1280x960": files["mjpeg_1280x960.jpg"], "ycck": files["ycck_420.jpg"],
-               "smoothed": files["progressive_cut_2_3.jpg"], "arith": files["c420_q95_arith.jpg"]}
+               "smoothed": files["frame_progressive_cut.jpg"],
+               "arith": files["c420_q95_arith.jpg"]}
     server = serving.serve(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1022,7 +1091,7 @@ def serve_jpeg(torch, np, report, service):
             refused = (e.code, json.loads(e.read()).get("error", ""))
         torch.cuda.synchronize()
         n = len(uploads)
-        launches = counts.read({"J1": 3 * n, "K1": n + 2, "K2": 1})
+        launches = counts.read({"J1": n + 2, "K1": n + 2, "K2": 1})
         runs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -4127,9 +4196,10 @@ def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
     """An ``oxs`` set through ``cli infer``: its CSV names ``.png`` files
     and the files are the committed JPEG fixtures that cv2.imread decodes,
     as ``.jpg`` (read so, as the JAX package reads oxs sets: a file cut short
-    among them, read to its end). Exact counts (J1 once per image, K1
-    once per batch of 32); the dump equal, within 1e-6, to an extractor's
-    descriptors of the same images decoded by the plain CPU path."""
+    among them, read to its end). Exact counts (J1 once per chunk of 4
+    batches of 32, K1 once per batch); the dump equal, within 1e-6, to an
+    extractor's descriptors of the same images decoded by the plain CPU
+    path."""
     from soft_contrastive_learning_torch import cli
     from soft_contrastive_learning_torch.core.config import ModelConfig
     from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
@@ -4156,13 +4226,13 @@ def infer_oxs(torch, np, report, shared, img_root, csv_root, lv):
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"infer oxs_test: rc {rc}")
-    launches = counts.read({"J1": len(names), "K1": -(-len(names) // 32)})
+    launches = counts.read({"J1": -(-len(names) // 128), "K1": -(-len(names) // 32)})
     got = load_pickle(str(lv / "oxs_test_wms.pickle"))
     cfg = ModelConfig()
     extractor = DescriptorExtractor(cfg, load_trained_params(cfg=cfg), batch_size=32)
     want = extractor.extract_images([decode_img(files[n], n, "cpu", source="file")
                                      for n in names])
-    extractor._pool.shutdown(wait=False)
+    extractor.close()
     err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
     print(f"infer: oxs_test ({len(names)} JPEGs read as .jpg for .png) in {wall:.1f} s, "
           f"launches {launches}; dump {got.shape}, within {err:.3g} of the plain decode's "

@@ -20,12 +20,12 @@ computes exactly, a recorded divergence, counted apart).
    progressive files cut at random points with and without an EOI marker
    after (smoothed); the plain path (``utils/jpeg.py``) must be exact on
    each.
-2. ``ops/kernels/csrc/jpeg.cu`` is built with g++ (its kernels are under
-   ``__CUDACC__``; their per-thread functions are ``__host__ __device__``),
-   and on every file of (1) in both modes its entropy decoder must refuse
-   where the plain decoder does or give its coefficients, tables and frame,
-   and a host loop over J1's two launches' per-thread functions the plain
-   pixel stage's image.
+2. ``ops/kernels/csrc/jpeg.cu`` is built with g++ (its kernel is under
+   ``__CUDACC__``; the steps of its CTA are ``__host__ __device__``, and
+   ``scl_jpeg_pixels_host`` runs them thread by thread), and on every file
+   of (1) in both modes its entropy decoder must refuse where the plain
+   decoder does or give its coefficients, tables and frame, and J1's CTAs
+   the plain pixel stage's image, each file alone and all in one batch.
 3. Cuts (with and without an EOI marker after) and single-byte changes of
    five files (baseline, progressive, restart intervals, arithmetic-coded,
    CMYK): in both modes both entropy decoders must agree, and the plain
@@ -37,10 +37,8 @@ It prints one line per part and exits non-zero on any disagreement.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import io
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -53,53 +51,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from make_jpeg_fixtures import arithmetic_transcode, without_dht  # noqa: E402
-from soft_contrastive_learning_torch.ops.kernels.jpeg import _bind, _geometry  # noqa: E402
+from soft_contrastive_learning_torch.ops.kernels.jpeg import (  # noqa: E402
+    build_host_library, pixels_on_host)
 from soft_contrastive_learning_torch.utils import jpeg  # noqa: E402
 
 MODES = ("file", "buffer")
-
-# the host loop over J1's two launches: every block's column and row passes,
-# then every output pixel, through the kernels' own per-thread functions
-HARNESS = r"""
-#include "%s"
-extern "C" int j1_on_host(const int16_t* coefs, const int32_t* quant, uint8_t* planes,
-                          uint8_t* out, const int64_t* comp, int ncomp, int colour,
-                          int orientation, int height, int width, int smooth, int imcu_rows,
-                          int last_good, int64_t blocks) {
-  J1Geom g;
-  J1Smooth sm;
-  memset(&g, 0, sizeof g);
-  memset(&sm, 0, sizeof sm);
-  g.ncomp = ncomp; g.colour = colour; g.orientation = orientation;
-  g.height = height; g.width = width; g.blocks = blocks;
-  sm.imcu_rows = imcu_rows; sm.last_good = last_good;
-  for (int c = 0; c < ncomp; ++c) {
-    const int64_t* k = comp + 30 * c;
-    J1Comp& j = g.c[c];
-    j.block0 = k[0]; j.plane0 = k[1]; j.bw = (int)k[2]; j.bh = (int)k[3]; j.dw = (int)k[4];
-    j.dh = (int)k[5]; j.hr = (int)k[6]; j.vr = (int)k[7]; j.fancy = (int)k[8]; j.v = (int)k[9];
-    for (int i = 0; i < 20; ++i) sm.bits[c][i] = (int)k[10 + i];
-  }
-  for (int64_t blk = 0; blk < blocks; ++blk) {
-    long long ws[64];
-    const int ci = find_comp(g, blk);
-    for (int lane = 0; lane < 8; ++lane) {
-      if (smooth) idct_column<true>(coefs, quant, g, sm, ci, blk, lane, ws);
-      else idct_column<false>(coefs, quant, g, sm, ci, blk, lane, ws);
-    }
-    const J1Comp& k = g.c[ci];
-    const int64_t b = blk - k.block0;
-    const int by = (int)(b / k.bw), bx = (int)(b %% k.bw);
-    for (int lane = 0; lane < 8; ++lane)
-      idct_row(ws, lane, planes + k.plane0 + (int64_t)(by * 8 + lane) * (k.bw * 8) + bx * 8);
-  }
-  const int out_w = orientation >= 5 ? height : width;
-  for (int64_t i = 0; i < (int64_t)height * width; ++i)
-    pixel(planes, g, (int)(i / out_w), (int)(i %% out_w), out + i * 3);
-  return 0;
-}
-"""
-
 
 def textured(rng, h, w):
     y, x = np.mgrid[:h, :w]
@@ -162,20 +118,6 @@ def files():
     return out
 
 
-def build(tmp):
-    src = os.path.join(tmp, "j1_host.cpp")
-    with open(src, "w") as f:
-        f.write(HARNESS % os.path.join(ROOT, "soft_contrastive_learning_torch", "ops", "kernels",
-                                       "csrc", "jpeg.cu"))
-    lib = os.path.join(tmp, "libj1_host.so")
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-o", lib, src],
-                   check=True)
-    dll = ctypes.CDLL(lib)
-    _bind(dll)
-    dll.j1_on_host.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_int64]
-    return dll
-
-
 def native(dll, data, source="buffer"):
     """``ops/kernels/jpeg.py::entropy_decode`` on the g++ build."""
     import soft_contrastive_learning_torch.ops.kernels.jpeg as kj
@@ -186,19 +128,6 @@ def native(dll, data, source="buffer"):
         return kj.entropy_decode(data, "f", source)
     finally:
         kj._lib = real
-
-
-def j1_on_host(dll, co):
-    f = co.frame
-    geom = _geometry(f)
-    planes = np.zeros(f.block_offsets()[-1] * 64, np.uint8)
-    out = np.zeros((*f.output_shape(), 3), np.uint8)
-    smooth = f.smoothing is not None
-    dll.j1_on_host(co.coefs.ctypes.data, co.quant.ctypes.data, planes.ctypes.data,
-                   out.ctypes.data, geom.ctypes.data, len(f.components), f.colour,
-                   f.orientation, f.height, f.width, int(smooth), f.imcu_rows,
-                   f.smoothing[0] if smooth else 0, f.block_offsets()[-1])
-    return out
 
 
 def outcome(fn, data, mode):
@@ -258,8 +187,9 @@ def main(argv=None) -> int:
           f"in both modes: {tally['exact']} exact, {tally['lanes']} outside the 16-bit lanes, "
           f"{bad} not exact")
     with tempfile.TemporaryDirectory() as tmp:
-        dll = build(tmp)
+        dll = build_host_library(tmp)
         wrong = checked = 0
+        batch, plains = [], []
         for name, data in sweep:
             for mode in MODES:
                 a = outcome(lambda x, m: jpeg.decode_coefficients(x, name, m), data, mode)
@@ -274,12 +204,19 @@ def main(argv=None) -> int:
                 plain = jpeg.pixels_plain(torch.from_numpy(co.coefs), torch.from_numpy(co.quant),
                                           co.frame).numpy()
                 checked += 1
-                if not np.array_equal(j1_on_host(dll, co), plain):
+                batch.append(co)
+                plains.append(plain)
+                if not np.array_equal(pixels_on_host(dll, [co])[0], plain):
                     wrong += 1
-                    print(f"J1's functions differ ({mode}): {name}")
+                    print(f"J1's CTAs differ ({mode}): {name}")
+        for co, got, plain in zip(batch, pixels_on_host(dll, batch), plains):
+            if not np.array_equal(got, plain):
+                wrong += 1
+                print(f"J1's CTAs differ in the batch of all: {co.frame}")
         print(f"2. the same files: the g++-built entropy decoder equals the plain one on "
-              f"{2 * len(sweep) - wrong} of {2 * len(sweep)} decodes, J1's per-thread functions "
-              f"the plain pixel stage on {checked} images; {wrong} differ")
+              f"{2 * len(sweep) - wrong} of {2 * len(sweep)} decodes, J1's CTAs run on the "
+              f"host the plain pixel stage on {checked} images alone and in one batch; {wrong} "
+              "differ")
         bad += wrong
         rng = np.random.default_rng(5)
         im = rng.integers(0, 255, (40, 56, 3), np.uint8)

@@ -338,3 +338,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def indexed_device(device: str | torch.device) -> torch.device:
+    """``device`` with a CUDA device's index made explicit: the calling
+    thread's current device. CUDA's current device is per host thread (a new
+    thread's is cuda:0), so an object that hands work for ``cuda`` to other
+    threads (decode pools, HTTP handlers) resolves it where it is made."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

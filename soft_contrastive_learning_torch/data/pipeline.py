@@ -24,7 +24,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from soft_contrastive_learning_torch.core.config import TrainConfig
+from soft_contrastive_learning_torch.core.config import TrainConfig, indexed_device
 from soft_contrastive_learning_torch.data.toycity import ToyCity
 from soft_contrastive_learning_torch.utils.cv import normalize_geometry
 from soft_contrastive_learning_torch.utils.io import load_csv, load_img
@@ -49,7 +49,8 @@ class FilesystemSource:
     def __init__(self, img_root: str, shuffled_root: str, anchor_root: str = "",
                  loc_ref_root: str = "", device=None):
         self.img_root = img_root
-        self.device = device
+        # indexed: the feed's threads' current device is cuda:0
+        self.device = None if device is None else indexed_device(device)
         self.shuffled_root = shuffled_root
         self.anchor_root = anchor_root
         self.loc_ref_root = loc_ref_root

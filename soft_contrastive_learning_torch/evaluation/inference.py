@@ -8,10 +8,13 @@ image root) and dumps the feature matrix as ``{set}_{out_name}.pickle``,
 float32 or float16: the raw descriptor with ``reduction`` ``none`` and
 ``pca`` (32,768-D for the flagship, which the top-N sweep whitens
 downstream), the reduced output (FC, SPP) otherwise, as in JAX. Images are read by
-the port's codecs (``utils/io.py::load_img``: PNG on the host, JPEG on the
-extractor's device, J1 on the card), 4 batches at a time on an 8-thread
-pool while the card embeds the batches before them; ``oxs`` sets are read
-as ``.jpg``, as the JAX package reads them.
+the port's codecs (``utils/io.py``: PNG on the host, JPEG on the
+extractor's device) in chunks of 4 batches while the card embeds the chunk
+before: an 8-thread pool reads and entropy-decodes a chunk's files
+(``prepare_img``), then one J1 launch on the JPEG decoder's own stream
+turns the chunk's JPEGs into pixels (``finish_imgs``, on a thread of its
+own, so that it does not wait for the model); ``oxs`` sets are read as
+``.jpg``, as the JAX package reads them.
 With a mesh (``parallel/mesh.py``) each padded batch is split over the
 ranks: each rank embeds its rows on its device and the descriptors are
 gathered in rank order, so every rank returns the whole output, as JAX's
@@ -27,13 +30,15 @@ from typing import List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_device
+from soft_contrastive_learning_torch.core.config import (
+    ModelConfig, indexed_device, resolve_device)
 from soft_contrastive_learning_torch.data.pipeline import pad_to_multiple
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
 from soft_contrastive_learning_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from soft_contrastive_learning_torch.train.step import build_embed_step
 from soft_contrastive_learning_torch.utils.cv import normalize_geometry
-from soft_contrastive_learning_torch.utils.io import load_csv, load_img, save_pickle
+from soft_contrastive_learning_torch.utils.io import (
+    finish_imgs, load_csv, prepare_img, save_pickle)
 
 DUMP_DTYPES = ("float32", "float16")
 
@@ -65,7 +70,8 @@ class DescriptorExtractor:
         self.mesh = mesh
         if mesh is not None:
             mesh.rows(batch_size)  # raises unless the batch divides over the ranks
-        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # indexed: the decode threads' current device is cuda:0
+        self.device = mesh.device if mesh is not None else indexed_device(resolve_device(device))
         self.portrait = portrait
         self.raw = raw_descriptor
         if quant_scales is not None:
@@ -78,6 +84,7 @@ class DescriptorExtractor:
             model.load_state_dict(params)
             self._embed = build_embed_step(model.to(self.device))
         self._pool = ThreadPoolExecutor(max_workers=8)  # decode threads for extract_files
+        self._pixels = ThreadPoolExecutor(max_workers=1)  # a chunk's J1 launch and download
 
     def extract_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
         prepared = [
@@ -99,24 +106,36 @@ class DescriptorExtractor:
         return np.concatenate(feats)[:n]
 
     def extract_files(self, paths: Sequence[str], img_root: str = "") -> np.ndarray:
-        """Embed image files in chunks of 4 batches: the pool decodes the
-        next chunk while the card embeds this one."""
+        """Embed image files in chunks of 4 batches: the pool reads and
+        entropy-decodes the next chunk, and J1 turns its JPEGs into pixels
+        in one launch, while the card embeds this one. A refused file
+        raises, naming it, as JAX's ``load_img`` does."""
 
-        def load(p):
-            return load_img(os.path.join(img_root, p), self.device)
+        def prepare(p):
+            path = os.path.join(img_root, p)
+            with open(path, "rb") as f:
+                return prepare_img(f.read(), path, self.device, source="file")
+
+        def decode(chunk):
+            return finish_imgs(list(self._pool.map(prepare, chunk)), self.device)
 
         chunk = self.batch_size * 4
         out: List[np.ndarray] = []
-        pending = self._pool.map(load, paths[:chunk]) if len(paths) else None
+        pending = self._pixels.submit(decode, paths[:chunk]) if len(paths) else None
         for start in range(0, len(paths), chunk):
-            images = list(pending)
+            images = pending.result()
             nxt = paths[start + chunk : start + 2 * chunk]
-            pending = self._pool.map(load, nxt) if nxt else None
+            pending = self._pixels.submit(decode, nxt) if nxt else None
             out.append(self.extract_images(images))
         if out:
             return np.concatenate(out)
         dim = self.cfg.descriptor_dim if self.raw else self.cfg.output_dim
         return np.zeros((0, dim), np.float32)
+
+    def close(self) -> None:
+        """Let the decode threads go (without waiting)."""
+        self._pool.shutdown(wait=False)
+        self._pixels.shutdown(wait=False)
 
 
 def run_inference(
@@ -148,7 +167,7 @@ def run_inference(
         cfg, params, batch_size=batch_size, device=device,
         portrait="achen" in set_name, raw_descriptor=cfg.reduction in ("none", "pca"), mesh=mesh)
     features = extractor.extract_files(paths, img_root)
-    extractor._pool.shutdown(wait=False)
+    extractor.close()
     features = features.astype(np.dtype(dump_dtype), copy=False)
     out_path = os.path.join(out_root, f"{set_name}_{out_name}.pickle")
     if mesh is None or mesh.rank == 0:

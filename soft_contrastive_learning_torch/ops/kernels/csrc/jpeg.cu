@@ -18,30 +18,51 @@
 // orientation. J1 is bit-equal to it on every input: every step is integer
 // arithmetic.
 //
-// Two launches, counted as one J1 launch by the wrapper:
-//  (1) idct_kernel: 8 threads per 8x8 block, 32 blocks per 256-thread CTA.
-//      Thread t of a block loads column t's coefficients, dequantizes and
-//      runs the column pass into shared memory (in the instantiation for a
-//      smoothed frame, threads 0-3 first replace the column's entries among
-//      the first ten coefficients by their estimates from the DC values of
-//      the 5x5 blocks around, read from the coefficient buffer; the plain
-//      instantiation carries none of that code or its registers); after a warp barrier it runs
-//      the row pass of row t and writes the row's 8 samples (one 8-byte
-//      store) into the component's plane in device memory.
-//  (2) pixel_kernel: one thread per output pixel. It maps the oriented pixel
-//      back to the decoded one, reads each component's plane through its
-//      upsampling filter (up to 4 plane bytes per component), converts the
-//      colour and writes 3 bytes. Fancy upsampling reads neighbouring rows of
-//      the planes, so it runs after (1) has written all of them.
+// One launch over a batch of images (j1_kernel), of any sizes, samplings,
+// colour transforms and orientations. Its unit is a tile: one iMCU row of
+// one image by as many MCU columns as 128 pixels hold (at most 32 x 128
+// pixels), or, where that leaves the batch fewer tiles than the card has
+// SMs (a lone image), as 64, 32 or 16 pixels hold, so that more, shorter
+// tiles run at once (J1Image.span is per image). The wrapper (ops/kernels/jpeg.py plan_batch) writes a table of
+// J1Image entries (each image's geometry, smoothing words and offsets into
+// the batch's coefficient, table and output buffers) and a tile prefix; a
+// CTA of 256 threads finds its image and tile from them and runs:
+//  - the prologue: the image's entry and tables into shared memory, the
+//    tile's plan (tile_plan): per component its own blocks, the one-block
+//    halo fancy upsampling reads above, below and to each side (inside the
+//    component: jdsample.c repeats the edge sample), and a region of
+//    samples in shared memory with room for the halo;
+//  - the blocks: 96 blocks' coefficients loaded at once (8 threads a block,
+//    16 bytes a thread), then 32 blocks at a time: the block smoothing
+//    where the frame has it (its DC values, with a margin of two blocks,
+//    staged in shared memory once a tile), the column pass, the row pass
+//    into the region. The passes run in 32 bits wherever a block's
+//    dequantized inputs and column outputs stay within +-35,079 (each sum
+//    then lies inside int32; checked per block), else that block's rows
+//    are computed again in 64 bits (wide_row), as the plain version does
+//    beyond libjpeg-turbo's 16-bit lanes;
+//  - the pixels: two adjacent pixels a thread (8 to 64 threads a row, as
+//    the tile is wide), each component's pair read
+//    from its region (h2v1, h1v2 and h2v2 triangle filters, or repetition),
+//    converted, and staged in shared memory at the oriented place (for
+//    orientations 5-8 the tile's transpose), each output row shifted by its
+//    address mod 16;
+//  - the store: the staged rows to the output in 16-byte words, a warp a
+//    row.
+// There is no planes buffer in device memory and no second launch. The
+// instantiation with the block smoothing is launched only for a batch that
+// holds a smoothed image, so that the common case carries none of its
+// registers. Where J1Args.clocks is set, thread 0 writes its SM, the global
+// timer at its start and end, and the SM's clock after each phase (the
+// wrapper's phase_clocks reads them).
 // Bound on this card: bytes. A sample in costs a 2-byte coefficient (plus a
 // 64-entry table per component), a pixel out 3 bytes: ~6 B a pixel at 4:2:0
 // (0.26 MB for 180x240, 0.08 us at 3.35 TB/s; 7.4 MB for 1280x960, 2.2 us).
 // The operations, ~30 integer multiply-adds a sample (smoothing adds ~200 a
-// block), are far below the card's rate. At 180x240 the two launches' fixed
-// cost (~2-3 us each) is the time; the planes (1 B a sample) go through L2
-// between the launches. The design spends nothing on the small case beyond
-// two launches, and keeps the large one to one pass over the coefficients
-// and one over the planes.
+// block), are far below the card's rate. What the time is made of is the
+// tiles' latency: a tile's phases are chains of shared-memory reads and
+// integer work on 8 warps, and the halo costs a 4:2:0 tile 92 blocks for
+// its 48; the batch is what fills the card (PERF.md, J1's row).
 //
 // The entropy decoder (scl_jpeg_info, scl_jpeg_entropy) is host code: Huffman
 // and arithmetic decoding are serial bit streams, the part nvJPEG's hybrid
@@ -64,8 +85,17 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define HD __host__ __device__ __forceinline__
+#define HD_COLD __host__ __device__ __noinline__
 #else
 #define HD inline
+#define HD_COLD inline
+#endif
+// a loop of constant count unrolled on the card, so that the arrays it
+// indexes stay in registers
+#ifdef __CUDA_ARCH__
+#define UNROLL _Pragma("unroll")
+#else
+#define UNROLL
 #endif
 
 namespace {
@@ -82,46 +112,263 @@ constexpr int kNat[80] = {
     29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
     47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
-// ------------------------------------------------------------------ geometry
-// What both launches need of a component (passed by value in the launch).
+// ------------------------------------------------------------------ the batch table
+// One image of a J1 batch as the wrapper writes it (ops/kernels/jpeg.py
+// IMAGE_DTYPE is the same layout; the static_assert pins it).
 struct J1Comp {
-  int64_t block0;  // first block in the coefficient buffer
-  int64_t plane0;  // first byte of its plane
-  int bw, bh;      // blocks (the plane is bw*8 wide)
-  int dw, dh;      // samples it holds
-  int hr, vr;      // upsampling ratios
-  int fancy;       // triangle filter (else repetition)
-  int v;           // its vertical sampling factor (block rows per iMCU row)
+  int32_t block0;              // its first block, counted from the image's first
+  int32_t bw, bh;              // blocks in its coefficient array
+  int32_t dw, dh;              // samples it holds
+  int32_t h, v;                // sampling factors: its blocks in an MCU
+  int32_t hr, vr;              // upsampling ratios
+  int32_t fancy;               // triangle filter (else repetition)
+  int32_t bits[kSmoothWords];  // smoothing: known bits of zigzag 0-9, of 1-9 before the last scan
+  int32_t pad[2];
 };
 
-struct J1Geom {
+struct J1Image {
+  int32_t ncomp, colour, orientation, height, width, hmax, vmax;
+  int32_t span;       // MCU columns a tile spans
+  int32_t spans;      // tiles across; imcu_rows tiles down (a tile is an iMCU row's span)
+  int32_t imcu_rows;
+  int32_t smooth, last_good;  // block smoothing, and the last iMCU row whose data was whole
+  int32_t quant0;     // its first table among the batch's
+  int32_t pad;
+  int64_t coef0;      // its first block among the batch's coefficients
+  int64_t out0;       // its first byte in the batch's output (16-byte aligned)
   J1Comp c[kMaxComps];
-  int ncomp, colour, orientation, height, width;
-  int64_t blocks;  // all components'
+};
+static_assert(sizeof(J1Comp) == 128 && sizeof(J1Image) == 584,
+              "J1Image is ops/kernels/jpeg.py's IMAGE_DTYPE");
+
+// the launch's arguments: the table, the tile prefix (image i owns tiles
+// prefix[i] .. prefix[i + 1] - 1 of the grid), the packed coefficients and
+// tables, the output and the launch's dynamic shared memory
+struct J1Args {
+  const J1Image* images;
+  const int32_t* prefix;
+  const int16_t* coefs;
+  const int32_t* quant;
+  uint8_t* out;
+  int64_t* clocks;  // null, or kClocks words a CTA: its SM, then the phases' ends
+  int nimages, smem;
 };
 
-// the block smoothing's state, passed to the smoothing IDCT launch only
-struct J1Smooth {
-  int bits[kMaxComps][kSmoothWords];  // coef bits now (zigzag 0-9), before the last scan (1-9)
-  int imcu_rows, last_good;
+// one component's part of a tile: its own first block row and column, the
+// blocks it transforms (its own and the one-block halo fancy upsampling
+// reads: rows by_lo..by_hi-1, columns bx_lo..bx_hi-1, inside the component),
+// its region of samples in shared memory (rows x pitch bytes from sample
+// (8 by0 - 1, 8 bx0 - 8): one halo row above and below, 8 columns either
+// side), its DC stage for the smoothing (the blocks' DC values with a margin
+// of two blocks, dc_pitch words a row) and its first job (block) in the
+// tile's list
+struct J1Tile {
+  int by0, bx0, by_lo, by_hi, bx_lo, bx_hi;
+  int rows, pitch, region;
+  int dc, dc_pitch;
+  int jobs0;
+  int pad;
 };
+
+// the tile's pixels in the decoded image
+struct J1Rect {
+  int r0, c0, th, tw;
+};
+
+// the tile in the output: its first row and column, rows and columns (5-8
+// swap them), the staging pitch, and the output image's width
+struct J1Out {
+  int oy0, ox0, rows, cols, pitch;
+  int64_t width;
+};
+
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 768 / kThreads;  // CTAs an SM holds: 80 registers a thread
+constexpr int kClocks = 8;  // the SM, the global timer at the start and end, the SM's clock
+                            // at the start and after each of 4 phases
+constexpr int kJobs = kThreads / 8;  // blocks transformed at once, 8 threads each
+constexpr int kStage = 96;           // blocks whose coefficients are loaded at once
+static_assert(kStage % kJobs == 0 && kThreads % 128 == 0, "J1's CTA");
+// a block's words in the workspace and int16 in the coefficient stage: 64 + 8,
+// so that the four blocks of a warp fall on other banks
+constexpr int kWsPitch = 72, kCfPitch = 72;
+// the largest input magnitude of an islow pass whose sums stay inside int32:
+// every output is a sum of at most 61,214 x its largest input, plus 2^17
+constexpr int kIdct32Max = 35079;
+// shared memory: the image's table entry, the tiles, the wide flags and the
+// jobs' blocks, misc words (image, tile, jobs, late bytes, region bytes, DC
+// words), the tables, then per image the late area (the IDCT's workspace
+// and coefficient stage, which the output staging takes over once the
+// blocks are done), the regions and the DC stage
+constexpr int kSmTile = 592;
+constexpr int kSmWide = kSmTile + kMaxComps * (int)sizeof(J1Tile);
+constexpr int kSmJob = kSmWide + 4 * kStage;
+constexpr int kSmMisc = kSmJob + 12 * kStage;
+constexpr int kSmQuant = kSmMisc + 32;
+constexpr int kSmLate = kSmQuant + 4 * 64 * kMaxComps;
+constexpr int kLateCf = 4 * kWsPitch * kJobs;
+constexpr int kLateMin = kLateCf + 2 * kCfPitch * kStage;
+static_assert(sizeof(J1Image) <= kSmTile && kSmLate % 16 == 0 && kLateCf % 16 == 0 &&
+                  kLateMin % 16 == 0,
+              "J1 shared memory layout");
+
+HD int imin(int a, int b) { return a < b ? a : b; }
+HD int imax(int a, int b) { return a > b ? a : b; }
+HD int align16(int n) { return (n + 15) & ~15; }
+
+HD void fault() {
+#ifdef __CUDA_ARCH__
+  __trap();
+#else
+  __builtin_trap();
+#endif
+}
+
+HD void copy16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+HD void store8(void* dst, uint32_t lo, uint32_t hi) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
+#else
+  memcpy(dst, &lo, 4);
+  memcpy(static_cast<uint8_t*>(dst) + 4, &hi, 4);
+#endif
+}
+
+// the CTA's shared memory
+struct J1Smem {
+  uint8_t* base;
+  HD J1Image& im() const { return *reinterpret_cast<J1Image*>(base); }
+  HD J1Tile* tile() const { return reinterpret_cast<J1Tile*>(base + kSmTile); }
+  HD int* wide() const { return reinterpret_cast<int*>(base + kSmWide); }
+  HD int* job(int j) const { return reinterpret_cast<int*>(base + kSmJob) + 3 * j; }
+  HD int* misc() const { return reinterpret_cast<int*>(base + kSmMisc); }
+  HD int32_t* quant(int k) const { return reinterpret_cast<int32_t*>(base + kSmQuant) + 64 * k; }
+  HD int32_t* ws(int slot) const {
+    return reinterpret_cast<int32_t*>(base + kSmLate) + kWsPitch * slot;
+  }
+  HD int16_t* cf(int j) const {
+    return reinterpret_cast<int16_t*>(base + kSmLate + kLateCf) + kCfPitch * j;
+  }
+  HD uint8_t* stage() const { return base + kSmLate; }
+  HD uint8_t* region(int k) const { return base + kSmLate + misc()[3] + tile()[k].region; }
+  HD int32_t* dc(int k) const {
+    return reinterpret_cast<int32_t*>(base + kSmLate + misc()[3] + misc()[4]) + tile()[k].dc;
+  }
+};
+
+// ------------------------------------------------------------------ the tile plan
+HD J1Rect tile_rect(const J1Image& im, int tile) {
+  J1Rect t;
+  t.r0 = tile / im.spans * 8 * im.vmax;
+  t.c0 = tile % im.spans * im.span * 8 * im.hmax;
+  t.th = imin(8 * im.vmax, im.height - t.r0);
+  t.tw = imin(8 * im.hmax * im.span, im.width - t.c0);
+  return t;
+}
+
+// each component's part of tile `tile` (into t), and into m (the misc
+// words): the jobs (blocks to transform); the late area's bytes (the IDCT's
+// workspace and coefficient stage, or the output staging, whichever is
+// larger); the regions' bytes; the DC stage's words
+// (ops/kernels/jpeg.py plan_batch and tile_plan are the same arithmetic)
+HD void tile_plan(const J1Image& im, int tile, J1Tile* t, int* m) {
+  const int iy = tile / im.spans, sp = tile % im.spans;
+  const int th = 8 * im.vmax, tw = 8 * im.hmax * im.span;
+  int jobs = 0, region = 0, dc = 0;
+  for (int k = 0; k < im.ncomp; ++k) {
+    const J1Comp& c = im.c[k];
+    const int fv = c.fancy && c.vr == 2, fh = c.fancy && c.hr == 2;
+    J1Tile& u = t[k];
+    u.by0 = iy * c.v;
+    u.bx0 = sp * im.span * c.h;
+    u.by_lo = imax(u.by0 - fv, 0);
+    u.by_hi = imin(u.by0 + c.v + fv, c.bh);
+    u.bx_lo = imax(u.bx0 - fh, 0);
+    u.bx_hi = imin(u.bx0 + im.span * c.h + fh, c.bw);
+    u.rows = 8 * c.v + 2;
+    u.pitch = 8 * im.span * c.h + 16;
+    u.region = region;
+    region += u.rows * u.pitch;
+    u.dc_pitch = u.bx_hi - u.bx_lo + 4;
+    u.dc = dc;
+    if (im.smooth) dc += (u.by_hi - u.by_lo + 4) * u.dc_pitch;
+    u.jobs0 = jobs;
+    jobs += (u.by_hi - u.by_lo) * (u.bx_hi - u.bx_lo);
+  }
+  const int staging = im.orientation >= 5 ? tw * ((3 * th + 30) & ~15) : th * ((3 * tw + 30) & ~15);
+  m[2] = jobs;
+  m[3] = imax(kLateMin, align16(staging));
+  m[4] = region;
+  m[5] = dc;
+}
+
+// the output position of decoded pixel (r, c): OpenCV's EXIF transform
+HD void oriented(int orientation, int h, int w, int r, int c, int* oy, int* ox) {
+  switch (orientation) {
+    case 2: *oy = r; *ox = w - 1 - c; break;
+    case 3: *oy = h - 1 - r; *ox = w - 1 - c; break;
+    case 4: *oy = h - 1 - r; *ox = c; break;
+    case 5: *oy = c; *ox = r; break;
+    case 6: *oy = c; *ox = h - 1 - r; break;
+    case 7: *oy = w - 1 - c; *ox = h - 1 - r; break;
+    case 8: *oy = w - 1 - c; *ox = r; break;
+    default: *oy = r; *ox = c; break;
+  }
+}
+
+HD J1Out out_rect(const J1Image& im, const J1Rect& t) {
+  int ya, xa, yb, xb;
+  oriented(im.orientation, im.height, im.width, t.r0, t.c0, &ya, &xa);
+  oriented(im.orientation, im.height, im.width, t.r0 + t.th - 1, t.c0 + t.tw - 1, &yb, &xb);
+  const bool turn = im.orientation >= 5;
+  J1Out o;
+  o.oy0 = imin(ya, yb);
+  o.ox0 = imin(xa, xb);
+  o.rows = turn ? t.tw : t.th;
+  o.cols = turn ? t.th : t.tw;
+  o.pitch = (3 * o.cols + 30) & ~15;  // a row's bytes, shifted by its address mod 16
+  o.width = turn ? im.height : im.width;
+  return o;
+}
+
+// the output byte of row j's first pixel
+HD int64_t out_byte(const J1Image& im, const J1Out& o, int j) {
+  return im.out0 + 3 * ((int64_t)(o.oy0 + j) * o.width + o.ox0);
+}
+
+// job j of the tile: its component and block
+HD void job_block(const J1Smem& s, int job, int* k, int* by, int* bx) {
+  const J1Image& im = s.im();
+  const J1Tile* t = s.tile();
+  int ci = 0;
+  while (ci + 1 < im.ncomp && job >= t[ci + 1].jobs0) ++ci;
+  const int w = t[ci].bx_hi - t[ci].bx_lo, local = job - t[ci].jobs0;
+  *k = ci;
+  *by = t[ci].by_lo + local / w;
+  *bx = t[ci].bx_lo + local % w;
+}
 
 // ------------------------------------------------------------------ smoothing
-// the zigzag index (1-9) of the natural positions the smoothing estimates
-// (jdcoefct.c's Q01_POS ... Q30_POS), 0 for the DC, -1 for the others
-HD int smooth_index(int pos) {
-  switch (pos) {
-    case 0: return 0;
+// the natural position of zigzag coefficient z (0-9)
+HD int zigzag_pos(int z) {
+  switch (z) {
     case 1: return 1;
-    case 8: return 2;
-    case 16: return 3;
-    case 9: return 4;
-    case 2: return 5;
-    case 3: return 6;
-    case 10: return 7;
-    case 17: return 8;
-    case 24: return 9;
-    default: return -1;
+    case 2: return 8;
+    case 3: return 16;
+    case 4: return 9;
+    case 5: return 2;
+    case 6: return 3;
+    case 7: return 10;
+    case 8: return 17;
+    case 9: return 24;
+    default: return 0;
   }
 }
 
@@ -143,50 +390,20 @@ HD void smooth_rows(const J1Comp& k, int imcu_rows, int r, int* rows) {
   for (int i = 0; i < 5; ++i) rows[i] = w[i] < k.bh ? w[i] : -1;
 }
 
-// the block columns of the window around column b: the sliding registers
-// repeat the edge block
-HD void smooth_cols(const J1Comp& k, int b, int* cols) {
-  const int wib = (k.dw + 7) / 8;
-  for (int j = 0; j < 5; ++j) {
-    const int c = b + j - 2;
-    cols[j] = c < 0 ? 0 : (c > wib - 1 ? wib - 1 : c);
-  }
-}
-
 // a smoothing estimate: rounded division by Q << 8, limited below 2^al where al > 0
 HD long long smooth_pred(long long num, long long q, int al, bool limit) {
-  long long mag = ((q << 7) + (num < 0 ? -num : num)) / (q << 8);
+  const long long a = (q << 7) + (num < 0 ? -num : num), b = q << 8;
+  long long mag = (a >> 32) == 0 && b > 0 && (b >> 32) == 0
+                      ? (long long)((uint32_t)a / (uint32_t)b)
+                      : a / b;
   if (limit && al > 0 && mag >= (1LL << al)) mag = (1LL << al) - 1;
   return num < 0 ? -mag : mag;
 }
 
-// coefficient `pos` (natural order) of block `blk` of component ci as the
-// IDCT takes it: the stored value, or its smoothing estimate
-HD int coef_at(const int16_t* coefs, const int32_t* quant, const J1Geom& g, const J1Smooth& sm,
-               int ci, int64_t blk, int pos) {
-  const int raw = coefs[blk * 64 + pos];
-  const int k = smooth_index(pos);
-  if (k < 0) return raw;
-  const J1Comp& c = g.c[ci];
-  const int64_t b = blk - c.block0;
-  const int by = (int)(b / c.bw), bx = (int)(b % c.bw);
-  const bool prev = by / c.v > sm.last_good;
-  int bits[10];
-  for (int i = 0; i < 10; ++i) bits[i] = prev && i ? sm.bits[ci][10 + i] : sm.bits[ci][i];
-  bool change_dc = true;
-  for (int i = 1; i < 10; ++i) change_dc = change_dc && bits[i] == -1;
-  if (pos == 0 && !change_dc) return raw;
-  if (k > 5 && !change_dc) return raw;
-  if (k > 0 && (bits[k] == 0 || raw != 0)) return raw;
-  int rows[5], cols[5];
-  smooth_rows(c, sm.imcu_rows, by, rows);
-  smooth_cols(c, bx, cols);
-  long long D[26];
-  for (int i = 0; i < 5; ++i)
-    for (int j = 0; j < 5; ++j)
-      D[5 * i + j + 1] =
-          rows[i] < 0 ? 0 : coefs[(c.block0 + (int64_t)rows[i] * c.bw + cols[j]) * 64];
-  const int32_t* q = quant + ci * 64;
+// the estimate of coefficient `pos` (natural order) from the DC values D[1..25]
+// of the 5x5 blocks around (jdcoefct.c decompress_smooth_data): each sum of
+// D's stays within 432 x 2^15, its product with the table's DC entry needs 64 bits
+HD int16_t smooth_estimate(int pos, const int* D, const int32_t* q, int al, bool change_dc) {
   const long long q00 = q[0];
   long long num;
   switch (pos) {
@@ -231,13 +448,28 @@ HD int coef_at(const int16_t* coefs, const int32_t* quant, const J1Geom& g, cons
             6 * D[20] - 2 * D[21] - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25];
       return s16(smooth_pred(q00 * num, q00, 0, false));
   }
-  return s16(smooth_pred(q00 * num, q[pos], bits[k], true));
+  return s16(smooth_pred(q00 * num, q[pos], al, true));
+}
+
+// D[1..25]: the DC values of the 5x5 window around block (by, bx) of
+// component k, from the tile's DC stage (columns past the component's last
+// block of samples repeat it, rows past the array read 0)
+HD void dc_window(const J1Smem& s, int k, int by, int bx, int* D) {
+  const J1Image& im = s.im();
+  const J1Tile& u = s.tile()[k];
+  const int32_t* dc = s.dc(k);
+  int rows[5];
+  smooth_rows(im.c[k], im.imcu_rows, by, rows);
+  for (int i = 0; i < 5; ++i)
+    for (int j = 0; j < 5; ++j)
+      D[5 * i + j + 1] =
+          rows[i] < 0 ? 0 : dc[(rows[i] - u.by_lo + 2) * u.dc_pitch + bx + j - u.bx_lo];
 }
 
 // ------------------------------------------------------------------ IDCT
 constexpr int kConstBits = 13, kPass1Bits = 2;
 
-// one pass of jpeg_idct_islow over 8 inputs; outputs descaled by `shift`
+// one pass of jpeg_idct_islow over 8 inputs in 64 bits; outputs descaled by `shift`
 HD void idct_1d(const long long* x, long long* out, int shift) {
   long long z2 = x[2], z3 = x[6];
   long long z1 = (z2 + z3) * 4433;
@@ -273,60 +505,108 @@ HD void idct_1d(const long long* x, long long* out, int shift) {
   out[7] = (tmp10 - t3 + half) >> shift;
 }
 
-// the column pass of column `col` of block blk (component ci): its
-// coefficients (smoothed where kSmooth) dequantized down the column, outputs
-// (one per row) into ws[row * 8 + col]
-template <bool kSmooth>
-HD void idct_column(const int16_t* coefs, const int32_t* quant, const J1Geom& g,
-                    const J1Smooth& sm, int ci, int64_t blk, int col, long long* ws) {
-  const int32_t* q = quant + ci * 64;
-  long long x[8], o[8];
-  for (int k = 0; k < 8; ++k) {
-    const int c = kSmooth ? coef_at(coefs, quant, g, sm, ci, blk, k * 8 + col)
-                          : coefs[blk * 64 + k * 8 + col];
-    x[k] = (long long)c * q[k * 8 + col];
-  }
-  idct_1d(x, o, kConstBits - kPass1Bits);
-  for (int k = 0; k < 8; ++k) ws[k * 8 + col] = o[k];
+// the same pass in 32 bits: the products and sums wrap (unsigned), and the
+// outputs are exact wherever every input is within +-kIdct32Max (each
+// output's sum then lies inside int32, and a sum mod 2^32 is the sum)
+HD void idct_1d32(const int32_t* xin, int32_t* out, int shift) {
+  typedef uint32_t U;
+  const U x0 = (U)xin[0], x1 = (U)xin[1], x2 = (U)xin[2], x3 = (U)xin[3];
+  const U x4 = (U)xin[4], x5 = (U)xin[5], x6 = (U)xin[6], x7 = (U)xin[7];
+  const U z1 = (x2 + x6) * 4433u;
+  const U tmp2 = z1 - x6 * 15137u;
+  const U tmp3 = z1 + x2 * 6270u;
+  const U tmp0 = (x0 + x4) << kConstBits;
+  const U tmp1 = (x0 - x4) << kConstBits;
+  const U tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const U tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const U z5 = (x7 + x3 + x5 + x1) * 9633u;
+  const U a1 = (x7 + x1) * (U)-7373, a2 = (x5 + x3) * (U)-20995;
+  const U a3 = (x7 + x3) * (U)-16069 + z5, a4 = (x5 + x1) * (U)-3196 + z5;
+  const U t0 = x7 * 2446u + a1 + a3;
+  const U t1 = x5 * 16819u + a2 + a4;
+  const U t2 = x3 * 25172u + a2 + a3;
+  const U t3 = x1 * 12299u + a1 + a4;
+  const U half = 1u << (shift - 1);
+  out[0] = (int32_t)(tmp10 + t3 + half) >> shift;
+  out[1] = (int32_t)(tmp11 + t2 + half) >> shift;
+  out[2] = (int32_t)(tmp12 + t1 + half) >> shift;
+  out[3] = (int32_t)(tmp13 + t0 + half) >> shift;
+  out[4] = (int32_t)(tmp13 - t0 + half) >> shift;
+  out[5] = (int32_t)(tmp12 - t1 + half) >> shift;
+  out[6] = (int32_t)(tmp11 - t2 + half) >> shift;
+  out[7] = (int32_t)(tmp10 - t3 + half) >> shift;
 }
 
-// the row pass of row `row`: 8 samples, range-limited
-HD void idct_row(const long long* ws, int row, uint8_t* out) {
-  long long o[8];
-  idct_1d(ws + row * 8, o, kConstBits + kPass1Bits + 3);
-  for (int k = 0; k < 8; ++k) {
-    long long v = o[k] + 128;
-    out[k] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+HD uint8_t clamp255(long long v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// two words of 4 samples each: a row pass's outputs, range-limited
+HD void pack_row(const long long* o, uint32_t* lo, uint32_t* hi) {
+  uint32_t w[2] = {0, 0};
+  for (int k = 0; k < 8; ++k) w[k >> 2] |= (uint32_t)clamp255(o[k] + 128) << (8 * (k & 3));
+  *lo = w[0];
+  *hi = w[1];
+}
+
+// row `row` of a block whose passes leave int32 (only corrupt data or a
+// broken table gets there): each column pass again in 64 bits, its output at
+// that row kept, then the row pass; a call of its own, so that its 64-bit
+// registers do not weigh on the common path
+HD_COLD void wide_row(const int16_t* cf, const int32_t* q, int row, uint32_t* lo, uint32_t* hi) {
+  long long w[8];
+  for (int c = 0; c < 8; ++c) {
+    long long x[8], o[8];
+    for (int k = 0; k < 8; ++k) x[k] = (long long)cf[k * 8 + c] * q[k * 8 + c];
+    idct_1d(x, o, kConstBits - kPass1Bits);
+    long long v = o[0];
+    for (int k = 1; k < 8; ++k) v = k == row ? o[k] : v;
+    w[c] = v;
   }
+  long long o[8];
+  idct_1d(w, o, kConstBits + kPass1Bits + 3);
+  pack_row(o, lo, hi);
 }
 
 // ------------------------------------------------------------------ pixels
-HD int plane_at(const uint8_t* planes, const J1Comp& k, int r, int c) {
-  return planes[k.plane0 + (int64_t)r * (k.bw * 8) + c];
+// a component's samples in the tile's region
+struct Region {
+  const uint8_t* p;
+  int row0, col0, pitch;
+  HD int at(int r, int c) const { return p[(r - row0) * pitch + (c - col0)]; }
+};
+
+HD Region region_of(const J1Smem& s, int k) {
+  const J1Tile& u = s.tile()[k];
+  return Region{s.region(k), 8 * u.by0 - 1, 8 * u.bx0 - 8, u.pitch};
 }
 
-// component k's value at decoded pixel (r, c), through its upsampling
-HD int upsampled(const uint8_t* planes, const J1Comp& k, int r, int c) {
-  if (k.hr == 1 && k.vr == 1) return plane_at(planes, k, r, c);
-  if (!k.fancy) return plane_at(planes, k, r / k.vr, c / k.hr);
-  if (k.vr == 1) {  // h2v1
-    int j = c >> 1, x = 3 * plane_at(planes, k, r, j);
-    if (c & 1) return (x + plane_at(planes, k, r, j + 1 < k.dw ? j + 1 : j) + 2) >> 2;
-    return (x + plane_at(planes, k, r, j > 0 ? j - 1 : 0) + 1) >> 2;
+// component k's values at decoded pixels (r, c) and (r, c + 1), c even, as
+// the low and the next byte, through its upsampling (jdsample.c: the h2v1,
+// h1v2 and h2v2 triangle filters with their biases, edges repeated at the
+// component's last sample; sample repetition otherwise)
+HD int sample_pair(const Region& g, const J1Comp& k, int r, int c) {
+  if (k.hr == 1 && k.vr == 1) return g.at(r, c) | g.at(r, c + 1) << 8;
+  if (!k.fancy) {
+    const int rr = r / k.vr;
+    return g.at(rr, c / k.hr) | g.at(rr, (c + 1) / k.hr) << 8;
   }
-  int i = r >> 1;
-  int ni = (r & 1) ? (i + 1 < k.dh ? i + 1 : i) : (i > 0 ? i - 1 : 0);
   if (k.hr == 1) {  // h1v2
-    return (3 * plane_at(planes, k, i, c) + plane_at(planes, k, ni, c) + ((r & 1) ? 2 : 1)) >> 2;
+    const int i = r >> 1, ni = (r & 1) ? imin(i + 1, k.dh - 1) : imax(i - 1, 0);
+    const int bias = (r & 1) ? 2 : 1;
+    return (3 * g.at(i, c) + g.at(ni, c) + bias) >> 2 |
+           ((3 * g.at(i, c + 1) + g.at(ni, c + 1) + bias) >> 2) << 8;
   }
-  int j = c >> 1;  // h2v2
-  int nj = (c & 1) ? (j + 1 < k.dw ? j + 1 : j) : (j > 0 ? j - 1 : 0);
-  int near_sum = 3 * plane_at(planes, k, i, j) + plane_at(planes, k, ni, j);
-  int far_sum = 3 * plane_at(planes, k, i, nj) + plane_at(planes, k, ni, nj);
-  return (3 * near_sum + far_sum + ((c & 1) ? 7 : 8)) >> 4;
+  const int j = c >> 1, jm = imax(j - 1, 0), jp = imin(j + 1, k.dw - 1);
+  if (k.vr == 1) {  // h2v1
+    const int x = 3 * g.at(r, j);
+    return (x + g.at(r, jm) + 1) >> 2 | ((x + g.at(r, jp) + 2) >> 2) << 8;
+  }
+  // h2v2: column sums 3 x the nearer row + the farther, then 3 x the nearer
+  // column sum + the farther, biases 8 and 7, over 16
+  const int i = r >> 1, ni = (r & 1) ? imin(i + 1, k.dh - 1) : imax(i - 1, 0);
+  const int near_sum = 3 * (3 * g.at(i, j) + g.at(ni, j));
+  return (near_sum + 3 * g.at(i, jm) + g.at(ni, jm) + 8) >> 4 |
+         ((near_sum + 3 * g.at(i, jp) + g.at(ni, jp) + 7) >> 4) << 8;
 }
-
-HD uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
 // OpenCV's CMYK -> BGR on libjpeg's (Adobe, inverted) samples, as RGB
 HD void cmyk_rgb(int c, int m, int y, int k, uint8_t* rgb) {
@@ -335,46 +615,31 @@ HD void cmyk_rgb(int c, int m, int y, int k, uint8_t* rgb) {
   rgb[2] = (uint8_t)(k - (((255 - y) * k) >> 8));
 }
 
-// the RGB of output pixel (oy, ox): the decoded pixel it shows (OpenCV's
-// EXIF transform), upsampled and colour-converted
-HD void pixel(const uint8_t* planes, const J1Geom& g, int oy, int ox, uint8_t* rgb) {
-  const int h = g.height, w = g.width;
-  int r, c;
-  switch (g.orientation) {
-    case 2: r = oy; c = w - 1 - ox; break;
-    case 3: r = h - 1 - oy; c = w - 1 - ox; break;
-    case 4: r = h - 1 - oy; c = ox; break;
-    case 5: r = ox; c = oy; break;
-    case 6: r = h - 1 - ox; c = oy; break;
-    case 7: r = h - 1 - ox; c = w - 1 - oy; break;
-    case 8: r = ox; c = w - 1 - oy; break;
-    default: r = oy; c = ox; break;
-  }
-  int v0 = upsampled(planes, g.c[0], r, c);
-  if (g.colour == kGray) {
+// a pixel's RGB from its components' values
+HD void convert(int colour, int v0, int v1, int v2, int v3, uint8_t* rgb) {
+  if (colour == kGray) {
     rgb[0] = rgb[1] = rgb[2] = (uint8_t)v0;
     return;
   }
-  int v1 = upsampled(planes, g.c[1], r, c), v2 = upsampled(planes, g.c[2], r, c);
-  if (g.colour == kRgb) {
+  if (colour == kRgb) {
     rgb[0] = (uint8_t)v0;
     rgb[1] = (uint8_t)v1;
     rgb[2] = (uint8_t)v2;
     return;
   }
-  if (g.colour == kCmyk) {
-    cmyk_rgb(v0, v1, v2, upsampled(planes, g.c[3], r, c), rgb);
+  if (colour == kCmyk) {
+    cmyk_rgb(v0, v1, v2, v3, rgb);
     return;
   }
   // jdcolor.c: FIX(1.40200) 91881, FIX(1.77200) 116130, FIX(0.71414) 46802,
   // FIX(0.34414) 22554, ONE_HALF 1 << 15; arithmetic right shifts
-  const long long cb = v1 - 128, cr = v2 - 128, half = 1LL << 15;
-  int cr_r = (int)((91881 * cr + half) >> 16);
-  int cb_b = (int)((116130 * cb + half) >> 16);
-  int g_off = (int)((-22554 * cb + half - 46802 * cr) >> 16);
-  if (g.colour == kYcck) {  // ycck_cmyk_convert, then OpenCV's CMYK -> BGR
+  const int cb = v1 - 128, cr = v2 - 128, half = 1 << 15;
+  const int cr_r = (91881 * cr + half) >> 16;
+  const int cb_b = (116130 * cb + half) >> 16;
+  const int g_off = (-22554 * cb + half - 46802 * cr) >> 16;
+  if (colour == kYcck) {  // ycck_cmyk_convert, then OpenCV's CMYK -> BGR
     cmyk_rgb(clamp255(255 - (v0 + cr_r)), clamp255(255 - (v0 + g_off)),
-             clamp255(255 - (v0 + cb_b)), upsampled(planes, g.c[3], r, c), rgb);
+             clamp255(255 - (v0 + cb_b)), v3, rgb);
     return;
   }
   rgb[0] = clamp255(v0 + cr_r);
@@ -382,54 +647,388 @@ HD void pixel(const uint8_t* planes, const J1Geom& g, int oy, int ox, uint8_t* r
   rgb[2] = clamp255(v0 + cb_b);
 }
 
-HD int find_comp(const J1Geom& g, int64_t blk) {
-  int ci = 0;
-  while (ci + 1 < g.ncomp && blk >= g.c[ci + 1].block0) ++ci;
-  return ci;
+// ------------------------------------------------------------------ the CTA's steps
+// J1's CTA runs these in order, each by all kThreads threads, with a barrier
+// between two (__syncthreads, or __syncwarp between the steps on one job,
+// whose 8 threads share a warp); under g++ scl_jpeg_pixels_host runs the
+// same steps thread by thread.
+
+// the tile's image (the prefix's entry <= the CTA < the next) and its tile
+HD void j1_locate(const J1Args& a, const J1Smem& s, int cta, int tid) {
+  for (int i = tid; i < a.nimages; i += kThreads) {
+    if (a.prefix[i] <= cta && cta < a.prefix[i + 1]) {
+      s.misc()[0] = i;
+      s.misc()[1] = cta - a.prefix[i];
+    }
+  }
+}
+
+// the image's table entry into shared memory
+HD void j1_fetch(const J1Args& a, const J1Smem& s, int tid) {
+  const int32_t* src = reinterpret_cast<const int32_t*>(a.images + s.misc()[0]);
+  int32_t* dst = reinterpret_cast<int32_t*>(s.base);
+  for (int i = tid; i < (int)(sizeof(J1Image) / 4); i += kThreads) dst[i] = src[i];
+}
+
+// its tables; tid 0: the tile's plan (a launch with too little shared memory
+// for it faults)
+HD void j1_plan(const J1Args& a, const J1Smem& s, int tid) {
+  const J1Image& im = s.im();
+  for (int i = tid; i < 64 * im.ncomp; i += kThreads)
+    s.quant(0)[i] = a.quant[64 * (int64_t)im.quant0 + i];
+  if (tid) return;
+  int* m = s.misc();
+  tile_plan(im, m[1], s.tile(), m);
+  if (kSmLate + m[3] + m[4] + 4 * m[5] > a.smem) fault();
+}
+
+// smoothing: the DC values of the blocks around the tile's
+HD void j1_stage_dc(const J1Args& a, const J1Smem& s, int tid) {
+  const J1Image& im = s.im();
+  for (int k = 0; k < im.ncomp; ++k) {
+    const J1Comp& c = im.c[k];
+    const J1Tile& u = s.tile()[k];
+    const int n = (u.by_hi - u.by_lo + 4) * u.dc_pitch, last = (c.dw + 7) / 8 - 1;
+    const int16_t* blocks = a.coefs + 64 * (im.coef0 + c.block0);
+    int32_t* dc = s.dc(k);
+    for (int i = tid; i < n; i += kThreads) {
+      const int r = u.by_lo - 2 + i / u.dc_pitch;
+      const int col = imin(imax(u.bx_lo - 2 + i % u.dc_pitch, 0), last);
+      dc[i] = r >= 0 && r < c.bh ? blocks[64 * ((int64_t)r * c.bw + col)] : 0;
+    }
+  }
+}
+
+// 16 bytes of coefficients (a block's row)
+struct Row16 {
+  uint32_t w[4];
+};
+
+HD Row16 load16(const int16_t* p) {
+  Row16 r;
+#ifdef __CUDA_ARCH__
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  r.w[0] = v.x;
+  r.w[1] = v.y;
+  r.w[2] = v.z;
+  r.w[3] = v.w;
+#else
+  memcpy(r.w, p, 16);
+#endif
+  return r;
+}
+
+HD void store16(int16_t* p, const Row16& r) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+#else
+  memcpy(p, r.w, 16);
+#endif
+}
+
+// jobs base .. base + kStage - 1 into the stage: thread t of a job's 8 its
+// row t of coefficients (the three loads of a thread issued before any
+// store), and the job's component and block
+HD void j1_load(const J1Args& a, const J1Smem& s, int base, int tid) {
+  const int slot = tid >> 3, lane = tid & 7, jobs = s.misc()[2];
+  const J1Image& im = s.im();
+  Row16 rows[kStage / kJobs];
+  UNROLL
+  for (int r = 0; r < kStage / kJobs; ++r) {
+    const int j = r * kJobs + slot;
+    if (base + j < jobs) {
+      int k, by, bx;
+      job_block(s, base + j, &k, &by, &bx);
+      if (lane == 0) {
+        int* w = s.job(j);
+        w[0] = k;
+        w[1] = by;
+        w[2] = bx;
+        s.wide()[j] = 0;
+      }
+      const J1Comp& c = im.c[k];
+      rows[r] = load16(a.coefs + 64 * (im.coef0 + c.block0 + (int64_t)by * c.bw + bx) + 8 * lane);
+    }
+  }
+  UNROLL
+  for (int r = 0; r < kStage / kJobs; ++r) {
+    const int j = r * kJobs + slot;
+    if (base + j < jobs) store16(s.cf(j) + 8 * lane, rows[r]);
+  }
+}
+
+// a workspace row (8 int32, 32-byte aligned) in two 16-byte loads
+HD void load_row8(const int32_t* p, int32_t* x) {
+#ifdef __CUDA_ARCH__
+  const int4 a = reinterpret_cast<const int4*>(p)[0], b = reinterpret_cast<const int4*>(p)[1];
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = a.z;
+  x[3] = a.w;
+  x[4] = b.x;
+  x[5] = b.y;
+  x[6] = b.z;
+  x[7] = b.w;
+#else
+  memcpy(x, p, 32);
+#endif
+}
+
+// the known bits of zigzag coefficient i for a block (the bits before the
+// last scan where its iMCU row is past the last whole one)
+HD int known_bits(const J1Comp& c, bool prev, int i) {
+  return prev && i ? c.bits[10 + i] : c.bits[i];
+}
+
+// smoothing, sub-round r of the stage: thread t estimates zigzag
+// coefficients t and t + 8 (up to 9) where the block smoothing replaces them
+HD void j1_smooth(const J1Smem& s, int base, int r, int tid) {
+  const int j = r * kJobs + (tid >> 3), lane = tid & 7;
+  if (base + j >= s.misc()[2]) return;
+  const int* w = s.job(j);
+  const int k = w[0], by = w[1], bx = w[2];
+  const J1Image& im = s.im();
+  const J1Comp& c = im.c[k];
+  const bool prev = by / c.v > im.last_good;
+  bool change_dc = true;
+  for (int i = 1; i < 10; ++i) change_dc = change_dc && known_bits(c, prev, i) == -1;
+  int16_t* cf = s.cf(j);
+  int D[26];
+  bool have = false;
+  for (int z = lane; z < 10; z += 8) {
+    const int pos = zigzag_pos(z), al = known_bits(c, prev, z);
+    if (z == 0 ? !change_dc : (z > 5 && !change_dc) || al == 0 || cf[pos] != 0) continue;
+    if (!have) dc_window(s, k, by, bx, D);
+    have = true;
+    cf[pos] = smooth_estimate(pos, D, s.quant(k), al, change_dc);
+  }
+}
+
+// the column pass, sub-round r: thread t dequantizes column t and transforms
+// it in 32 bits into the workspace; a block whose inputs or outputs leave
+// +-kIdct32Max is marked wide
+HD void j1_columns(const J1Smem& s, int base, int r, int tid) {
+  const int slot = tid >> 3, col = tid & 7, j = r * kJobs + slot;
+  if (base + j >= s.misc()[2]) return;
+  const int16_t* cf = s.cf(j);
+  const int32_t* q = s.quant(s.job(j)[0]);
+  int32_t x[8], o[8];
+  bool wide = false;
+  for (int i = 0; i < 8; ++i) {
+    const long long v = (long long)cf[8 * i + col] * q[8 * i + col];
+    wide = wide || v > kIdct32Max || v < -kIdct32Max;
+    x[i] = (int32_t)v;
+  }
+  idct_1d32(x, o, kConstBits - kPass1Bits);
+  int32_t* ws = s.ws(slot);
+  for (int i = 0; i < 8; ++i) {
+    wide = wide || o[i] > kIdct32Max || o[i] < -kIdct32Max;
+    ws[8 * i + col] = o[i];
+  }
+  if (wide) s.wide()[j] = 1;
+}
+
+// the row pass, sub-round r: thread t's row of 8 samples into the
+// component's region, where the region holds that row (a halo block above
+// or below gives one)
+HD void j1_rows(const J1Smem& s, int base, int r, int tid) {
+  const int slot = tid >> 3, row = tid & 7, j = r * kJobs + slot;
+  if (base + j >= s.misc()[2]) return;
+  const int* w = s.job(j);
+  const int k = w[0], by = w[1], bx = w[2];
+  const J1Tile& u = s.tile()[k];
+  const int rr = 8 * (by - u.by0) + row + 1;
+  if (rr < 0 || rr >= u.rows) return;
+  uint32_t lo, hi;
+  if (s.wide()[j]) {
+    wide_row(s.cf(j), s.quant(k), row, &lo, &hi);
+  } else {
+    int32_t x[8], o[8];
+    long long o64[8];
+    load_row8(s.ws(slot) + 8 * row, x);
+    idct_1d32(x, o, kConstBits + kPass1Bits + 3);
+    for (int i = 0; i < 8; ++i) o64[i] = o[i];
+    pack_row(o64, &lo, &hi);
+  }
+  store8(s.region(k) + rr * u.pitch + 8 * (bx - u.bx0) + 8, lo, hi);
+}
+
+// the pixel pass's layouts: every component at full resolution; the first
+// (and a fourth) at full resolution and the second and third through the
+// h2v2 triangle filter with one geometry (4:2:0); any other
+constexpr int kFull = 0, kH2V2 = 1, kAnyLayout = 2;
+
+HD int pixel_layout(const J1Image& im) {
+  bool full = true;
+  for (int k = 0; k < im.ncomp; ++k) full = full && im.c[k].hr == 1 && im.c[k].vr == 1;
+  if (full) return kFull;
+  const J1Comp &c0 = im.c[0], &c1 = im.c[1], &c2 = im.c[2], &c3 = im.c[3];
+  const bool h2v2 = im.ncomp >= 3 && c0.hr == 1 && c0.vr == 1 && c1.fancy && c1.hr == 2 &&
+                    c1.vr == 2 && c2.fancy && c2.hr == 2 && c2.vr == 2 && c1.h == c2.h &&
+                    c1.v == c2.v && c1.dw == c2.dw && c1.dh == c2.dh &&
+                    (im.ncomp == 3 || (c3.hr == 1 && c3.vr == 1));
+  return h2v2 ? kH2V2 : kAnyLayout;
+}
+
+// two pixels of a full-resolution component
+HD int full_pair(const Region& g, int r, int c) { return g.at(r, c) | g.at(r, c + 1) << 8; }
+
+// the tile's pixels two at a time (a thread a pair of columns of a row: as
+// many threads a row as the power of two at or above its pairs, at least 8,
+// so that a narrow tile keeps them busy too and a thread's columns stay
+// the same from row to row), each component's pair from its region (upsampled
+// where it is sampled below the image's resolution), converted, and staged
+// at their oriented place: each output row shifted by its address mod 16,
+// so that the store writes 16-byte words. The layout's loop keeps what it
+// reads of the table in registers.
+template <int kLayout>
+HD void pixels_of(const J1Smem& s, const J1Rect& t, const J1Out& o, int tid) {
+  const J1Image& im = s.im();
+  const int pairs = (t.tw + 1) >> 1;
+  const int lanes = pairs > 32 ? 64 : pairs > 16 ? 32 : pairs > 8 ? 16 : 8;
+  const int c2 = 2 * (tid & (lanes - 1));
+  if (c2 >= t.tw) return;
+  const int nc = im.ncomp, colour = im.colour, orientation = im.orientation;
+  const int height = im.height, width = im.width, pitch = o.pitch, oy0 = o.oy0, ox0 = o.ox0;
+  const Region g0 = region_of(s, 0), g1 = region_of(s, nc > 1 ? 1 : 0);
+  const Region g2 = region_of(s, nc > 2 ? 2 : 0), g3 = region_of(s, nc > 3 ? 3 : 0);
+  const int cdw = im.c[nc > 1 ? 1 : 0].dw, cdh = im.c[nc > 1 ? 1 : 0].dh;
+  uint8_t* stage = s.stage();
+  const uint32_t w3 = 3u * (uint32_t)o.width, x3 = 3u * (uint32_t)o.ox0;
+  for (int ry = tid / lanes; ry < t.th; ry += kThreads / lanes) {
+    const int r = t.r0 + ry, c = t.c0 + c2;
+    int p0, p1, p2, p3;
+    if (kLayout == kFull) {
+      p0 = full_pair(g0, r, c);
+      p1 = nc > 1 ? full_pair(g1, r, c) : 0;
+      p2 = nc > 2 ? full_pair(g2, r, c) : 0;
+      p3 = nc > 3 ? full_pair(g3, r, c) : 0;
+    } else if (kLayout == kH2V2) {
+      // both chroma components' filters read the same places of their regions
+      const int i = r >> 1, ni = (r & 1) ? imin(i + 1, cdh - 1) : imax(i - 1, 0);
+      const int j = c >> 1, jm = imax(j - 1, 0), jp = imin(j + 1, cdw - 1);
+      const int ri = (i - g1.row0) * g1.pitch - g1.col0, rn = (ni - g1.row0) * g1.pitch - g1.col0;
+      p0 = full_pair(g0, r, c);
+      p3 = nc > 3 ? full_pair(g3, r, c) : 0;
+      const uint8_t* q = g1.p;
+      int near_sum = 3 * (3 * q[ri + j] + q[rn + j]);
+      p1 = (near_sum + 3 * q[ri + jm] + q[rn + jm] + 8) >> 4 |
+           ((near_sum + 3 * q[ri + jp] + q[rn + jp] + 7) >> 4) << 8;
+      q = g2.p;
+      near_sum = 3 * (3 * q[ri + j] + q[rn + j]);
+      p2 = (near_sum + 3 * q[ri + jm] + q[rn + jm] + 8) >> 4 |
+           ((near_sum + 3 * q[ri + jp] + q[rn + jp] + 7) >> 4) << 8;
+    } else {
+      p0 = sample_pair(g0, im.c[0], r, c);
+      p1 = nc > 1 ? sample_pair(g1, im.c[1], r, c) : 0;
+      p2 = nc > 2 ? sample_pair(g2, im.c[2], r, c) : 0;
+      p3 = nc > 3 ? sample_pair(g3, im.c[3], r, c) : 0;
+    }
+    UNROLL
+    for (int x = 0; x < 2; ++x) {
+      if (c2 + x < t.tw) {
+        int oy, ox;
+        oriented(orientation, height, width, r, c + x, &oy, &ox);
+        const int shift = (int)((w3 * (uint32_t)oy + x3) & 15u);  // out0 is 16-byte aligned
+        const int b = 8 * x;
+        convert(colour, p0 >> b & 255, p1 >> b & 255, p2 >> b & 255, p3 >> b & 255,
+                stage + (oy - oy0) * pitch + shift + 3 * (ox - ox0));
+      }
+    }
+  }
+}
+
+HD void j1_pixels(const J1Smem& s, int tid) {
+  const J1Image& im = s.im();
+  const J1Rect t = tile_rect(im, s.misc()[1]);
+  const J1Out o = out_rect(im, t);
+  switch (pixel_layout(im)) {
+    case kFull: pixels_of<kFull>(s, t, o, tid); break;
+    case kH2V2: pixels_of<kH2V2>(s, t, o, tid); break;
+    default: pixels_of<kAnyLayout>(s, t, o, tid); break;
+  }
+}
+
+// the staged rows to the output, a warp a row: its 16-byte words whole, the
+// bytes before the first and after the last a lane each
+HD void j1_store(const J1Args& a, const J1Smem& s, int tid) {
+  const J1Image& im = s.im();
+  const J1Out o = out_rect(im, tile_rect(im, s.misc()[1]));
+  const uint8_t* stage = s.stage();
+  const int n = 3 * o.cols, lane = tid & 31;
+  for (int j = tid >> 5; j < o.rows; j += kThreads / 32) {
+    const int64_t g = out_byte(im, o, j), end = g + n;
+    const int64_t first = (g + 15) & ~(int64_t)15, last = end & ~(int64_t)15;
+    const uint8_t* row = stage + j * o.pitch + (int)(g & 15);  // output byte b at row[b - g]
+    const int words = last > first ? (int)((last - first) >> 4) : 0;
+    for (int w = lane; w < words; w += 32) copy16(a.out + first + 16 * w, row + (first - g) + 16 * w);
+    // the first and last word's own bytes (at most 15 each), a lane a byte
+    const int64_t head = first < end ? first : end, tail = last > head ? last : head;
+    const int b = lane < 16 ? lane : (int)(tail - g) + lane - 16;
+    if (lane < 16 ? b < head - g : g + b < end) a.out[g + b] = row[b];
+  }
 }
 
 #ifdef __CUDACC__
-constexpr int kThreads = 256;
-constexpr int kBlocksPerCta = kThreads / 8;
-
-template <bool kSmooth>
-__global__ void __launch_bounds__(kThreads) idct_kernel(const int16_t* __restrict__ coefs,
-                                                        const int32_t* __restrict__ quant,
-                                                        uint8_t* __restrict__ planes, J1Geom g,
-                                                        J1Smooth sm) {
-  __shared__ long long ws[kBlocksPerCta][64];
-  const int lane = threadIdx.x & 7, local = threadIdx.x >> 3;
-  const int64_t blk = (int64_t)blockIdx.x * kBlocksPerCta + local;
-  const bool active = blk < g.blocks;
-  int ci = 0;
-  if (active) {
-    ci = find_comp(g, blk);
-    idct_column<kSmooth>(coefs, quant, g, sm, ci, blk, lane, ws[local]);
+// where a.clocks is set, thread 0 writes its SM and the global timer (ns)
+// at the tile's start and end, and the SM's clock at its start and after
+// each phase
+__device__ __forceinline__ void stamp(const J1Args& a, int i) {
+  if (!a.clocks || threadIdx.x) return;
+  int64_t* c = a.clocks + kClocks * blockIdx.x;
+  c[i] = clock64();
+  if (i == 3 || i == 7) {
+    int64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    c[i == 3 ? 1 : 2] = t;
   }
-  __syncwarp();
-  if (active) {
-    const J1Comp& k = g.c[ci];
-    const int64_t b = blk - k.block0;
-    const int by = (int)(b / k.bw), bx = (int)(b % k.bw);
-    uint8_t row[8];
-    idct_row(ws[local], lane, row);
-    uint2 packed;
-    memcpy(&packed, row, 8);
-    *reinterpret_cast<uint2*>(planes + k.plane0 + (int64_t)(by * 8 + lane) * (k.bw * 8) + bx * 8) =
-        packed;
+  if (i == 3) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    c[0] = sm;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) pixel_kernel(const uint8_t* __restrict__ planes,
-                                                         uint8_t* __restrict__ out, J1Geom g,
-                                                         int out_w, int64_t pixels) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= pixels) return;
-  uint8_t rgb[3];
-  pixel(planes, g, (int)(i / out_w), (int)(i % out_w), rgb);
-  out[i * 3] = rgb[0];
-  out[i * 3 + 1] = rgb[1];
-  out[i * 3 + 2] = rgb[2];
+template <bool kSmooth>
+__global__ void __launch_bounds__(kThreads, kSmooth ? (kMinBlocks + 1) / 2 : kMinBlocks) j1_kernel(J1Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const J1Smem s{smem};
+  const int tid = threadIdx.x;
+  stamp(a, 3);
+  j1_locate(a, s, blockIdx.x, tid);
+  __syncthreads();
+  j1_fetch(a, s, tid);
+  __syncthreads();
+  j1_plan(a, s, tid);
+  __syncthreads();
+  stamp(a, 4);
+  const bool smooth = kSmooth && s.im().smooth;
+  if (smooth) {
+    j1_stage_dc(a, s, tid);
+    __syncthreads();
+  }
+  const int jobs = s.misc()[2];
+  for (int base = 0; base < jobs; base += kStage) {
+    j1_load(a, s, base, tid);
+    __syncwarp();
+    for (int r = 0; r < kStage / kJobs && base + r * kJobs < jobs; ++r) {
+      if (smooth) {
+        j1_smooth(s, base, r, tid);
+        __syncwarp();
+      }
+      j1_columns(s, base, r, tid);
+      __syncwarp();
+      j1_rows(s, base, r, tid);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  stamp(a, 5);
+  j1_pixels(s, tid);
+  __syncthreads();
+  stamp(a, 6);
+  j1_store(a, s, tid);
+  stamp(a, 7);
 }
 #endif
 
@@ -1685,65 +2284,89 @@ int scl_jpeg_entropy(const uint8_t* data, int64_t n, int buffer, int16_t* coefs,
 const char* scl_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-int scl_jpeg_threads(void) { return kThreads; }
 #endif
 
-// J1's geometry from the wrapper's rows: comp is ncomp x 30 int64 (block0,
-// plane0, bw, bh, dw, dh, hr, vr, fancy, v, 20 smoothing words); smooth is
-// the flag, imcu_rows and last_good its frame-wide state
-int scl_jpeg_geometry_len(void) { return 10 + kSmoothWords; }
+// J1's table entry, the shared memory a CTA needs before its image's late
+// area, the late area's least size, and the CTA's threads (what
+// ops/kernels/jpeg.py checks its plan against)
+int scl_jpeg_image_bytes(void) { return (int)sizeof(J1Image); }
+int scl_jpeg_smem_fixed(void) { return kSmLate; }
+int scl_jpeg_late_min(void) { return kLateMin; }
+int scl_jpeg_threads(void) { return kThreads; }
 
 #ifdef __CUDACC__
-// J1: coefs (blocks x 64 int16) and quant (ncomp x 64 int32) on the card ->
-// planes (scratch, sum of bw*8 x bh*8 bytes) -> out (out_h x out_w x 3 uint8).
-// The IDCT launch with the block smoothing where smooth is set.
-int scl_jpeg_pixels(const void* coefs, const void* quant, void* planes, void* out,
-                    const int64_t* comp, int ncomp, int colour, int orientation, int height,
-                    int width, int smooth, int imcu_rows, int last_good, int64_t blocks,
-                    void* stream) {
-  J1Geom g;
-  J1Smooth sm;
-  memset(&g, 0, sizeof g);
-  memset(&sm, 0, sizeof sm);
-  g.ncomp = ncomp;
-  g.colour = colour;
-  g.orientation = orientation;
-  g.height = height;
-  g.width = width;
-  g.blocks = blocks;
-  sm.imcu_rows = imcu_rows;
-  sm.last_good = last_good;
-  const int stride = 10 + kSmoothWords;
-  for (int c = 0; c < ncomp; ++c) {
-    const int64_t* k = comp + stride * c;
-    J1Comp& j = g.c[c];
-    j.block0 = k[0];
-    j.plane0 = k[1];
-    j.bw = (int)k[2];
-    j.bh = (int)k[3];
-    j.dw = (int)k[4];
-    j.dh = (int)k[5];
-    j.hr = (int)k[6];
-    j.vr = (int)k[7];
-    j.fancy = (int)k[8];
-    j.v = (int)k[9];
-    for (int i = 0; i < kSmoothWords; ++i) sm.bits[c][i] = (int)k[10 + i];
-  }
+// J1: one launch over a batch of images. images: nimages J1Image entries;
+// prefix: nimages + 1 int32, image i's tiles from prefix[i], tiles in all;
+// coefs and quant: the batch's blocks (64 int16, natural order) and tables
+// (64 int32) as the entries' coef0/block0 and quant0 index them; out: every
+// image's (rows, columns, 3) RGB bytes at its out0. smem: the dynamic
+// shared memory (scl_jpeg_smem_fixed and the most that an image's late
+// area, regions and DC stage take); smooth: launch the instantiation with the block smoothing (a
+// batch holding a smoothed image); clocks: null, or kClocks int64 a tile
+// (the phase clocks, for profiling).
+int scl_jpeg_pixels(const void* images, const void* prefix, int nimages, int tiles,
+                    const void* coefs, const void* quant, void* out, int smem, int smooth,
+                    void* clocks, void* stream) {
+  J1Args a;
+  a.clocks = static_cast<int64_t*>(clocks);
+  a.images = static_cast<const J1Image*>(images);
+  a.prefix = static_cast<const int32_t*>(prefix);
+  a.coefs = static_cast<const int16_t*>(coefs);
+  a.quant = static_cast<const int32_t*>(quant);
+  a.out = static_cast<uint8_t*>(out);
+  a.nimages = nimages;
+  a.smem = smem;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned ctas = (unsigned)((blocks + kBlocksPerCta - 1) / kBlocksPerCta);
-  const int16_t* cf = static_cast<const int16_t*>(coefs);
-  const int32_t* qt = static_cast<const int32_t*>(quant);
-  uint8_t* pl = static_cast<uint8_t*>(planes);
-  if (smooth) idct_kernel<true><<<ctas, kThreads, 0, s>>>(cf, qt, pl, g, sm);
-  else idct_kernel<false><<<ctas, kThreads, 0, s>>>(cf, qt, pl, g, sm);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int out_w = orientation >= 5 ? height : width;
-  const int64_t pixels = (int64_t)height * width;
-  pixel_kernel<<<(unsigned)((pixels + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(planes), static_cast<uint8_t*>(out), g, out_w, pixels);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(smooth ? j1_kernel<true> : j1_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (smooth) j1_kernel<true><<<tiles, kThreads, smem, s>>>(a);
+  else j1_kernel<false><<<tiles, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+#else
+// J1's CTAs on the host, one after another, each step run thread by thread in
+// the kernel's order (the CPU check of the fused kernel's tiling and
+// arithmetic: scripts/jpeg_crosscheck.py, tests/test_torch_jpeg_batch.py).
+// Shared memory starts each CTA filled with junk, as on the card.
+int scl_jpeg_pixels_host(const void* images, const void* prefix, int nimages, int tiles,
+                         const void* coefs, const void* quant, void* out, int smem, int smooth) {
+  J1Args a;
+  a.clocks = nullptr;
+  a.images = static_cast<const J1Image*>(images);
+  a.prefix = static_cast<const int32_t*>(prefix);
+  a.coefs = static_cast<const int16_t*>(coefs);
+  a.quant = static_cast<const int32_t*>(quant);
+  a.out = static_cast<uint8_t*>(out);
+  a.nimages = nimages;
+  a.smem = smem;
+  uint64_t* buf = new uint64_t[(smem + 7) / 8];
+  const J1Smem s{reinterpret_cast<uint8_t*>(buf)};
+  for (int cta = 0; cta < tiles; ++cta) {
+    memset(s.base, 0xA5 ^ (cta & 0xFF), smem);
+    for (int t = 0; t < kThreads; ++t) j1_locate(a, s, cta, t);
+    for (int t = 0; t < kThreads; ++t) j1_fetch(a, s, t);
+    for (int t = 0; t < kThreads; ++t) j1_plan(a, s, t);
+    const bool smoothed = smooth && s.im().smooth;
+    if (smoothed)
+      for (int t = 0; t < kThreads; ++t) j1_stage_dc(a, s, t);
+    const int jobs = s.misc()[2];
+    for (int base = 0; base < jobs; base += kStage) {
+      for (int t = 0; t < kThreads; ++t) j1_load(a, s, base, t);
+      for (int r = 0; r < kStage / kJobs && base + r * kJobs < jobs; ++r) {
+        if (smoothed)
+          for (int t = 0; t < kThreads; ++t) j1_smooth(s, base, r, t);
+        for (int t = 0; t < kThreads; ++t) j1_columns(s, base, r, t);
+        for (int t = 0; t < kThreads; ++t) j1_rows(s, base, r, t);
+      }
+    }
+    for (int t = 0; t < kThreads; ++t) j1_pixels(s, t);
+    for (int t = 0; t < kThreads; ++t) j1_store(a, s, t);
+  }
+  delete[] buf;
+  return 0;
 }
 #endif
 

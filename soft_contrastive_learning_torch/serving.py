@@ -14,12 +14,13 @@ Protocol (JSON unless noted):
 ``/embed`` returns the raw descriptor with ``reduction`` ``none`` and
 ``pca`` (``pca`` whitening is the top-N sweep's, downstream), and the
 reduced output (FC, SPP) otherwise, as JAX's; ``dim`` says which.
-Uploads are decoded by the port's own codecs (``utils/io.py::decode_img``,
+Uploads are decoded by the port's own codecs (``utils/io.py::decode_imgs``,
 no OpenCV) to the pixels JAX's ``cv2.imdecode`` gives, EXIF orientation
 included: a JPEG on the service's device (on the card the compiled entropy
-decoder and J1, ``ops/kernels/jpeg.py``), read as ``cv2.imdecode`` reads
-bytes (a truncated JPEG is refused, where ``cv2.imread`` of a file would
-read it), a PNG on the host; what they refuse gets a 400 with the reason. An upload of another size than the
+decoder and J1, ``ops/kernels/jpeg.py``: a request's JPEGs in one launch),
+read as ``cv2.imdecode`` reads bytes (a truncated JPEG is refused, where
+``cv2.imread`` of a file would read it), a PNG on the host; what they
+refuse gets a 400 with the reason, before any launch. An upload of another size than the
 model's is resized by ``utils/cv.py::resize_linear``, as JAX's by
 ``cv2.resize``. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
 ``cli quant`` writes them) the service embeds through the int8-PTQ stack
@@ -42,11 +43,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from soft_contrastive_learning_torch.core.config import ModelConfig, resolve_device
+from soft_contrastive_learning_torch.core.config import (
+    ModelConfig, indexed_device, resolve_device)
 from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
 from soft_contrastive_learning_torch.ops.kernels.topk import MAX_K
 from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_streamed
-from soft_contrastive_learning_torch.utils.io import decode_img
+from soft_contrastive_learning_torch.utils.io import decode_img, decode_imgs
 
 STREAM_MIN_ROWS = 65536  # as soft_contrastive_learning_tpu/serving.py:95
 
@@ -67,7 +69,8 @@ class DescriptorService:
     ):
         self.cfg = cfg
         self.mesh = mesh
-        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # indexed: the HTTP handler threads' current device is cuda:0
+        self.device = mesh.device if mesh is not None else indexed_device(resolve_device(device))
         self.extractor = DescriptorExtractor(cfg, params, batch_size=batch_size,
                                              device=self.device,
                                              raw_descriptor=cfg.reduction in ("none", "pca"),
@@ -84,6 +87,13 @@ class DescriptorService:
         service's device as ``cv2.imdecode`` reads bytes: one that ends
         before its decode does is refused."""
         return decode_img(data, "upload", self.device, source="buffer")
+
+    def decode_batch(self, datas) -> list:
+        """A request's uploads -> their images, decoded as ``decode`` decodes
+        one, the JPEGs in one J1 launch; a refused upload raises, naming it
+        (``upload <i>``), before any launch."""
+        return decode_imgs(datas, [f"upload {i}" for i in range(len(datas))], self.device,
+                           source="buffer")
 
     def embed(self, images) -> np.ndarray:
         with self._lock:
@@ -135,11 +145,11 @@ def make_handler(service: DescriptorService):
                     self._send(200, {"descriptor": desc.tolist()})
                 elif self.path == "/embed_batch":
                     req = json.loads(raw)
-                    imgs = [service.decode(base64.b64decode(s)) for s in req["images_b64"]]
+                    imgs = service.decode_batch([base64.b64decode(s) for s in req["images_b64"]])
                     self._send(200, {"descriptors": service.embed(imgs).tolist()})
                 elif self.path == "/search":
                     req = json.loads(raw)
-                    imgs = [service.decode(base64.b64decode(s)) for s in req["images_b64"]]
+                    imgs = service.decode_batch([base64.b64decode(s) for s in req["images_b64"]])
                     d, i = service.search(imgs, int(req.get("k", 5)))
                     self._send(200, {"indices": i.tolist(), "distances": d.tolist()})
                 else:

@@ -13,7 +13,10 @@ gives:
 - ``load_img`` (a file) and ``decode_img`` (its bytes, as an HTTP upload
   brings them) tell PNG from JPEG by the signature, as OpenCV does, and
   return (H, W, 3) RGB uint8 numpy, turned by the file's EXIF orientation
-  (a JPEG's APP1, a PNG's ``eXIf``).
+  (a JPEG's APP1, a PNG's ``eXIf``). ``decode_imgs`` decodes a batch:
+  ``prepare_img`` (a PNG decoded, a JPEG entropy-decoded, each on the
+  caller's thread) then ``finish_imgs`` (the batch's JPEGs through one J1
+  launch and one download on a CUDA device).
 - PNG, decoded on the host with numpy and ``zlib``, every CRC checked: gray
   of 1-16 bits, RGB, gray + alpha and RGBA of 8 or 16 bits, palettes of
   1-8 bits, plain or Adam7-interlaced, any of the five row filters. Alpha
@@ -23,8 +26,8 @@ gives:
   ``cv2.imdecode(IMREAD_GRAYSCALE)`` does.
 - JPEG (``utils/jpeg.py``): decoded for a device, as ``utils/cv.py``'s ops
   are: on a CUDA device by the compiled entropy decoder and J1
-  (``ops/kernels/jpeg.py``), on the CPU by the plain decoder and pixel
-  stage; either way the numpy image comes back. What it refuses, and why,
+  (``ops/kernels/jpeg.py``, on the decoder's own stream), on the CPU by
+  the plain decoder and pixel stage; either way the numpy image comes back. What it refuses, and why,
   is in ``utils/jpeg.py``.
 - ``save_img`` writes 8-bit RGB PNG, one filter for all rows (Sub by
   default) or one per row.
@@ -45,7 +48,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from soft_contrastive_learning_torch.utils.jpeg import exif_orientation, is_jpeg, orient
+from soft_contrastive_learning_torch.utils.jpeg import (
+    Coefficients, decode_coefficients, exif_orientation, is_jpeg, orient)
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH = range(5)
@@ -264,15 +268,49 @@ def decode_img(data: bytes, path: str = "image", device=None,
     read: ``"buffer"`` as ``cv2.imdecode`` reads bytes (data that ends
     before the decoder is done is refused, as OpenCV gives no image) or
     ``"file"`` as ``cv2.imread`` reads a file (``load_img``)."""
-    if is_jpeg(data):
-        from soft_contrastive_learning_torch.ops.kernels.jpeg import decode_jpeg
+    return finish_imgs([prepare_img(data, path, device, source)], device)[0]
 
-        device = torch.device("cpu" if device is None else device)
-        return decode_jpeg(data, path, device, source).cpu().numpy()
-    px, orientation = _decode_png(data, path)
-    if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
-        px = np.repeat(px[:, :, :1], 3, axis=2)
-    return _oriented(px[:, :, :3], orientation)
+
+def decode_imgs(datas: Sequence[bytes], paths: Sequence[str], device=None,
+                source: str = "buffer") -> List[np.ndarray]:
+    """``decode_img`` of a batch: every image prepared first (a refused file
+    raises, naming its path, before any launch), then the batch's JPEGs
+    through one J1 launch and one download on a CUDA device."""
+    return finish_imgs([prepare_img(d, p, device, source) for d, p in zip(datas, paths)],
+                       device)
+
+
+def prepare_img(data: bytes, path: str = "image", device=None, source: str = "buffer"):
+    """The host's part of ``decode_img``: a PNG's pixels (numpy), or a
+    JPEG's ``Coefficients`` (entropy-decoded for ``device``: the compiled
+    decoder for a CUDA device, which runs without the GIL, the plain one for
+    the CPU). Raises on a refused file."""
+    if not is_jpeg(data):
+        px, orientation = _decode_png(data, path)
+        if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
+            px = np.repeat(px[:, :, :1], 3, axis=2)
+        return _oriented(px[:, :, :3], orientation)
+    if torch.device("cpu" if device is None else device).type == "cuda":
+        from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode
+
+        return entropy_decode(data, path, source)
+    return decode_coefficients(data, path, source)
+
+
+def finish_imgs(prepared: Sequence, device=None) -> List[np.ndarray]:
+    """``prepare_img``'s results -> (H, W, 3) RGB uint8 numpy images: the
+    JPEGs' pixel stage on ``device`` (J1, one launch per chunk, and one
+    download, on a CUDA device), the PNGs as they are."""
+    jpegs = [i for i, p in enumerate(prepared) if isinstance(p, Coefficients)]
+    out = list(prepared)
+    if jpegs:
+        from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_host
+
+        pixels = jpeg_pixels_host([prepared[i] for i in jpegs],
+                                  torch.device("cpu" if device is None else device))
+        for i, px in zip(jpegs, pixels):
+            out[i] = px
+    return out
 
 
 def decode_gray(data: bytes, path: str = "image") -> np.ndarray:

@@ -1310,3 +1310,92 @@ def test_j1_refuses_what_it_does_not_take(cuda):
     two = dataclasses.replace(co.frame, components=co.frame.components[:2])
     with pytest.raises(ValueError, match="2 components"):  # no colour of two planes
         jpeg_pixels_cuda(coefs[: two.block_offsets()[-1]], quant[:2], two)
+
+
+def test_j1_batches_every_fixture_in_one_launch(cuda):
+    """Every fixture that decodes, in both modes, as one batch: one J1
+    launch (``jpeg_pixels_batch``, on the decoder's stream), each image
+    bit-equal to the plain stage on the card and hashing to OpenCV's digest;
+    the same through ``jpeg_pixels_host`` (one launch, one download); 64
+    180x240 images in one launch."""
+    import hashlib
+
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import (
+        entropy_decode, jpeg_pixels_batch, jpeg_pixels_cuda, jpeg_pixels_host)
+    from soft_contrastive_learning_torch.utils.jpeg import pixels_plain
+
+    table = _jpeg_digests()
+    batch, want = [], []
+    for name, modes in sorted(table["fixtures"].items()):
+        for mode, entry in modes.items():
+            if "sha256" in entry:
+                batch.append(entropy_decode((JPEG_FIXTURES / name).read_bytes(), name, mode))
+                want.append(entry)
+    before = jpeg_pixels_cuda.launches
+    got = jpeg_pixels_batch(batch, cuda)
+    host = jpeg_pixels_host(batch, cuda)
+    assert jpeg_pixels_cuda.launches - before == 2
+    for co, img, arr, entry in zip(batch, got, host, want):
+        plain = pixels_plain(torch.from_numpy(co.coefs).to(cuda), torch.from_numpy(co.quant).to(cuda),
+                             co.frame)
+        assert torch.equal(img, plain) and np.array_equal(arr, plain.cpu().numpy())
+        assert hashlib.sha256(arr.tobytes()).hexdigest() == entry["sha256"]
+    small = [co for co in batch if co.frame.height == 180][:16] * 4
+    before = jpeg_pixels_cuda.launches
+    for co, img in zip(small, jpeg_pixels_batch(small, cuda)):
+        assert np.array_equal(img.cpu().numpy(), pixels_plain(
+            torch.from_numpy(co.coefs), torch.from_numpy(co.quant), co.frame).numpy())
+    assert jpeg_pixels_cuda.launches - before == 1 and len(small) == 64
+
+
+def test_decode_imgs_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """``decode_imgs`` of PNGs and JPEGs on the card (the JPEGs in one J1
+    launch) equals the CPU's decode; a truncated upload in buffer mode
+    raises naming it, with no launch."""
+    from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_cuda
+    from soft_contrastive_learning_torch.utils.io import decode_imgs, save_img
+
+    png = tmp_path / "x.png"
+    save_img(np.random.default_rng(0).integers(0, 256, (20, 30, 3), dtype=np.uint8), str(png))
+    names = ["c420_q95.jpg", "orient7.jpg", "ycck_420.jpg", "frame_1280x960.jpg"]
+    datas = [(JPEG_FIXTURES / n).read_bytes() for n in names] + [png.read_bytes()]
+    before = jpeg_pixels_cuda.launches
+    got = decode_imgs(datas, names + ["x.png"], cuda)
+    assert jpeg_pixels_cuda.launches - before == 1
+    for a, b in zip(got, decode_imgs(datas, names + ["x.png"], "cpu")):
+        assert np.array_equal(a, b)
+    cut = (JPEG_FIXTURES / "truncated_no_eoi.jpg").read_bytes()
+    before = jpeg_pixels_cuda.launches
+    with pytest.raises(ValueError, match=r"^cut\.jpg: .*truncated"):
+        decode_imgs(datas[:2] + [cut], names[:2] + ["cut.jpg"], cuda)
+    assert jpeg_pixels_cuda.launches == before
+
+
+def test_j1_from_eight_threads_at_once_gives_opencvs_pixels(cuda):
+    """``decode_img`` of the fixtures from 8 threads at once, then
+    ``decode_imgs`` batches from 4: each thread packs into and downloads
+    through its own pinned buffers and enqueues on the decoder's one stream;
+    every image hashes to OpenCV's digest (buffer mode)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soft_contrastive_learning_torch.utils.io import decode_img, decode_imgs
+
+    table = _jpeg_digests()
+    names = [n for n, modes in sorted(table["fixtures"].items()) if "sha256" in modes["buffer"]]
+    datas = {n: (JPEG_FIXTURES / n).read_bytes() for n in names}
+    work = (names * 4)[: 4 * len(names)]
+
+    def digest(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        got = list(pool.map(lambda n: decode_img(datas[n], n, cuda, source="buffer"), work))
+        chunks = [work[i : i + 7] for i in range(0, len(work), 7)]
+        batched = list(pool.map(lambda c: decode_imgs([datas[n] for n in c], c, cuda,
+                                                      source="buffer"), chunks))
+    for n, img in zip(work, got):
+        assert digest(img) == table["fixtures"][n]["buffer"]["sha256"], n
+    for c, imgs in zip(chunks, batched):
+        for n, img in zip(c, imgs):
+            assert digest(img) == table["fixtures"][n]["buffer"]["sha256"], n

@@ -176,11 +176,12 @@ def test_every_kernel_source_exports_its_c_entry_points():
     assert "roundf" not in q1
     assert q1.count("__global__") == 2 and "mma_sync" not in q1
     assert not any(lib in q1.lower() for lib in ("cublas", "cudnn", "cutlass", "torch"))
-    # J1 is its own: two kernels (the IDCT into planes, the pixels), and the
-    # entropy decoder beside them is host C++ of the same library; no nvJPEG
+    # J1 is its own: one fused kernel over a batch (two instantiations, with
+    # and without the block smoothing), and the entropy decoder beside it is
+    # host C++ of the same library; no nvJPEG
     j1 = text["jpeg"]
     assert "int scl_jpeg_pixels(" in j1 and "int scl_jpeg_entropy(" in j1
-    assert "int scl_jpeg_info(" in j1 and j1.count("__global__") == 2
+    assert "int scl_jpeg_info(" in j1 and j1.count("__global__") == 1
     assert set(re.findall(r"#include <([\w./]+)>", j1)) <= {
         "stdint.h", "stdio.h", "string.h", "algorithm", "string", "cuda_runtime.h"}
 

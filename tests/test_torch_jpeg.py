@@ -430,7 +430,8 @@ def test_upsample_modes_as_libjpeg_chooses_them():
 
 def test_wrapper_on_cpu_tensors_is_the_plain_stage():
     """``jpeg_pixels_cuda`` on CPU tensors runs ``pixels_plain``; the
-    kernel's geometry rows put the planes one after another."""
+    kernel's table entry gives each component's first block, its upsampling
+    and its sampling, and no smoothing."""
     with open(os.path.join(FIXTURES, "odd_181x243.jpg"), "rb") as f:
         co = jpeg.decode_coefficients(f.read(), "odd")
     coefs, quant = torch.from_numpy(co.coefs), torch.from_numpy(co.quant)
@@ -438,11 +439,11 @@ def test_wrapper_on_cpu_tensors_is_the_plain_stage():
     got = kjpeg.jpeg_pixels_cuda(coefs, quant, co.frame)
     assert kjpeg.jpeg_pixels_cuda.launches == before  # no kernel launched
     np.testing.assert_array_equal(got.numpy(), jpeg.pixels_plain(coefs, quant, co.frame).numpy())
-    geom = kjpeg._geometry(co.frame)
-    assert geom[:, 0].tolist() == co.frame.block_offsets()[:-1]
-    assert geom[:, 1].tolist() == [64 * b for b in co.frame.block_offsets()[:-1]]
-    assert geom[1:, 6:9].tolist() == [[2, 2, 1], [2, 2, 1]]  # 4:2:0 chroma, fancy
-    assert geom[:, 9].tolist() == [2, 1, 1] and not geom[:, 10:].any()  # v; no smoothing
+    entry = kjpeg.plan_batch([co.frame]).table[0]
+    comps = entry["c"][:3]
+    assert comps["block0"].tolist() == co.frame.block_offsets()[:-1]
+    assert [[c["hr"], c["vr"], c["fancy"]] for c in comps[1:]] == [[2, 2, 1], [2, 2, 1]]
+    assert comps["v"].tolist() == [2, 1, 1] and not comps["bits"].any() and not entry["smooth"]
 
 
 def test_a_jpeg_training_tree_reads_and_caches_as_jax(tmp_path):
