@@ -23,7 +23,8 @@ Sync against async mining (``async_mining``): compare the with_mining pair,
 which charges both for the refresh; the sustained window holds an async
 refresh's embeds (the overlap is the feature) and not a synchronous one.
 ``scalar_fetches`` / ``scalar_fetch_s`` count the trainer's fetches of the
-train losses during the timed epoch (``Trainer.scalar_fetches``).
+train losses during the timed epoch and their seconds (its ``scalar_fetch``
+span).
 
 ``steps_per_dispatch`` K groups the epochs' steps K to a dispatch
 (``train/step.py::build_train_step_scan``); ``detail.steps_per_dispatch``
@@ -155,7 +156,6 @@ def run(tuples_per_batch: int = 2, num_points: int = 600, use_cache: bool = True
         tr._sync()
         warm_steps = tr.state.step
         tr.timer = StepTimer()
-        warm_fetches, warm_fetch_s = tr.scalar_fetches, tr.scalar_fetch_s
 
         # ---- the timed epoch ----
         t0 = time.perf_counter()
@@ -199,8 +199,8 @@ def run(tuples_per_batch: int = 2, num_points: int = 600, use_cache: bool = True
                 "device_step_ms": round(device_step_s * 1e3, 3),
                 "device_busy_frac": round(device_step_s / sustained_step_s, 4),
                 "spans": {k: round(v["total_s"], 2) for k, v in spans.items()},
-                "scalar_fetches": tr.scalar_fetches - warm_fetches,
-                "scalar_fetch_s": round(tr.scalar_fetch_s - warm_fetch_s, 2),
+                "scalar_fetches": spans.get("scalar_fetch", {}).get("count", 0),
+                "scalar_fetch_s": round(spans.get("scalar_fetch", {}).get("total_s", 0.0), 2),
             },
         }
     finally:

@@ -19,6 +19,12 @@ With a mesh (``parallel/mesh.py``) each padded batch is split over the
 ranks: each rank embeds its rows on its device and the descriptors are
 gathered in rank order, so every rank returns the whole output, as JAX's
 replicated result.
+
+The extractor's ``timer`` (``core/logging.py::StepTimer``) spans each
+``extract_images``: ``embed.prep`` (geometry, stack, padding to
+the batch) and ``embed.device`` (the upload, the model's launches and the
+download to the host), and counts its images (``embed.images``) and the
+padding rows the model runs besides them (``embed.padded``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from soft_contrastive_learning_torch.core.config import (
     ModelConfig, indexed_device, resolve_device)
+from soft_contrastive_learning_torch.core.logging import StepTimer
 from soft_contrastive_learning_torch.data.pipeline import pad_to_multiple
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
 from soft_contrastive_learning_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
@@ -67,6 +74,7 @@ class DescriptorExtractor:
     ):
         self.cfg = cfg
         self.batch_size = batch_size
+        self.timer = StepTimer()
         self.mesh = mesh
         if mesh is not None:
             mesh.rows(batch_size)  # raises unless the batch divides over the ranks
@@ -87,23 +95,29 @@ class DescriptorExtractor:
         self._pixels = ThreadPoolExecutor(max_workers=1)  # a chunk's J1 launch and download
 
     def extract_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
-        prepared = [
-            normalize_geometry(
-                np.asarray(im), self.cfg.image_height, self.cfg.image_width,
-                keep_aspect=self.cfg.vlad_cores > 0, portrait=self.portrait,
-            )
-            for im in images
-        ]
-        # uint8 on the wire; the model casts
-        arr = np.stack(prepared).astype(np.uint8)
-        n = len(arr)
-        arr = pad_to_multiple(arr, self.batch_size)
-        feats = []
-        for start in range(0, len(arr), self.batch_size):
-            x = shard_batch(arr[start : start + self.batch_size], self.mesh)
-            output, full = self._embed(torch.from_numpy(x).to(self.device))
-            feats.append(all_gather_rows(full if self.raw else output, self.mesh).cpu().numpy())
-        return np.concatenate(feats)[:n]
+        timer = self.timer
+        with timer.span("embed.prep"):
+            prepared = [
+                normalize_geometry(
+                    np.asarray(im), self.cfg.image_height, self.cfg.image_width,
+                    keep_aspect=self.cfg.vlad_cores > 0, portrait=self.portrait,
+                )
+                for im in images
+            ]
+            # uint8 on the wire; the model casts
+            arr = np.stack(prepared).astype(np.uint8)
+            n = len(arr)
+            arr = pad_to_multiple(arr, self.batch_size)
+        timer.count("embed.images", n)
+        timer.count("embed.padded", len(arr) - n)
+        with timer.span("embed.device"):
+            feats = []
+            for start in range(0, len(arr), self.batch_size):
+                x = shard_batch(arr[start : start + self.batch_size], self.mesh)
+                output, full = self._embed(torch.from_numpy(x).to(self.device))
+                feats.append(all_gather_rows(full if self.raw else output, self.mesh)
+                             .cpu().numpy())
+            return np.concatenate(feats)[:n]
 
     def extract_files(self, paths: Sequence[str], img_root: str = "") -> np.ndarray:
         """Embed image files in chunks of 4 batches: the pool reads and

@@ -30,13 +30,27 @@ model's is resized by ``utils/cv.py::resize_linear``, as JAX's by
 With a mesh the extractor splits each batch over the ranks and every rank
 gets every descriptor (``evaluation/inference.py``); the index stays whole
 on each rank's device and each rank searches it, as in JAX.
+
+The service's ``timer`` (``core/logging.py::StepTimer``) spans each POST
+under a request id of its own: ``serve.read`` (the body, the JSON parse
+and the base64 decode), ``serve.decode`` (the whole of ``decode`` /
+``decode_batch``), ``serve.lock_wait`` (each wait for the lock: the
+embed's, then the search's), ``serve.embed`` (the lock held: the
+extractor's work), ``serve.upload`` (the descriptors' way back to the
+device, between the two), ``serve.search`` (the lock held: the search and
+its download), ``serve.respond`` (the answer's ``tolist``, its JSON and
+the write), and counts ``serve.requests`` once each is served (answered
+200). The extractor's and the codecs' timers span their parts under the
+same request id.
 """
 
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import threading
+from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Mapping, Optional
 
@@ -45,6 +59,7 @@ import torch
 
 from soft_contrastive_learning_torch.core.config import (
     ModelConfig, indexed_device, resolve_device)
+from soft_contrastive_learning_torch.core.logging import StepTimer, request_scope
 from soft_contrastive_learning_torch.evaluation.inference import DescriptorExtractor
 from soft_contrastive_learning_torch.ops.kernels.topk import MAX_K
 from soft_contrastive_learning_torch.ops.topk import topk_l2, topk_l2_streamed
@@ -71,6 +86,7 @@ class DescriptorService:
         self.mesh = mesh
         # indexed: the HTTP handler threads' current device is cuda:0
         self.device = mesh.device if mesh is not None else indexed_device(resolve_device(device))
+        self.timer = StepTimer()
         self.extractor = DescriptorExtractor(cfg, params, batch_size=batch_size,
                                              device=self.device,
                                              raw_descriptor=cfg.reduction in ("none", "pca"),
@@ -81,31 +97,47 @@ class DescriptorService:
         # the width /embed returns: the raw descriptor's or the reduced output's
         self.embed_dim = cfg.descriptor_dim if self.extractor.raw else cfg.output_dim
         self._lock = threading.Lock()
+        self.request_ids = itertools.count(1)
+
+    @contextmanager
+    def _held(self, span: str):
+        """The lock held under ``span``; the wait for it a ``serve.lock_wait``."""
+        with self.timer.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with self.timer.span(span):
+                yield
+        finally:
+            self._lock.release()
 
     def decode(self, data: bytes) -> np.ndarray:
         """An upload's bytes -> (H, W, 3) RGB uint8, a JPEG decoded on the
         service's device as ``cv2.imdecode`` reads bytes: one that ends
         before its decode does is refused."""
-        return decode_img(data, "upload", self.device, source="buffer")
+        with self.timer.span("serve.decode"):
+            return decode_img(data, "upload", self.device, source="buffer")
 
     def decode_batch(self, datas) -> list:
         """A request's uploads -> their images, decoded as ``decode`` decodes
         one, the JPEGs in one J1 launch; a refused upload raises, naming it
         (``upload <i>``), before any launch."""
-        return decode_imgs(datas, [f"upload {i}" for i in range(len(datas))], self.device,
-                           source="buffer")
+        with self.timer.span("serve.decode"):
+            return decode_imgs(datas, [f"upload {i}" for i in range(len(datas))], self.device,
+                               source="buffer")
 
     def embed(self, images) -> np.ndarray:
-        with self._lock:
+        with self._held("serve.embed"):
             return self.extractor.extract_images(images)
 
     def search(self, images, k: int = 5):
         if self.index is None:
             raise ValueError("no retrieval index loaded")
-        q = torch.from_numpy(self.embed(images)).to(self.device)
+        desc = self.embed(images)
+        with self.timer.span("serve.upload"):
+            q = torch.from_numpy(desc).to(self.device)
         n_rows = self.index.shape[0]
         k_eff = min(k, n_rows)
-        with self._lock:
+        with self._held("serve.search"):
             if n_rows > STREAM_MIN_ROWS and k_eff <= MAX_K:
                 d, i = topk_l2_streamed(q, self.index, k_eff)
             else:
@@ -114,14 +146,19 @@ class DescriptorService:
 
 
 def make_handler(service: DescriptorService):
+    timer = service.timer
+
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            """The answer, its arrays as lists, under ``serve.respond``."""
+            with timer.span("serve.respond"):
+                body = json.dumps({k: v.tolist() if isinstance(v, np.ndarray) else v
+                                   for k, v in payload.items()}).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
         def log_message(self, *args):  # quiet
             pass
@@ -136,26 +173,31 @@ def make_handler(service: DescriptorService):
             else:
                 self._send(404, {"error": "not found"})
 
+        def _answer(self):
+            """(status, payload) of this POST."""
+            with timer.span("serve.read"):
+                raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if self.path in ("/embed_batch", "/search"):
+                    req = json.loads(raw)
+                    datas = [base64.b64decode(s) for s in req["images_b64"]]
+            if self.path == "/embed":
+                return 200, {"descriptor": service.embed([service.decode(raw)])[0]}
+            if self.path == "/embed_batch":
+                return 200, {"descriptors": service.embed(service.decode_batch(datas))}
+            if self.path == "/search":
+                d, i = service.search(service.decode_batch(datas), int(req.get("k", 5)))
+                return 200, {"indices": i, "distances": d}
+            return 404, {"error": "not found"}
+
         def do_POST(self):
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                raw = self.rfile.read(length)
-                if self.path == "/embed":
-                    desc = service.embed([service.decode(raw)])[0]
-                    self._send(200, {"descriptor": desc.tolist()})
-                elif self.path == "/embed_batch":
-                    req = json.loads(raw)
-                    imgs = service.decode_batch([base64.b64decode(s) for s in req["images_b64"]])
-                    self._send(200, {"descriptors": service.embed(imgs).tolist()})
-                elif self.path == "/search":
-                    req = json.loads(raw)
-                    imgs = service.decode_batch([base64.b64decode(s) for s in req["images_b64"]])
-                    d, i = service.search(imgs, int(req.get("k", 5)))
-                    self._send(200, {"indices": i.tolist(), "distances": d.tolist()})
-                else:
-                    self._send(404, {"error": "not found"})
-            except Exception as e:  # the server keeps running; the client gets the reason
-                self._send(400, {"error": str(e)})
+            with request_scope(next(service.request_ids)):
+                try:
+                    code, payload = self._answer()
+                except Exception as e:  # the server keeps running; the client gets the reason
+                    code, payload = 400, {"error": str(e)}
+                self._send(code, payload)
+                if code == 200:
+                    timer.count("serve.requests")
 
     return Handler
 

@@ -22,9 +22,9 @@ for the card's queue, so the host runs at most a step ahead), and the losses (wi
 and ``loss_neg``) are fetched in one transfer at the segment's end, or
 before an eval so that the records stay in order, and written as JSONL
 (``metrics_local.jsonl``, the records of ``core/logging.py::MetricsWriter``)
-with ``global_step`` counted from 1; ``scalar_fetches`` and
-``scalar_fetch_s`` count those fetches and their seconds (JAX's
-``AsyncScalarLogger`` statistics; the port has no such thread).
+with ``global_step`` counted from 1; the ``scalar_fetch`` span times each
+such fetch (JAX's ``AsyncScalarLogger`` statistics; the port has no such
+thread).
 With ``steps_per_dispatch`` K > 1 the segment's items run in groups of K
 through ``train_step_scan`` (``train/step.py::build_train_step_scan``),
 formed as JAX's ``run_segment`` forms them (``_run_segment``): an item that
@@ -64,10 +64,16 @@ batch's sampling, and its decode on the host-fed path; a group's stacking),
 ``data_wait`` (the host-fed path's wait for it), ``dispatch_put`` (its copy
 to the card and the PCA feeds; a group's one transfer set), ``train_step``
 (the step's launch; a group's K steps), ``pca_update``,
-``ckpt_save``, ``eval_loss``, ``eval_localization``, and ``segment_steady``:
-each segment's window between a device sync at its start and one at its
-end, the in-segment eval and save spans (``EVAL_SAVE_SPANS``) taken out,
-counted in steps. ``bench_train.py`` reads them.
+``ckpt_save``, ``eval_loss``, ``eval_localization``; the port's own:
+``epoch_setup`` (an epoch's metadata, anchors and image-pool check, and
+each segment's sampler), ``segment_sync`` (the device syncs at a segment's
+two ends), ``scalar_fetch`` (a fetch of the losses, a host sync) and
+``metrics_write`` (their log lines and JSONL records); and
+``segment_steady``: each segment's window between a device sync at its
+start and one at its end, the in-segment eval and save spans
+(``EVAL_SAVE_SPANS``) taken out, counted in steps, a total without events.
+``bench_train.py`` reads them. While a ``torch.profiler`` profile runs each
+span is also an event on the device trace's clock (``core/logging.py``).
 
 Checkpoints (``checkpoints/manager.py``) are written where the JAX loop
 writes them: the rolling one inside each eval, before the evals; a part one
@@ -192,8 +198,6 @@ class Trainer:
             cfg.save(os.path.join(self.out_dir, "config.json"))
         self.log = RunLogger(self.out_dir if self.primary else None)
         self.timer = StepTimer()
-        self.scalar_fetches = 0  # _write_train_metrics' device-to-host fetches
-        self.scalar_fetch_s = 0.0
         self.writers = {role: MetricsWriter(self.out_dir, role, enabled=self.primary)
                         for role in ("local", "other")}
         self.ckpts = RunCheckpoints(self.out_dir, max_to_keep=cfg.max_to_keep,
@@ -383,10 +387,11 @@ class Trainer:
     def train_one_epoch(self, epoch: int, resume_ctx: Optional[dict] = None) -> None:
         cfg = self.cfg
         self._current_epoch = epoch
-        meta = self.source.epoch_meta(cfg.local_ref_set, epoch)
-        self._ensure_image_pool(meta)
-        anchor_indices = np.asarray(
-            self.source.anchor_indices(cfg.local_ref_set, cfg.train_ref_r, epoch), dtype=int)
+        with self.timer.span("epoch_setup"):
+            meta = self.source.epoch_meta(cfg.local_ref_set, epoch)
+            self._ensure_image_pool(meta)
+            anchor_indices = np.asarray(
+                self.source.anchor_indices(cfg.local_ref_set, cfg.train_ref_r, epoch), dtype=int)
         steps = np.arange(0, len(anchor_indices), cfg.tuples_per_batch)
         boundary = steps % cfg.mining_step == 0
         mining_count = 0
@@ -429,18 +434,19 @@ class Trainer:
             # The segment's generator is seeded by a DRAW, as the JAX trainer
             # does (not Generator.spawn, whose child counter is no part of the
             # bit generator's state and would not survive a checkpoint).
-            pre_spawn = numpy_rng_to_array(self.rng)
-            seg_rng = np.random.default_rng(int(self.rng.integers(np.iinfo(np.int64).max)))
-            sampler = self._sampler_for(meta, rng=seg_rng)
-            self._seg_ctx = {
-                "pre_spawn": pre_spawn, "seg_step0": int(steps[seg_start]), "consumed": 0,
-                "mining_count": mining_count - 1 if boundary[seg_start] else mining_count}
-            # the batches already trained: draw their samples again (no image
-            # is loaded, no step taken), so that the child generator advances
-            # as it did
-            offset = min(skip, len(seg_steps))
-            for s in map(int, seg_steps[:offset]):
-                self._sample(sampler, anchor_indices, s)
+            with self.timer.span("epoch_setup"):
+                pre_spawn = numpy_rng_to_array(self.rng)
+                seg_rng = np.random.default_rng(int(self.rng.integers(np.iinfo(np.int64).max)))
+                sampler = self._sampler_for(meta, rng=seg_rng)
+                self._seg_ctx = {
+                    "pre_spawn": pre_spawn, "seg_step0": int(steps[seg_start]), "consumed": 0,
+                    "mining_count": mining_count - 1 if boundary[seg_start] else mining_count}
+                # the batches already trained: draw their samples again (no image
+                # is loaded, no step taken), so that the child generator advances
+                # as it did
+                offset = min(skip, len(seg_steps))
+                for s in map(int, seg_steps[:offset]):
+                    self._sample(sampler, anchor_indices, s)
             skip = 0
             suppress_first = self._run_segment(epoch, seg_steps, anchor_indices, meta, sampler,
                                                offset, suppress_first, spawn_args)
@@ -554,7 +560,8 @@ class Trainer:
         done = offset
         # the steady window: from a sync here to one after the loop, the
         # in-segment eval and save spans taken out
-        self._sync()
+        with timer.span("segment_sync"):
+            self._sync()
         t0, excluded0 = time.perf_counter(), self._span_total(*EVAL_SAVE_SPANS)
         try:
             if spawn_args is not None:
@@ -609,7 +616,8 @@ class Trainer:
                 prefetch.close()
         self._seg_ctx["consumed"] = len(seg_steps)
         self._write_train_metrics(records)
-        self._sync()
+        with timer.span("segment_sync"):
+            self._sync()
         timer.add("segment_steady",
                   time.perf_counter() - t0 - (self._span_total(*EVAL_SAVE_SPANS) - excluded0),
                   count=done - offset)
@@ -683,24 +691,23 @@ class Trainer:
 
     def _write_train_metrics(self, records: list) -> None:
         """Fetch the pending steps' losses (with the PN losses' ``loss_pos``
-        and ``loss_neg``) in one device-to-host transfer, log and write
-        them, and empty ``records``; ``scalar_fetches`` and
-        ``scalar_fetch_s`` count the transfers and their seconds."""
+        and ``loss_neg``) in one device-to-host transfer (a ``scalar_fetch``
+        span), log and write them (``metrics_write``), and empty
+        ``records``."""
         if not records:
             return
         keys = ("loss", "loss_pos", "loss_neg") if self.cfg.loss.pn_loss else ("loss",)
-        t0 = time.perf_counter()
-        values = torch.stack([m[k] for _, m in records for k in keys]).reshape(
-            len(records), len(keys)).tolist()
-        self.scalar_fetches += 1
-        self.scalar_fetch_s += time.perf_counter() - t0
-        for (step, metrics), row in zip(records, values):
-            losses = dict(zip(keys, row))
-            self.log(f"Train batch loss: {losses['loss']}")
-            # JAX's record order: loss, learning_rate, then loss_pos, loss_neg
-            self.writers["local"].scalars(
-                {"loss": losses.pop("loss"), "learning_rate": metrics["learning_rate"], **losses},
-                step)
+        with self.timer.span("scalar_fetch"):
+            values = torch.stack([m[k] for _, m in records for k in keys]).reshape(
+                len(records), len(keys)).tolist()
+        with self.timer.span("metrics_write"):
+            for (step, metrics), row in zip(records, values):
+                losses = dict(zip(keys, row))
+                self.log(f"Train batch loss: {losses['loss']}")
+                # JAX's record order: loss, learning_rate, then loss_pos, loss_neg
+                self.writers["local"].scalars(
+                    {"loss": losses.pop("loss"), "learning_rate": metrics["learning_rate"],
+                     **losses}, step)
         records.clear()
 
     def _run_eval(self, epoch: int, eval_ordinal: int) -> None:

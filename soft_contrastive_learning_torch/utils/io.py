@@ -32,6 +32,11 @@ gives:
 - ``save_img`` writes 8-bit RGB PNG, one filter for all rows (Sub by
   default) or one per row.
 
+``TIMER`` (``core/logging.py::StepTimer``) spans a JPEG's host entropy
+decode (``decode.entropy``, in ``prepare_img``) and a batch's pixel stage
+(``decode.pixels``, in ``finish_imgs``: J1's staging, launch and the wait
+for its download on a CUDA device).
+
 Unpickling runs code: load only pickles this program or the JAX package
 wrote.
 """
@@ -48,6 +53,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from soft_contrastive_learning_torch.core.logging import StepTimer
 from soft_contrastive_learning_torch.utils.jpeg import (
     Coefficients, decode_coefficients, exif_orientation, is_jpeg, orient)
 
@@ -57,6 +63,7 @@ FILTER_NONE, FILTER_SUB, FILTER_UP, FILTER_AVERAGE, FILTER_PAETH = range(5)
 # and the bit depths each may have
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+TIMER = StepTimer()  # the codecs' spans
 
 
 # ---------------------------------------------------------------- text
@@ -290,11 +297,12 @@ def prepare_img(data: bytes, path: str = "image", device=None, source: str = "bu
         if px.shape[2] < 3:  # gray (+ alpha): the gray channel three times
             px = np.repeat(px[:, :, :1], 3, axis=2)
         return _oriented(px[:, :, :3], orientation)
-    if torch.device("cpu" if device is None else device).type == "cuda":
-        from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode
+    with TIMER.span("decode.entropy"):
+        if torch.device("cpu" if device is None else device).type == "cuda":
+            from soft_contrastive_learning_torch.ops.kernels.jpeg import entropy_decode
 
-        return entropy_decode(data, path, source)
-    return decode_coefficients(data, path, source)
+            return entropy_decode(data, path, source)
+        return decode_coefficients(data, path, source)
 
 
 def finish_imgs(prepared: Sequence, device=None) -> List[np.ndarray]:
@@ -306,8 +314,9 @@ def finish_imgs(prepared: Sequence, device=None) -> List[np.ndarray]:
     if jpegs:
         from soft_contrastive_learning_torch.ops.kernels.jpeg import jpeg_pixels_host
 
-        pixels = jpeg_pixels_host([prepared[i] for i in jpegs],
-                                  torch.device("cpu" if device is None else device))
+        with TIMER.span("decode.pixels"):
+            pixels = jpeg_pixels_host([prepared[i] for i in jpegs],
+                                      torch.device("cpu" if device is None else device))
         for i, px in zip(jpegs, pixels):
             out[i] = px
     return out
