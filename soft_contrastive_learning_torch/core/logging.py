@@ -35,7 +35,8 @@ The spans, by the module whose timer records them: ``serving.py``:
 ``serve.upload``, ``serve.search``, ``serve.respond`` and the counter
 ``serve.requests``; ``utils/io.py``: ``decode.entropy``, ``decode.pixels``;
 ``evaluation/inference.py``: ``embed.prep``, ``embed.device`` and the
-counters ``embed.images``, ``embed.padded``; ``train/trainer.py``: its
+counters ``embed.images``, ``embed.padded``, ``embed.graph_replays``,
+``embed.graph_captures``; ``train/trainer.py``: its
 module docstring's list.
 
 JAX's ``AsyncScalarLogger`` is not ported: it fetches the train scalars on a

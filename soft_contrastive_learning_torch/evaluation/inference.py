@@ -20,18 +20,34 @@ ranks: each rank embeds its rows on its device and the descriptors are
 gathered in rank order, so every rank returns the whole output, as JAX's
 replicated result.
 
+The int8 embed on a card without a mesh runs as one CUDA graph a batch
+(``EmbedGraph``): its 18 hand-kernel launches (Q1_stem, 12 Q1, 4 Q1_pool,
+K1), the torch ops between them (the channel L2 norm, the casts, NetVLAD's
+assignment product) and both copies, captured once at a padded batch shape
+from static buffers, the input staged in pinned host memory and the
+descriptors read back into pinned memory. The extractor captures the shape
+its geometry gives when it is built, and any other on first use (at most
+``MAX_GRAPHS``, the oldest dropped). The float path, the mesh and the CPU
+run eagerly.
+
 The extractor's ``timer`` (``core/logging.py::StepTimer``) spans each
-``extract_images``: ``embed.prep`` (geometry, stack, padding to
-the batch) and ``embed.device`` (the upload, the model's launches and the
-download to the host), and counts its images (``embed.images``) and the
-padding rows the model runs besides them (``embed.padded``).
+``extract_images``: ``embed.prep`` (geometry; on the eager path also the
+stack and the padding to the batch) and ``embed.device`` (the upload, the
+model's launches and the download to the host; on the graph path the
+rows written into the staging buffer, the replay, the wait and the copy of
+the rows asked for), and counts its images (``embed.images``), the padding
+rows the model runs besides them (``embed.padded``), and per batch the
+graph's replays (``embed.graph_replays``: 1 a batch replayed, 0 an eager
+batch) and its captures (``embed.graph_captures``).
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Mapping, Optional, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +57,7 @@ from soft_contrastive_learning_torch.core.config import (
 from soft_contrastive_learning_torch.core.logging import StepTimer
 from soft_contrastive_learning_torch.data.pipeline import pad_to_multiple
 from soft_contrastive_learning_torch.models.model import EmbeddingNet
+from soft_contrastive_learning_torch.ops.kernels import _build
 from soft_contrastive_learning_torch.parallel.mesh import Mesh, all_gather_rows, shard_batch
 from soft_contrastive_learning_torch.train.step import build_embed_step
 from soft_contrastive_learning_torch.utils.cv import normalize_geometry
@@ -48,6 +65,63 @@ from soft_contrastive_learning_torch.utils.io import (
     finish_imgs, load_csv, prepare_img, save_pickle)
 
 DUMP_DTYPES = ("float32", "float16")
+MAX_GRAPHS = 4  # batch shapes an extractor keeps a captured embed of
+
+
+class EmbedGraph:
+    """The embed ``embed`` (images -> (output, full_out)) of one uint8 batch
+    ``shape`` (B, H, W, C) on a CUDA ``device``, captured as one CUDA graph
+    with its static buffers: a pinned host input, its device copy, the
+    graph's outputs and a pinned host copy of the rows returned (``full_out``
+    with ``raw``, else ``output``). The kernels' tensor maps hold the
+    buffers' addresses, so every replay goes through these buffers.
+
+    One eager call on a side stream first settles what a capture cannot
+    do (library loads, kernel attributes, cuBLAS handles); it launches its
+    kernels as any call does. The capture launches nothing: its kernel
+    launches are recorded (``_build.recorded_launches``) and each replay
+    counts them on the wrappers. Not thread-safe: the caller holds a lock
+    around ``run``."""
+
+    def __init__(self, embed: Callable, raw: bool, shape: Tuple[int, ...],
+                 device: torch.device):
+        self.device = device
+        self.host_in = torch.zeros(shape, dtype=torch.uint8, pin_memory=True)
+        self.rows_in = self.host_in.numpy()
+        with torch.cuda.device(device):
+            self.dev_in = torch.empty(shape, dtype=torch.uint8, device=device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self.dev_in.copy_(self.host_in, non_blocking=True)
+                out = embed(self.dev_in)[1 if raw else 0]
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self.rows_out = self.host_out.numpy()
+            self.graph = torch.cuda.CUDAGraph()
+            # on the side stream (one of this device); thread_local: the
+            # service's other threads decode on the card meanwhile
+            with _build.recorded_launches() as self.launches, \
+                    torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.dev_in.copy_(self.host_in, non_blocking=True)
+                self.host_out.copy_(embed(self.dev_in)[1 if raw else 0], non_blocking=True)
+            self.done = torch.cuda.Event()
+
+    def run(self, rows: Sequence[np.ndarray], pad: np.ndarray) -> np.ndarray:
+        """The embed of ``rows`` (at most B images of the batch's (H, W, C),
+        cast to uint8 as ``astype`` casts), the batch's remaining rows
+        ``pad``: a copy of their rows of the output."""
+        m = len(rows)
+        for i, im in enumerate(rows):
+            self.rows_in[i] = im
+        self.rows_in[m:] = pad
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+            self.done.record()
+        self.done.synchronize()
+        for wrapper, n in self.launches.items():
+            _build.count_launch(wrapper, n)
+        return self.rows_out[:m].copy()
 
 
 class DescriptorExtractor:
@@ -91,11 +165,35 @@ class DescriptorExtractor:
             model = EmbeddingNet(cfg)
             model.load_state_dict(params)
             self._embed = build_embed_step(model.to(self.device))
+        # the int8 embed on a card without a mesh: CUDA graphs by batch shape
+        self._graphs: Optional[OrderedDict] = None
+        if quant_scales is not None and self.device.type == "cuda" and mesh is None:
+            self._graphs = OrderedDict()
+            self._graph_lock = threading.Lock()
+            h, w = cfg.image_height, cfg.image_width
+            if portrait:
+                h, w = max(h, w), min(h, w)
+            with self._graph_lock:
+                self._graph((batch_size, h, w, 3))
         self._pool = ThreadPoolExecutor(max_workers=8)  # decode threads for extract_files
         self._pixels = ThreadPoolExecutor(max_workers=1)  # a chunk's J1 launch and download
 
+    def _graph(self, shape: Tuple[int, ...]) -> EmbedGraph:
+        """The captured embed of uint8 batches of ``shape``, captured now if
+        it is not yet kept (the oldest dropped past ``MAX_GRAPHS``). Under
+        ``_graph_lock``."""
+        graph = self._graphs.get(shape)
+        if graph is None:
+            graph = self._graphs[shape] = EmbedGraph(self._embed, self.raw, shape, self.device)
+            self.timer.count("embed.graph_captures")
+            if len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(shape)
+        return graph
+
     def extract_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
         timer = self.timer
+        bs = self.batch_size
         with timer.span("embed.prep"):
             prepared = [
                 normalize_geometry(
@@ -104,20 +202,39 @@ class DescriptorExtractor:
                 )
                 for im in images
             ]
-            # uint8 on the wire; the model casts
-            arr = np.stack(prepared).astype(np.uint8)
-            n = len(arr)
-            arr = pad_to_multiple(arr, self.batch_size)
+            n = len(prepared)
+            # images of mixed shapes go the eager way, where np.stack refuses them
+            graphed = self._graphs is not None and n > 0 and all(
+                im.shape == prepared[0].shape for im in prepared)
+            if not graphed:
+                # uint8 on the wire; the model casts
+                arr = pad_to_multiple(np.stack(prepared).astype(np.uint8), bs)
         timer.count("embed.images", n)
-        timer.count("embed.padded", len(arr) - n)
+        timer.count("embed.padded", -n % bs)
         with timer.span("embed.device"):
+            if graphed:
+                return self._replay(prepared)
             feats = []
-            for start in range(0, len(arr), self.batch_size):
-                x = shard_batch(arr[start : start + self.batch_size], self.mesh)
+            for start in range(0, len(arr), bs):
+                x = shard_batch(arr[start : start + bs], self.mesh)
                 output, full = self._embed(torch.from_numpy(x).to(self.device))
                 feats.append(all_gather_rows(full if self.raw else output, self.mesh)
                              .cpu().numpy())
+                timer.count("embed.graph_replays", 0)
             return np.concatenate(feats)[:n]
+
+    def _replay(self, prepared: List[np.ndarray]) -> np.ndarray:
+        """The graph path of ``extract_images``: each batch's rows written
+        into the staging buffer, padded with repeats of the first image (as
+        ``pad_to_multiple`` pads), one replay each."""
+        bs = self.batch_size
+        feats = []
+        with self._graph_lock:
+            graph = self._graph((bs,) + prepared[0].shape)
+            for start in range(0, len(prepared), bs):
+                feats.append(graph.run(prepared[start : start + bs], prepared[0]))
+                self.timer.count("embed.graph_replays")
+        return feats[0] if len(feats) == 1 else np.concatenate(feats)
 
     def extract_files(self, paths: Sequence[str], img_root: str = "") -> np.ndarray:
         """Embed image files in chunks of 4 batches: the pool reads and

@@ -22,8 +22,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -143,14 +144,36 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _count_lock = threading.Lock()
+_recording = threading.local()
 
 
-def count_launch(wrapper) -> None:
-    """One more launch on ``wrapper.launches``. Under a lock: the training
-    thread and the async mining worker launch K1 at once, and ``+= 1`` on
-    an attribute is a read and a write."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """``n`` more launches on ``wrapper.launches``. Under a lock: the
+    training thread and the async mining worker launch K1 at once, and
+    ``+= 1`` on an attribute is a read and a write. Inside
+    ``recorded_launches`` on this thread, the launch goes to its dict
+    instead."""
+    counts = getattr(_recording, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + n
+        return
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
+
+
+@contextmanager
+def recorded_launches() -> Iterator[Dict[object, int]]:
+    """While inside, this thread's launches are counted into the yielded
+    dict (wrapper -> launches) and not on the wrappers: a CUDA graph's
+    capture enqueues nothing, and each replay of the graph counts them
+    (``count_launch(wrapper, n)``)."""
+    outer = getattr(_recording, "counts", None)
+    counts: Dict[object, int] = {}
+    _recording.counts = counts
+    try:
+        yield counts
+    finally:
+        _recording.counts = outer
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -233,7 +233,7 @@ def stem_weight(w: torch.Tensor) -> torch.Tensor:
 def requant_plain(y: torch.Tensor, inv: float) -> torch.Tensor:
     """fp32 y -> ``clip(round(y * inv), -127, 127)`` as int8 (round half to
     even), ``inv`` an fp32 value."""
-    inv_t = torch.tensor(inv, dtype=torch.float32, device=y.device)
+    inv_t = torch.full((), inv, dtype=torch.float32, device=y.device)  # a fill: no host copy
     return torch.clamp(torch.round(y * inv_t), -127, 127).to(torch.int8)
 
 

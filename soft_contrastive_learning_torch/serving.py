@@ -24,7 +24,8 @@ refuse gets a 400 with the reason, before any launch. An upload of another size 
 model's is resized by ``utils/cv.py::resize_linear``, as JAX's by
 ``cv2.resize``. With ``quant_scales`` (a dict of ``models/quant.py`` scales, as
 ``cli quant`` writes them) the service embeds through the int8-PTQ stack
-(Q1 on a CUDA device). The index is copied to the device once. A search over more than
+(Q1 on a CUDA device), on a card one CUDA graph replay a batch, captured
+when the service is built (``evaluation/inference.py``). The index is copied to the device once. A search over more than
 ``STREAM_MIN_ROWS`` rows with k <= 128 streams the index through K2
 (``ops/topk.py::topk_l2_streamed``); smaller ones take the dense path.
 With a mesh the extractor splits each batch over the ranks and every rank

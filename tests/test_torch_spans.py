@@ -220,8 +220,9 @@ def test_a_search_is_split_into_its_spans_under_one_request(service, events):
     assert all(a[3] <= b[2] for a, b in zip(top, top[1:]))
     counts = {c[0]: (c[3], c[4]) for c in events.counts()}
     rid = rids.pop()
+    # one eager batch (the float path): no graph replay
     assert counts == {"embed.images": (4, rid), "embed.padded": (12, rid),
-                      "serve.requests": (1, rid)}
+                      "embed.graph_replays": (0, rid), "serve.requests": (1, rid)}
 
 
 def test_a_refused_upload_is_spanned_but_not_served(service, events):
